@@ -1,0 +1,265 @@
+"""The paper's approach 1 (alg. 1, selective-gradient federated server
+discriminator) as a PyTorch round body (port of the reference's
+``core/approaches.py:48-283, 291-328``).  Approaches 2/3 and the
+single-node baseline come in a later slice (ROADMAP queue A item 5).
+
+State layout, as in the reference:
+
+    DistGANState(g, g_opt, ds, d_opts, server_d, step, generator)
+
+``ds`` holds the U local discriminators stacked on a leading user axis
+(``w (U, in, out)``); user u's real data enters only through slice u of
+``real (U, B, data_dim)``.  The reference's ``vmap`` over users is a
+batched matmul over that leading axis, and one backward pass over the sum
+of the per-user losses gives each user exactly its own gradient (the
+users share no parameter).
+
+The body updates D, G, the server D and every optimizer buffer IN PLACE,
+where the reference donates the state to its jitted step
+(``approaches.py:163-167``, ``engine.py:101``).  Noise (the two latent
+batches and the stochastic-rounding seed) is drawn from the state's host
+``torch.Generator`` and moved to the device, so a run's draws do not
+depend on the device; the tests inject the reference's own draws
+instead (``z1``, ``z2``, ``seed``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import losses
+from repro_torch.core.federated import (codec_transport, make_flat_layout,
+                                        select_delta_flat)
+from repro_torch.core.spec import register_approach, resolve_combiner
+from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.optim import adamw, apply_updates
+
+
+@dataclasses.dataclass
+class DistGANState:
+    g: Any
+    g_opt: Any
+    ds: Any          # stacked (U, ...) local discriminators
+    d_opts: Any      # stacked optimizer states (step is (U,))
+    server_d: Any    # approach 1's server discriminator
+    step: torch.Tensor
+    generator: torch.Generator   # host generator for the round noise
+
+
+@dataclasses.dataclass(frozen=True)
+class DistGANConfig:
+    num_users: int = 2
+    g_lr: float = 2e-4
+    d_lr: float = 2e-4
+    b1: float = 0.5          # paper-era DCGAN Adam betas
+    b2: float = 0.999
+    selection: str = "topk"  # approach 1 upload policy
+    upload_frac: float = 0.1
+    combiner: str = "max_abs"
+    server_scale: float = 1.0  # fold factor for combined deltas
+    staleness_decay: float = 0.5  # delta age discount (staleness_* combiners)
+    use_topk_kernel: bool = True  # Hopper top-k + int8 codec kernels
+    loss_type: str = "bce"     # bce (paper); wgan comes with approach 2/3
+    wgan_clip: float = 0.05
+    codec: str = "none"        # upload wire codec (spec.CODECS)
+    error_feedback: bool = True   # EF-SGD residual for lossy codecs
+    codec_stochastic: bool = False  # stochastic rounding (int8 codecs)
+    stage_rows: bool = False   # host/SPMD backends only
+
+
+def _opts(fcfg: DistGANConfig):
+    g_opt = adamw(fcfg.g_lr, b1=fcfg.b1, b2=fcfg.b2)
+    d_opt = adamw(fcfg.d_lr, b1=fcfg.b1, b2=fcfg.b2)
+    return g_opt, d_opt
+
+
+def init_state(pair, fcfg: DistGANConfig, seed: int, device, *,
+               sync_ds: bool = False) -> DistGANState:
+    """Fresh state.  G and D are drawn from a host generator seeded with
+    ``seed`` (so the weights are the same on every device); the round
+    noise generator continues that stream.  ``sync_ds=True`` (approach 1):
+    local Ds start at the server weights (paper §3.1 step 1); otherwise
+    each user draws its own D."""
+    if fcfg.loss_type != "bce":
+        raise NotImplementedError(
+            "the WGAN losses come with approaches 2/3 (ROADMAP queue A "
+            "item 5)")
+    gen = torch.Generator().manual_seed(seed)
+    g_opt_def, d_opt_def = _opts(fcfg)
+    g, d0 = pair.init(gen, device)
+    u = fcfg.num_users
+    if sync_ds:
+        ds = tree_map(lambda s: s.unsqueeze(0).repeat((u,) + (1,) * s.ndim),
+                      d0)
+    else:
+        users = [pair.init(gen, device)[1] for _ in range(u)]
+        ds = tree_map(lambda *leaves: torch.stack(leaves), *users)
+    return DistGANState(g, g_opt_def.init(g), ds, d_opt_def.init(ds, (u,)),
+                        d0, torch.zeros((), dtype=torch.int32, device=device),
+                        gen)
+
+
+def d_flat_layout(pair):
+    """FlatLayout of one discriminator of ``pair`` (shapes only)."""
+    shapes = tree_map(lambda d: torch.empty(d.shape, device="meta"),
+                      pair.d_decls)
+    return make_flat_layout(shapes)
+
+
+def _grad(loss_fn, params):
+    """(loss, grads) of ``loss_fn(params)`` w.r.t. every leaf, taken on
+    detached copies so the caller can update ``params`` in place."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    proxy = tree_map(lambda _: next(it), params)
+    loss = loss_fn(proxy)
+    grads = torch.autograd.grad(loss.sum(), leaves)
+    git = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(git), params)
+
+
+def _d_update_fn(pair, d_opt_def):
+    """All users' D steps at once: ``ds``/``opts`` stacked on the user
+    axis, ``real (U, B, ...)``, one shared ``fake (B, ...)``."""
+
+    def update(ds, opts, real, fake):
+        def loss_fn(dp):
+            return losses.d_loss(pair.d_apply(dp, real),
+                                 pair.d_apply(dp, fake))      # (U,)
+        loss, grads = _grad(loss_fn, ds)
+        apply_updates(ds, d_opt_def.update(grads, opts, ds))
+        return loss
+    return update
+
+
+def _copy_into(dst_tree, src_tree) -> None:
+    for d, s in zip(tree_leaves(dst_tree), tree_leaves(src_tree)):
+        d.copy_(s)
+
+
+# ---------------------------------------------------------------------------
+# Approach 1: selective-gradient federated server discriminator
+# ---------------------------------------------------------------------------
+
+def make_approach1_body(pair, fcfg: DistGANConfig):
+    g_opt_def, d_opt_def = _opts(fcfg)
+    d_update = _d_update_fn(pair, d_opt_def)
+    combiner = resolve_combiner(fcfg.combiner)
+    layout = d_flat_layout(pair)
+    lossy = fcfg.codec != "none"
+    ef = lossy and fcfg.error_feedback
+
+    def body(state: DistGANState, real, ages=None, weights=None,
+             residual=None, *, z1=None, z2=None, seed=None):
+        """real: (C, B, ...) private batches of the participating users.
+        ``ages`` (C,) feeds the staleness-aware combiners, ``weights`` (C,)
+        scales each member's upload before the fold, ``residual`` (C, N)
+        is each member's error-feedback row (passed iff the codec is
+        lossy and error feedback is on; the body then returns
+        ``(state, metrics, new_residual)``).  ``z1``/``z2`` (B, z_dim) and
+        the int ``seed`` replace the generator's draws when given.
+        Metrics stay on the device."""
+        assert (residual is not None) == ef, \
+            "residual rows are passed iff a lossy codec runs with " \
+            "error feedback"
+        dev = real.device
+        B, U = real.shape[1], real.shape[0]
+        gen = state.generator
+        if z1 is None:
+            z1 = pair.sample_z(gen, B)
+        if z2 is None:
+            z2 = pair.sample_z(gen, B)
+        if lossy and fcfg.codec_stochastic and seed is None:
+            seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+        z1, z2 = z1.to(dev), z2.to(dev)
+
+        with torch.no_grad():
+            fake = pair.g_apply(state.g, z1)
+            old_flat = layout.flatten_stacked(state.ds)        # (C, N) copy
+        d_losses = d_update(state.ds, state.d_opts, real, fake)
+
+        with torch.no_grad():
+            # users upload selected deltas; the server folds them (alg. 1
+            # lines 3-5) — one (C, N) subtract, one row-batched selection,
+            # one argmax-|.| over a contiguous buffer
+            delta = layout.flatten_stacked(state.ds) - old_flat
+            if ef:
+                # EF-SGD: re-add what last round's compression dropped
+                # before selection
+                delta = delta + residual
+            masked, kept = select_delta_flat(
+                delta, fcfg.selection, frac=fcfg.upload_frac, generator=gen,
+                use_kernel=fcfg.use_topk_kernel)
+            if lossy:
+                masked = codec_transport(masked, fcfg.codec,
+                                         stochastic=fcfg.codec_stochastic,
+                                         seed=seed,
+                                         use_kernel=fcfg.use_topk_kernel)
+            if ef:
+                new_residual = delta - masked
+            if weights is not None:
+                masked = masked * weights[:, None]
+            if getattr(combiner, "needs_ages", False):
+                combined = combiner(masked, ages, decay=fcfg.staleness_decay)
+            else:
+                combined = combiner(masked)                    # (N,)
+            server_flat = (layout.flatten(state.server_d)
+                           + fcfg.server_scale * combined)
+            _copy_into(state.server_d, layout.unflatten(server_flat))
+            # download phase (paper §3.1): local models re-sync to the
+            # server so next round's deltas are w.r.t. the shared point
+            for d, s in zip(tree_leaves(state.ds),
+                            tree_leaves(state.server_d)):
+                d.copy_(s.unsqueeze(0).expand_as(d))
+
+        # G trains against the server D only (alg. 1 lines 7-10)
+        server_d = state.server_d
+
+        def g_loss(gp):
+            s = pair.d_apply(server_d, pair.g_apply(gp, z2))
+            return losses.g_loss_nonsat(s)
+
+        gl, grads = _grad(g_loss, state.g)
+        with torch.no_grad():
+            apply_updates(state.g, g_opt_def.update(grads, state.g_opt,
+                                                    state.g))
+            state.step += 1
+        metrics = {"d_loss": d_losses, "g_loss": gl,
+                   "kept_frac": torch.mean(kept)}
+        if ef:
+            return state, metrics, new_residual
+        return state, metrics
+
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Approach 1 variant: download-first sync
+# ---------------------------------------------------------------------------
+
+def make_download_first_body(pair, fcfg: DistGANConfig):
+    """Approach 1 with a download phase BEFORE local training: every member
+    overwrites its local D with the current server D, then trains and
+    uploads; ages are zeroed for the combiner.  Under full participation
+    every member re-synced last round, so this equals ``approach1``."""
+    base = make_approach1_body(pair, fcfg)
+
+    def body(state: DistGANState, real, ages=None, weights=None,
+             residual=None, **noise):
+        with torch.no_grad():
+            for d, s in zip(tree_leaves(state.ds),
+                            tree_leaves(state.server_d)):
+                d.copy_(s.unsqueeze(0).expand_as(d))
+        zero_ages = None if ages is None else torch.zeros_like(ages)
+        return base(state, real, zero_ages, weights, residual, **noise)
+
+    return body
+
+
+register_approach("approach1", make_approach1_body, sync_ds=True,
+                  uploads=True)
+register_approach("download_first", make_download_first_body, sync_ds=True,
+                  uploads=True)

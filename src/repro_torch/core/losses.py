@@ -1,0 +1,29 @@
+"""GAN losses (port of the reference's ``core/losses.py``).
+
+D emits logits; BCE-with-logits is written in the reference's form
+``max(l, 0) - l*t + log1p(exp(-|l|))``.  The WGAN losses wait for the
+approach-2/3 slice.  Losses reduce over the LAST axis, so a ``(U, B)``
+stack of per-user logits gives ``(U,)`` per-user losses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bce_with_logits(logits, targets):
+    """Elementwise binary cross-entropy on logits."""
+    return (torch.clamp(logits, min=0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def d_loss(real_logits, fake_logits):
+    """Discriminator loss: real->1, fake->0 (mean over the last axis)."""
+    lr = bce_with_logits(real_logits, torch.ones_like(real_logits))
+    lf = bce_with_logits(fake_logits, torch.zeros_like(fake_logits))
+    return lr.mean(-1) + lf.mean(-1)
+
+
+def g_loss_nonsat(fake_logits):
+    """Non-saturating generator loss: fake->1."""
+    return bce_with_logits(fake_logits, torch.ones_like(fake_logits)).mean(-1)

@@ -1,0 +1,331 @@
+"""FederationSession: the executor behind FederationSpec (port of the
+reference's ``core/session.py:75-233, 533-802, 1123-1338``).
+
+A session binds a :class:`repro_torch.core.spec.FederationSpec` to the
+runtime objects a spec cannot serialize (the G/D ``pair``, the
+``DistGANConfig``, the ``FederatedDataset``) and owns the mutable run
+state: the training state, the data RNG stream and the round counter.
+``run(rounds)`` advances the federation by a window of rounds and returns
+that window's :class:`RunResult`; windowing does not change the
+trajectory (``run(5); run(6)`` equals ``run(11)`` bitwise).
+
+This slice ports the ``device`` backend in its ``fused`` and
+``per_step`` modes.  ``save``/``restore`` and the cohort, host and
+streaming drivers come in later slices (ROADMAP queue A items 4-8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import typing
+
+import numpy as np
+import torch
+
+from repro_torch.core.approaches import DistGANConfig, d_flat_layout, init_state
+from repro_torch.core.engine import make_engine
+from repro_torch.core.federated import upload_bytes_flat
+from repro_torch.core.spec import (FederationSpec, register_backend,
+                                   resolve_approach, resolve_backend)
+from repro_torch.device import resolve_device
+from repro_torch.models.common import tree_map
+
+# pre-stage a whole window's batches on the device when below this (else
+# the fused engine stages chunk by chunk)
+_STAGE_CAP_BYTES = 256 * 1024 * 1024
+
+
+@dataclasses.dataclass
+class RunResult:
+    g_losses: np.ndarray           # (steps,)
+    d_losses: np.ndarray           # (steps, U)
+    wall_time_s: float
+    step_time_s: float             # steady-state per-round (after chunk 0)
+    samples: np.ndarray | None
+    state: typing.Any              # DistGANState
+    extra: dict
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _drive_chunks(run_chunk, carry, steps: int, rpj: int, device):
+    """Warmup + timed chunk loop.  The first chunk (``min(rpj, steps)``
+    rounds) pays the kernels' first-use build and the allocator's
+    warm-up and is timed apart as ``compile_s``.  Returns ``(carry,
+    chunks, compile_s, steady_s, window_rates)``; ``window_rates`` holds
+    per-round seconds of each full post-warmup chunk."""
+    k0 = min(rpj, steps)
+    t0 = time.perf_counter()
+    carry, m0 = run_chunk(0, k0, carry)
+    compile_s = time.perf_counter() - t0
+    chunks = [m0]
+
+    t1 = time.perf_counter()
+    i = k0
+    window_rates = []
+    while i < steps:
+        k = min(rpj, steps - i)
+        tc = time.perf_counter()
+        carry, m = run_chunk(i, k, carry)
+        if k == rpj:
+            window_rates.append((time.perf_counter() - tc) / k)
+        chunks.append(m)
+        i += k
+    _sync(device)
+    steady = time.perf_counter() - t1
+    return carry, chunks, compile_s, steady, window_rates
+
+
+def _upload_accounting(pair, fcfg: DistGANConfig, approach, C: int,
+                       kept_frac: float) -> dict:
+    """Per-round upload bytes for delta-uploading approaches: C members
+    upload per round; the codec reprices the payload
+    (``upload_bytes_flat``)."""
+    if not resolve_approach(approach).uploads:
+        return {}
+    n = d_flat_layout(pair).n
+    kf = kept_frac if fcfg.selection == "threshold" else None
+    per_user = upload_bytes_flat(n, fcfg.selection, fcfg.upload_frac,
+                                 kept_frac=kf, codec=fcfg.codec)
+    lossy = fcfg.codec != "none"
+    return {"upload_bytes_per_user": per_user,
+            "upload_bytes_per_round": C * per_user,
+            "compression": {
+                "codec": fcfg.codec,
+                "error_feedback": bool(lossy and fcfg.error_feedback),
+                "stochastic": bool(lossy and fcfg.codec_stochastic),
+                "stage_rows": False}}
+
+
+def _fetch(metrics: dict) -> dict:
+    """Device metrics -> numpy (one host sync for the whole dict)."""
+    return {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# Backend drivers
+# ---------------------------------------------------------------------------
+
+class DeviceBackendDriver:
+    """Device-resident state under full participation: the chunked
+    ``fused`` engine, or the ``per_step`` loop that stages data, runs and
+    fetches metrics one round at a time (the comparison target).  A
+    backend driver is built as ``driver_cls(session)`` and offers ``run``,
+    ``generator_params`` and ``user_d_flat``."""
+
+    def __init__(self, sess: "FederationSession"):
+        self.sess = sess
+        pair, fcfg, sp = sess.pair, sess.fcfg, sess.spec
+        self.mode = sp.engine.kind
+        if self.mode == "fused":
+            self.eng = make_engine(pair, fcfg, sp.approach)
+        else:
+            self.step_fn = sess.approach.body_factory(pair, fcfg)
+        self.state = init_state(pair, fcfg, sp.seed, sess.device,
+                                sync_ds=sess.approach.sync_ds)
+
+    def generator_params(self):
+        return self.state.g
+
+    def user_d_flat(self, user_id: int) -> np.ndarray:
+        row = tree_map(lambda x: x[user_id], self.state.ds)
+        return d_flat_layout(self.sess.pair).flatten(row).cpu().numpy()
+
+    def run(self, rounds: int) -> RunResult:
+        if self.mode == "fused":
+            return self._run_fused(rounds)
+        return self._run_per_step(rounds)
+
+    def _result(self, g_losses, d_losses, kept, compile_s, steady,
+                step_denom, min_step_s, engine) -> RunResult:
+        sess = self.sess
+        return RunResult(
+            g_losses=g_losses, d_losses=d_losses,
+            wall_time_s=compile_s + steady,
+            step_time_s=steady / step_denom,
+            samples=sess._eval_samples(self.state.g),
+            state=self.state,
+            extra={"compile_s": compile_s, "kept_frac": float(kept[-1]),
+                   "engine": engine, "min_step_time_s": min_step_s,
+                   "device": str(sess.device),
+                   **_upload_accounting(sess.pair, sess.fcfg,
+                                        sess.spec.approach,
+                                        sess.fcfg.num_users,
+                                        float(np.mean(kept)))})
+
+    def _run_fused(self, rounds: int) -> RunResult:
+        sess = self.sess
+        rpj = sess.spec.engine.rounds_per_jit
+        prestage = rounds * sess._probe_nbytes_full() <= _STAGE_CAP_BYTES
+        if prestage:
+            staged = torch.from_numpy(np.stack(
+                [sess._batch_full() for _ in range(rounds)])).to(sess.device)
+
+        def run_chunk(start: int, k: int, state):
+            if prestage:
+                reals = staged[start:start + k]
+            else:
+                reals = torch.from_numpy(np.stack(
+                    [sess._batch_full() for _ in range(k)])).to(sess.device)
+            state, m = self.eng(state, reals)
+            return state, _fetch(m)        # one host sync per chunk
+
+        state, chunks, compile_s, steady, rates = _drive_chunks(
+            run_chunk, self.state, rounds, rpj, sess.device)
+        self.state = state
+        cat = lambda key: np.concatenate([c[key] for c in chunks])
+        step_denom = max(rounds - rpj, 1)
+        return self._result(cat("g_loss"), cat("d_loss"), cat("kept_frac"),
+                            compile_s, steady, step_denom,
+                            min(rates) if rates else steady / step_denom,
+                            "fused")
+
+    def _run_per_step(self, rounds: int) -> RunResult:
+        sess = self.sess
+        state = self.state
+        g_list, d_list, kept = [], [], []
+
+        def one(state):
+            real = torch.from_numpy(sess._batch_full()).to(sess.device)
+            state, m = self.step_fn(state, real)
+            m = _fetch(m)
+            g_list.append(float(m["g_loss"]))
+            d_list.append(m["d_loss"])
+            kept.append(float(m["kept_frac"]))
+            return state
+
+        t0 = time.perf_counter()
+        state = one(state)
+        compile_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        round_times = []
+        for _ in range(1, rounds):
+            tr = time.perf_counter()
+            state = one(state)
+            round_times.append(time.perf_counter() - tr)
+        _sync(sess.device)
+        steady = time.perf_counter() - t1
+        self.state = state
+        step_denom = max(rounds - 1, 1)
+        return self._result(np.asarray(g_list), np.stack(d_list),
+                            np.asarray(kept), compile_s, steady, step_denom,
+                            min(round_times) if round_times else steady,
+                            "per_step")
+
+
+register_backend("device", DeviceBackendDriver, streams=False)
+
+
+# ---------------------------------------------------------------------------
+# The session
+# ---------------------------------------------------------------------------
+
+class FederationSession:
+    """Incrementally driven federation run described by a
+    :class:`FederationSpec`.  ``fcfg.combiner`` / ``staleness_decay`` and
+    the codec fields are overridden by the spec's :class:`CombineSpec`.
+    ``device`` is CUDA unless the caller passes ``"cpu"``."""
+
+    def __init__(self, pair, fcfg: DistGANConfig, dataset,
+                 spec: FederationSpec, *, device=None):
+        spec.validate_against(fcfg.num_users)
+        self.device = resolve_device(device)
+        self.pair = pair
+        self.dataset = dataset
+        self.spec = spec
+        comp = spec.combine.compression
+        if comp.codec == "topk_int8" and fcfg.selection not in (
+                "topk", "threshold"):
+            raise ValueError(
+                f"codec='topk_int8' composes int8 transport with a sparse "
+                f"selection, but fcfg.selection={fcfg.selection!r} keeps a "
+                f"dense/random payload — use codec='int8' instead")
+        self.fcfg = dataclasses.replace(
+            fcfg, combiner=spec.combine.combiner,
+            staleness_decay=spec.combine.staleness_decay,
+            codec=comp.codec, error_feedback=comp.error_feedback,
+            codec_stochastic=comp.stochastic, stage_rows=comp.stage_rows)
+        self.approach = resolve_approach(spec.approach)
+        self.round = 0
+        self.data_rng = np.random.default_rng(spec.seed)
+        self._probe_nbytes: int | None = None
+        self._eval_override: int | None = None
+        self._driver = resolve_backend(spec.backend.kind).driver_cls(self)
+
+    # -- host-side sampling ------------------------------------------------
+
+    def _batch_full(self) -> np.ndarray:
+        """One full-participation round of data: (U, B, ...) per-user
+        batches, drawn from ``data_rng`` user by user, as f32 (the
+        reference's arrays are f32)."""
+        B = self.spec.batch_size
+        return np.stack([np.asarray(self.dataset.user_batch(u, self.data_rng,
+                                                            B))
+                         for u in range(self.fcfg.num_users)]
+                        ).astype(np.float32, copy=False)
+
+    def _probe_nbytes_full(self) -> int:
+        """nbytes of one round's batch, sampled from a throwaway rng so the
+        real data stream is untouched (cached — shapes are fixed)."""
+        if self._probe_nbytes is None:
+            saved = self.data_rng
+            self.data_rng = np.random.default_rng(self.spec.seed)
+            try:
+                self._probe_nbytes = int(self._batch_full().nbytes)
+            finally:
+                self.data_rng = saved
+        return self._probe_nbytes
+
+    def _eval_samples(self, g_params) -> np.ndarray | None:
+        n = (self.spec.eval_samples if self._eval_override is None
+             else self._eval_override)
+        if not n:
+            return None
+        gen = torch.Generator().manual_seed(self.spec.seed + 1)
+        with torch.no_grad():
+            z = self.pair.sample_z(gen, n, self.device)
+            return self.pair.g_apply(g_params, z).cpu().numpy()
+
+    # -- serve handles -----------------------------------------------------
+
+    def generator_params(self):
+        """The live generator parameter dict."""
+        return self._driver.generator_params()
+
+    def user_d_flat(self, user_id: int) -> np.ndarray:
+        """User ``user_id``'s flat (Nd,) discriminator row (FlatLayout
+        order)."""
+        if not 0 <= int(user_id) < self.fcfg.num_users:
+            raise ValueError(f"user_id {user_id} out of range "
+                             f"[0, {self.fcfg.num_users})")
+        return self._driver.user_d_flat(int(user_id))
+
+    # -- execution ---------------------------------------------------------
+
+    def run(self, rounds: int, *, eval_samples: int | None = None,
+            autosave_every: int | None = None,
+            autosave_path: str | None = None) -> RunResult:
+        """Advance the federation by ``rounds`` rounds and return the
+        window's RunResult.  ``eval_samples`` overrides the spec's value
+        for this window only.  Autosave needs ``save``, which comes with
+        the checkpoint slice."""
+        assert isinstance(rounds, int) and rounds >= 1, rounds
+        if autosave_every is not None or autosave_path is not None:
+            raise NotImplementedError(
+                "save/restore and autosave are not ported to repro_torch "
+                "yet (ROADMAP queue A item 7)")
+        return self._run_window(rounds, eval_samples)
+
+    def _run_window(self, rounds: int,
+                    eval_samples: int | None) -> RunResult:
+        self._eval_override = eval_samples
+        try:
+            result = self._driver.run(rounds)
+        finally:
+            self._eval_override = None
+        self.round += rounds
+        return result

@@ -1,0 +1,109 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root
+(a directory ``.gitignore`` lists).  The hash covers the source and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: the first launch builds, or
+:func:`build_all` builds every source at once, one ``nvcc`` process each,
+all started together.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` (the reference rounds
+each operation separately, so no FMA contraction), no fast math.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}     # name -> nvcc/ptxas output of the build
+
+
+def sources() -> list[str]:
+    """Kernel source names (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH):"
+                           " the port's CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is already built;
+    returns (target, process or None)."""
+    target = _target(name)
+    if target.exists():
+        return target, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return target, (proc, tmp)
+
+
+def _finish(name: str, target: Path, started) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    out, _ = proc.communicate()
+    build_logs[name] = out
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all() -> float:
+    """Build every kernel source in parallel; returns the wall seconds."""
+    t0 = time.perf_counter()
+    with _lock:
+        started = {n: _start(n) for n in sources()}
+        for n, (target, st) in started.items():
+            _finish(n, target, st)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            target, st = _start(name)
+            _finish(name, target, st)
+            lib = ctypes.CDLL(str(target))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero CUDA error code returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

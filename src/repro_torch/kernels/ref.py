@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the Hopper kernels (port of the reference's
+``kernels/ref.py:15-51``).
+
+These are the oracles every kernel is held to, bitwise, and the path a
+CPU tensor takes through ``kernels/ops.py``.  They repeat the reference's
+eager arithmetic operation by operation:
+
+* divisions are tensor-by-tensor (a division by a Python scalar may be
+  lowered to a multiply by its reciprocal, which rounds differently);
+* ``torch.round`` is half-to-even, like ``jnp.round``;
+* the stochastic-rounding hash runs in int64 with ``& 0xFFFFFFFF`` after
+  every step, which reproduces uint32 wraparound on any device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``(h * c) mod 2**32`` for int64 ``h`` in [0, 2**32) without int64
+    overflow: split ``c`` into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def hash_u01(row: torch.Tensor, col: torch.Tensor, seed: int) -> torch.Tensor:
+    """The reference's counter hash ``_hash_u01`` (``quantize.py:37-49``):
+    uint32 xorshift-multiply mix of (row, column, seed) -> f32 in [0, 1)."""
+    s = int(seed) & _M32
+    h = (_mul32(col.to(torch.int64), 0x9E3779B1)
+         + _mul32(row.to(torch.int64), 0x85EBCA77)
+         + ((s * 0xC2B2AE3D) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return h.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
+                      seed=None):
+    """(R, N) f32 -> (q int8 (R, N), scale f32 (R,)):
+    ``scale = max|x[r]| / 127``, ``inv = where(scale > 0, 1/scale, 0)``,
+    ``q = clip(round(x * inv), -127, 127)`` (or stochastic rounding keyed
+    by the counter hash)."""
+    x = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x), dim=1)
+    scale = absmax / torch.full_like(absmax, 127.0)
+    inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
+                      torch.zeros_like(scale))
+    y = x * inv[:, None]
+    if stochastic:
+        assert seed is not None, "stochastic rounding needs a seed"
+        y = torch.clamp(y, -127.0, 127.0)
+        f = torch.floor(y)
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        cols = torch.arange(x.shape[1], device=x.device)[None, :]
+        u = hash_u01(rows.expand(x.shape), cols.expand(x.shape), seed)
+        q = f + (u < (y - f)).to(torch.float32)
+        return torch.clamp(q, -127.0, 127.0).to(torch.int8), scale
+    return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8), scale
+
+
+def dequantize_rows_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q * scale[r]`` as f32."""
+    return q.to(torch.float32) * scale.to(torch.float32)[:, None]
+
+
+def topk_k(n: int, frac: float) -> int:
+    """``k = max(int(n * frac), 1)`` with Python float semantics, exactly
+    as the reference computes it (``topk_select.py:121``)."""
+    return max(int(n * frac), 1)
+
+
+def topk_mask_global_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Row-wise full-vector top-k: keep entries with ``|x| >=`` the k-th
+    largest magnitude of their row (ties kept).  ``x`` is (N,) or (C, N)."""
+    k = topk_k(x.shape[-1], frac)
+    mag = torch.abs(x)
+    kth = torch.topk(mag, k, dim=-1).values[..., -1:]
+    return mag >= kth

@@ -6,6 +6,11 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (skips without them)")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.key(0)

@@ -1,0 +1,84 @@
+"""The Hopper kernels held BITWISE to their plain PyTorch versions on the
+card, and the main path's kernel routing on a CUDA session.
+
+Every test here needs a CUDA device and nvcc: it carries the ``cuda``
+marker and skips without a card.  The file imports no JAX, so it runs on
+a machine that has none (``tests/conftest.py`` imports JAX, hence
+``--noconftest`` there):
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import topk_select as ttopk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the Hopper kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _rows(shape, seed, scale=1.0):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        scale=scale, size=shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [100, 5000, 8192 + 17, 267009])
+@pytest.mark.parametrize("frac", [0.01, 0.1, 1.0])
+def test_topk_kernel_matches_plain_bitwise(cuda, n, frac):
+    x = _rows((8, n), n).to(cuda)
+    x[1] = torch.round(x[1] * 4) / 4           # ties
+    x[2] = 0.0                                 # all-zero row: t = 0
+    x[3] = -0.5                                # all-equal row
+    got = ttopk.topk_mask_rows(x, frac)
+    assert torch.equal(got, ref.topk_mask_global_ref(x, frac))
+    assert got[2].all()
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("n", [77, 1000, 267009])
+def test_codec_kernels_match_plain_bitwise(cuda, stochastic, n):
+    x = _rows((8, n), n, scale=0.1).to(cuda)
+    x[1, : n // 2] = 0.0
+    x[2] = 0.0
+    seed = 2**31 - 2 if stochastic else None
+    q, s = tquant.quantize_rows(x, stochastic=stochastic, seed=seed)
+    qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(tquant.dequantize_rows(q, s),
+                       ref.dequantize_rows_ref(qr, sr))
+
+
+def test_max_abs_fold_takes_first_user_on_ties_on_the_card(cuda):
+    """``torch.argmax`` keeps the first maximal index on the card too, so
+    the fold equals the CPU's (which tests/test_torch_federated.py holds
+    to the reference) on rows that tie, also across signs."""
+    from repro_torch.core.federated import combine_max_abs
+    x = torch.round(_rows((4, 5000), 3) * 4) / 4
+    x[2, :500] = -x[0, :500]
+    x[3, 500:1000] = x[1, 500:1000]
+    assert torch.equal(combine_max_abs(x.to(cuda)).cpu(), combine_max_abs(x))
+
+
+def test_cuda_tensors_launch_the_kernels(cuda):
+    """``kernels.ops`` sends a CUDA tensor to the kernel (counted), never to
+    the plain version."""
+    ops.reset_launch_counts()
+    x = _rows((3, 5000), 1).to(cuda)
+    ops.topk_mask(x, 0.1)
+    ops.dequantize_rows(*ops.quantize_rows(x, stochastic=True, seed=5))
+    assert ops.launch_counts() == {"topk_mask_rows": 1, "quantize_rows": 1,
+                                   "dequantize_rows": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        ttopk.topk_mask_rows(x.t(), 0.1)
+    with pytest.raises(ValueError):
+        ttopk.topk_mask_rows(x.double(), 0.1)

@@ -1,0 +1,165 @@
+"""The port's flat-row federation pieces and data plumbing held to the JAX
+reference: FlatLayout order, selection, codecs, combiners and the upload
+pricing table on the same inputs (bitwise where the arithmetic is the
+same operation sequence), and the numpy data copies (bitwise batches)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import federated as jfed
+from repro.core.approaches import d_flat_layout as jax_d_flat_layout
+from repro.core.gan import MLPGanConfig as JaxMLPCfg
+from repro.core.gan import make_mlp_pair as jax_make_mlp_pair
+from repro.data import federated as jdata
+from repro.data import mixtures as jmix
+from repro_torch.core import federated as tfed
+from repro_torch.core.approaches import d_flat_layout
+from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+from repro_torch.data import federated as tdata
+from repro_torch.data import mixtures as tmix
+
+SMALL = dict(data_dim=64, z_dim=16, g_hidden=32, d_hidden=32)
+
+
+def _rows(c=3, n=2000, seed=0):
+    x = np.random.default_rng(seed).normal(scale=0.01, size=(c, n)
+                                           ).astype(np.float32)
+    return x
+
+
+def test_flat_layout_order_matches_reference_bitwise():
+    """Bias before weight in sorted-key order; converted params flatten to
+    exactly the reference's flat row."""
+    jpair = jax_make_mlp_pair(JaxMLPCfg(**SMALL))
+    _, d = jpair.init(jax.random.key(0))
+    want = np.array(jax_d_flat_layout(jpair).flatten(d))
+    layout = d_flat_layout(make_mlp_pair(MLPGanConfig(**SMALL)))
+    td = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), d)
+    got = layout.flatten(td).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert layout.n == jax_d_flat_layout(jpair).n
+    assert [p for p in layout.paths] == [("l1", "b"), ("l1", "w"),
+                                         ("l2", "b"), ("l2", "w"),
+                                         ("l3", "b"), ("l3", "w")]
+    back = layout.unflatten(torch.from_numpy(want))
+    for k in d:
+        for leaf in d[k]:
+            np.testing.assert_array_equal(back[k][leaf].numpy(),
+                                          np.asarray(d[k][leaf]))
+    stacked = layout.unflatten_stacked(torch.from_numpy(np.stack([want] * 2)))
+    np.testing.assert_array_equal(
+        layout.flatten_stacked(stacked).numpy(), np.stack([want] * 2))
+
+
+def test_select_rows_match_per_row_reference_bitwise():
+    x = _rows()
+    got, kept = tfed.select_delta_flat(torch.from_numpy(x), "topk", frac=0.1,
+                                       use_kernel=True)
+    for r in range(x.shape[0]):
+        m, k = jfed.select_delta_flat(jnp.asarray(x[r]), "topk", frac=0.1,
+                                      use_kernel=True)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(m))
+        assert float(kept[r]) == pytest.approx(float(k), abs=1e-7)
+
+
+def test_combine_max_abs_matches_reference_on_ties():
+    """Rows that tie in magnitude (also with opposite signs): the first
+    user wins, as with jnp.argmax."""
+    x = np.round(_rows(4, 500, 1) * 400) / 4
+    x[2, :50] = -x[0, :50]                 # |tie| with opposite sign
+    x[3, 50:100] = x[1, 50:100]            # exact tie
+    want = np.asarray(jfed.combine_max_abs(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        tfed.combine_max_abs(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["mean", "masked_mean", "staleness_mean",
+                                  "staleness_max_abs"])
+def test_other_combiners_match_reference(name):
+    x = _rows(4, 500, 2)
+    x[1, ::3] = 0.0
+    ages = np.array([0, 3, 1, 7], np.int32)
+    jfn, tfn = jfed.COMBINERS[name], getattr(tfed, f"combine_{name}")
+    if getattr(jfn, "needs_ages", False):
+        want = jfn(jnp.asarray(x), jnp.asarray(ages), decay=0.7)
+        got = tfn(torch.from_numpy(x), torch.from_numpy(ages), decay=0.7)
+    else:
+        want, got = jfn(jnp.asarray(x)), tfn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("codec,stochastic", [
+    ("none", False), ("bf16", False), ("int8", False), ("int8", True),
+    ("topk_int8", False), ("topk_int8", True)])
+def test_codec_transport_matches_reference(codec, stochastic):
+    """Bitwise against the reference's eager codec; against its jitted
+    kernel path at that path's own contract (tests/test_compress.py: XLA
+    rewrites /127, so the scale may move by an ULP)."""
+    x = _rows(3, 3000, 4)
+    x[1, ::2] = 0.0
+    seed = 77 if stochastic else None
+    jseed = jnp.int32(77) if stochastic else None
+    for use_kernel in (False, True):
+        got = tfed.codec_transport(torch.from_numpy(x), codec,
+                                   stochastic=stochastic, seed=seed,
+                                   use_kernel=use_kernel).numpy()
+        eager = np.asarray(jfed.codec_transport(
+            jnp.asarray(x), codec, stochastic=stochastic, seed=jseed))
+        np.testing.assert_array_equal(got, eager)
+        jitted = np.asarray(jfed.codec_transport(
+            jnp.asarray(x), codec, stochastic=stochastic, seed=jseed,
+            use_kernel=True))
+        scale = np.abs(x).max(axis=1, keepdims=True) / 127.0
+        assert np.all(np.abs(got - jitted) <= scale * (1 + 1e-6) + 1e-12)
+
+
+@pytest.mark.parametrize("policy", ["none", "topk", "random", "threshold",
+                                    "shared_random"])
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8", "topk_int8"])
+def test_upload_bytes_match_reference(policy, codec):
+    n = 267009
+    kf = 0.137 if policy == "threshold" else None
+    assert tfed.upload_bytes_flat(n, policy, 0.1, kept_frac=kf,
+                                  codec=codec) == \
+        jfed.upload_bytes_flat(n, policy, 0.1, kept_frac=kf, codec=codec)
+
+
+def _digits(mod):
+    rng = np.random.default_rng(0)
+    templates, sample = mod.digits_like_mixture(list(range(10)), size=28)
+    data = sample(rng, 600).reshape(600, -1)
+    labels = rng.integers(0, 10, 600)
+    return templates, data, labels
+
+
+def test_data_batches_match_reference_bitwise():
+    jt, jdat, jlab = _digits(jmix)
+    tt, tdat, tlab = _digits(tmix)
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_array_equal(tdat, jdat)
+    np.testing.assert_array_equal(tlab, jlab)
+    cov_j, best_j = jmix.template_coverage(jdat[:50], jt)
+    cov_t, best_t = tmix.template_coverage(tdat[:50], tt)
+    assert cov_t == cov_j
+    np.testing.assert_array_equal(best_t, best_j)
+    pairs = [
+        (jdata.dirichlet_partition(jdat, jlab, 8, 0.5, seed=3),
+         tdata.dirichlet_partition(tdat, tlab, 8, 0.5, seed=3)),
+        (jdata.federated_split(jdat, jlab, [[0, 1, 2, 3, 4], [5, 6, 7, 8, 9]]),
+         tdata.federated_split(tdat, tlab, [[0, 1, 2, 3, 4], [5, 6, 7, 8, 9]])),
+        (jdata.quantity_skew_partition(jdat, 5, seed=1),
+         tdata.quantity_skew_partition(tdat, 5, seed=1)),
+    ]
+    for jds, tds in pairs:
+        assert tds.meta == jds.meta
+        jr, tr = np.random.default_rng(9), np.random.default_rng(9)
+        for _ in range(3):
+            for u in range(jds.num_users):
+                np.testing.assert_array_equal(tds.user_batch(u, tr, 16),
+                                              jds.user_batch(u, jr, 16))
+        np.testing.assert_array_equal(tds.union_sampler(tr, 32),
+                                      jds.union_sampler(jr, 32))

@@ -1,0 +1,132 @@
+"""The port's kernels held to the JAX reference: the plain PyTorch versions
+(what a CPU tensor runs) equal the reference's eager oracles and its
+interpret-mode Pallas kernels BITWISE — top-k masks including ties and
+degenerate rows, int8 codes, scales and dequantized rows in both rounding
+modes.  The Hopper kernels themselves are held bitwise to the plain
+versions in tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.quantize import (_hash_u01, dequantize_rows_pallas,
+                                    quantize_rows_pallas)
+from repro.kernels.topk_select import BLOCK
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import topk_select as ttopk
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _codec_rows(r=4, n=1000, seed=0):
+    x = np.random.default_rng(seed).normal(scale=0.1, size=(r, n)
+                                           ).astype(np.float32)
+    x[1, :n // 2] = 0.0          # half-sparse row
+    x[2] = 0.0                   # all-zero row (scale 0 path)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# top-k: plain version vs the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [100, 5000, BLOCK, BLOCK + 17, 3 * BLOCK])
+@pytest.mark.parametrize("frac", [0.01, 0.1, 0.5, 1.0])
+def test_topk_plain_matches_reference_bitwise(n, frac):
+    x = _normal((n,), n + int(frac * 100))
+    got = ops.topk_mask(torch.from_numpy(x), frac).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.topk_mask_global_ref(jnp.asarray(x), frac)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.topk_mask(jnp.asarray(x), frac)))
+
+
+@pytest.mark.parametrize("n", [257, 5000, BLOCK + 3])
+@pytest.mark.parametrize("frac", [0.05, 0.3, 0.9])
+def test_topk_plain_keeps_ties_like_reference(n, frac):
+    x = np.round(_normal((n,), n) * 4) / 4
+    got = ops.topk_mask(torch.from_numpy(x), frac).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.topk_mask(jnp.asarray(x), frac)))
+    assert got.sum() >= max(int(n * frac), 1)
+
+
+def test_topk_plain_degenerate_rows():
+    """All-ones, all-zero (threshold 0: every entry kept, kept_frac 1.0),
+    all-equal negative rows."""
+    for x in [np.ones(300), np.zeros(300), -np.ones(300) * 0.5]:
+        x = x.astype(np.float32)
+        got = ops.topk_mask(torch.from_numpy(x), 0.1).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jref.topk_mask_global_ref(jnp.asarray(x), 0.1)))
+    assert ops.topk_mask(torch.zeros(300), 0.1).all()
+
+
+def test_topk_row_batched_equals_per_row_reference():
+    """One (C, N) call equals C per-row reference calls (the reference's
+    per-user list at approaches.py:224-227)."""
+    x = _normal((4, BLOCK + 5), 7)
+    x[1] = np.round(x[1] * 2) / 2          # a row with ties
+    x[3] = 0.0                             # an all-zero row
+    got = ops.topk_mask(torch.from_numpy(x), 0.1).numpy()
+    for r in range(4):
+        np.testing.assert_array_equal(
+            got[r], np.asarray(jops.topk_mask(jnp.asarray(x[r]), 0.1)))
+
+
+# ---------------------------------------------------------------------------
+# int8 codec: plain version vs the reference's eager oracle and kernel
+# ---------------------------------------------------------------------------
+
+def test_hash_matches_reference_uint32_stream():
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 2**31 - 1, 4096).astype(np.int32)
+    cols = rng.integers(0, 2**31 - 1, 4096).astype(np.int32)
+    for seed in (0, 1, 123, 2**31 - 2):
+        want = np.asarray(_hash_u01(jnp.asarray(rows), jnp.asarray(cols),
+                                    jnp.int32(seed)))
+        got = ref.hash_u01(torch.from_numpy(rows), torch.from_numpy(cols),
+                           seed).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("shape", [(4, 1000), (3, BLOCK + 17)])
+def test_quantize_plain_matches_eager_reference_bitwise(stochastic, shape):
+    x = _codec_rows(*shape, seed=shape[1])
+    seed = 123 if stochastic else None
+    jseed = jnp.int32(123) if stochastic else None
+    q, s = ops.quantize_rows(torch.from_numpy(x), stochastic=stochastic,
+                             seed=seed)
+    for qr, sr in (jref.quantize_rows_ref(jnp.asarray(x),
+                                          stochastic=stochastic, seed=jseed),
+                   quantize_rows_pallas(jnp.asarray(x),
+                                        stochastic=stochastic, seed=jseed)):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+        want = np.asarray(jref.dequantize_rows_ref(qr, sr))
+        np.testing.assert_array_equal(ops.dequantize_rows(q, s).numpy(), want)
+        np.testing.assert_array_equal(
+            want, np.asarray(dequantize_rows_pallas(qr, sr)))
+
+
+def test_cpu_tensors_never_reach_the_kernels():
+    """A CPU tensor takes the plain version (no launch is counted); the
+    kernel wrappers themselves refuse a CPU tensor."""
+    ops.reset_launch_counts()
+    x = torch.from_numpy(_codec_rows())
+    ops.topk_mask(x, 0.1)
+    ops.dequantize_rows(*ops.quantize_rows(x))
+    assert ops.launch_counts() == {"topk_mask_rows": 0, "quantize_rows": 0,
+                                   "dequantize_rows": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        ttopk.topk_mask_rows(x, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tquant.quantize_rows(x)
