@@ -10,22 +10,41 @@ it goes wrong:
    torch and CUDA versions;
 2. build — every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, all sources at once;
-3. kernels — each Hopper kernel on the card at the main path's shape
-   (8 user rows of the 784/256/256 MLP discriminator, N = 267,009 f32,
-   upload fraction 0.1) and on edge cases, held BITWISE to its plain
-   PyTorch version on the same inputs; CUDA-event times (median of 30
-   after warm-up) of the kernel, the plain version and, where one exists,
-   the single PyTorch call computing the same function; the least time
-   the card needs for the bytes each must move;
-4. main path — ``FederationSession`` approach-1 federation at the paper's
-   full MLP width (8 users, Dirichlet-split 28x28 digit-like data, batch
-   64, fused engine, 16 rounds per chunk): 64 rounds with codec ``none``,
-   then 32 rounds each of ``topk_int8`` with deterministic and stochastic
-   rounding.  Launch counts are zeroed before each run and must show one
-   launch of each kernel per round where the run uses it; losses must be
-   finite and the state on the card.  A small session run on the card and
-   on the CPU (plain versions) from the same seed must agree;
-5. the result: a ``kernels`` JSON line, the card line, and as the last
+3. kernels — each Hopper kernel on the card at its main path's shape and
+   on edge cases, held to its plain PyTorch version on the same inputs:
+   top-k and the int8 codec BITWISE (8 user rows of the 784/256/256 MLP
+   discriminator, N = 267,009 f32, upload fraction 0.1); flash attention
+   at tinyllama-1.1b's full width (B 4, S 2048, 32 q heads over 4 kv heads,
+   hd 64, bf16; causal and window 128) within 2e-2 and on the f32 cases of
+   ``tests/test_kernels.py`` within 2e-5; the SSD scan at mamba2-780m's
+   full width (B 4, S 2048, H 48, P 64, G 1, N 128, chunk 256, bf16)
+   within ``SSD_BF16_ATOL`` + ``SSD_BF16_RTOL`` |plain| and on the f32
+   cases within 1e-4 + 1e-4 |plain|.  CUDA-event times (median of 30 after
+   warm-up) of the kernel, the plain version and, where one exists, the
+   single PyTorch call computing the same function; the least time the
+   card needs for each kernel's bytes or operations;
+4. federation path — ``FederationSession`` approach-1 federation at the
+   paper's full MLP width (8 users, Dirichlet-split 28x28 digit-like data,
+   batch 64, fused engine, 16 rounds per chunk): 64 rounds with codec
+   ``none``, then 32 rounds each of ``topk_int8`` with deterministic and
+   stochastic rounding.  Launch counts are zeroed before each run and must
+   show one launch of each kernel per round where the run uses it; losses
+   must be finite and the state on the card.  A small session run on the
+   card and on the CPU (plain versions) from the same seed must agree;
+5. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
+   and its cross-entropy) of tinyllama-1.1b with ``use_flash=True``, then
+   of mamba2-780m with ``use_ssm_kernel=True``, at their full published
+   width in bf16, random weights from seed 0 on the card, answering three
+   scoring requests each (B 4; S 2048, 2048, 512; tokens from a numpy
+   seed).  Launch counts are zeroed before each model and must show one
+   launch per layer per forward; the CE must be finite and near ln V.  The
+   logits of the first request must agree with the model's own plain path
+   (flag off) on the card within ``LM_REL_L2``, in bf16 and with the same
+   weights in f32, and the bf16 kernel path must be no farther from the
+   f32 logits than the bf16 plain path (``LM_F32_RATIO``).  The reduced
+   f32 configs from one seed on the card (kernels) and on the CPU (plain
+   versions) must agree at the reference's tolerances;
+6. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -45,7 +64,29 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 MAIN_ROWS, MAIN_N, FRAC = 8, 267009, 0.1
+LM_BATCH, LM_SEQS = 4, (2048, 2048, 512)
+# the kernels' shapes on the LM path at full width (B = LM_BATCH)
+FLASH_FULL = dict(S=2048, H=32, K=4, hd=64)            # tinyllama-1.1b
+SSD_FULL = dict(S=2048, H=48, P=64, G=1, N=128, chunk=256)  # mamba2-780m
+# The SSD kernel and its plain version both compute in f32 and round y to
+# bf16 once: two nearly equal f32 values can round one bf16 step apart
+# (2^-7 of |y| at most), plus the f32 summation-order difference near 0.
+SSD_BF16_ATOL, SSD_BF16_RTOL = 1e-3, 2.0 ** -7
+# Full-width logits, kernel path vs the model's plain path (flag off), as
+# relative L2 error: (bf16 as the model runs, the same weights in f32).
+# The random-init stack (weights of std 1/sqrt(layers), a residual stream
+# growing to thousands) amplifies rounding differences layer by layer: in
+# bf16 the two paths sit equally far from the f32 logits (0.30 tinyllama,
+# 0.49-0.50 mamba2) and ~9 % / ~44 % from each other; in f32 they differ by
+# 1.4e-4 / 7.3e-3 (the SSD's exp(cum_i - cum_j) over sums in the hundreds
+# is sensitive to summation order).  Each bound is about twice what this
+# script measured (PERF.md).
+LM_REL_L2 = {"tinyllama-1.1b": (0.2, 1e-3), "mamba2-780m": (0.8, 2e-2)}
+# ... and the bf16 kernel path must be no farther from the f32 logits than
+# the bf16 plain path is, up to this factor.
+LM_F32_RATIO = 1.05
 
 
 def _fail(msg: str) -> int:
@@ -79,9 +120,10 @@ def _time_ms(torch, fn, reps: int = 30, warm: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+def _bound(nbytes: float, ops: float,
+           peak: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -139,16 +181,8 @@ def _kernel_phase(torch, dev):
     q_main, s_main = tq.quantize_rows(main)
     recs = []
 
-    def record(name, source, replaces, kern, plain, library, nbytes, ops,
-               err):
-        bound_ms, bound_by = _bound(nbytes, ops)
-        recs.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None if library is None
-            else _time_ms(torch, library)})
+    def record(*args, **kwargs):
+        recs.append(_record(torch, *args, **kwargs))
 
     def lib_topk():
         kth = torch.topk(torch.abs(main), k, dim=1).values[:, -1:]
@@ -185,6 +219,297 @@ def _kernel_phase(torch, dev):
            lambda: ref.dequantize_rows_ref(q_main, s_main), None,
            nbytes=elems + MAIN_ROWS * 4 + elems * 4, ops=elems, err=deq_err)
     return recs, len(topk_cases), len(codec_cases)
+
+
+def _record(torch, name, source, replaces, kern, plain, library, nbytes, ops,
+            err, peak=F32_OPS_PER_S):
+    """One kernel's line of the ``kernels`` JSON (launches filled in after
+    the main path's run)."""
+    bound_ms, bound_by = _bound(nbytes, ops, peak)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0, "max_abs_err": err,
+        "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if library is None else _time_ms(torch, library)}
+
+
+# (B, S, H, K, hd, causal, window): the f32 cases of tests/test_kernels.py
+FLASH_F32_CASES = [(2, 256, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
+                   (2, 128, 8, 1, 32, True, 0), (1, 256, 2, 2, 64, True, 64),
+                   (1, 256, 2, 2, 64, True, 128),
+                   (1, 128, 2, 2, 64, False, 0)]
+
+
+def _flash_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps in one (b, h)."""
+    total = 0
+    for i in range(S):
+        hi = min(i, T - 1) if causal else T - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _lm_kernel_phase(torch, dev):
+    """Flash attention and the SSD scan held to their plain versions at the
+    LM path's full-width bf16 shapes and on the f32 cases of
+    tests/test_kernels.py; timings at the full-width shapes.  Returns the
+    two records and a dict of what was checked."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as tfl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as tss
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def ssd_inputs(B, S, H, P, G, N, dtype):
+        return (randn((B, S, H, P), dtype, 0.5),
+                F.softplus(randn((B, S, H))),
+                -torch.exp(torch.rand((H,), generator=gen, device=dev)),
+                randn((B, S, G, N), dtype, 0.3),
+                randn((B, S, G, N), dtype, 0.3))
+
+    def ssd_err(got, want, atol, rtol):
+        diff = (got.float() - want.float()).abs()
+        over = float((diff - (atol + rtol * want.float().abs())).max())
+        return float(diff.max()), over
+
+    info = {"flash_f32_worst": 0.0, "ssd_f32_worst": 0.0}
+    for B, S, H, K, hd, causal, window in FLASH_F32_CASES:
+        q = randn((B, S, H, hd))
+        k, v = randn((B, S, K, hd)), randn((B, S, K, hd))
+        blk = min(128, S)
+        got = tfl.flash_attention(q, k, v, causal=causal, window=window,
+                                  bq=blk, bkv=blk)
+        err = float((got - ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)).abs().max())
+        if not err <= 2e-5:
+            raise AssertionError(f"flash f32 {(B, S, H, K, hd)} causal="
+                                 f"{causal} window={window}: {err} > 2e-5")
+        info["flash_f32_worst"] = max(info["flash_f32_worst"], err)
+    for chunk in (16, 32, 64):
+        for G in (1, 2):
+            arrs = ssd_inputs(2, 128, 4, 32, G, 16, torch.float32)
+            err, over = ssd_err(tss.ssd_scan(*arrs, chunk=chunk),
+                                ref.ssd_scan_ref(*arrs), 1e-4, 1e-4)
+            if over > 0:
+                raise AssertionError(f"ssd f32 chunk={chunk} G={G}: "
+                                     f"{err} beyond 1e-4 + 1e-4 |plain|")
+            info["ssd_f32_worst"] = max(info["ssd_f32_worst"], err)
+
+    # full width: tinyllama-1.1b attention, mamba2-780m SSD, bf16
+    B = LM_BATCH
+    S, H, K, hd = (FLASH_FULL[k] for k in ("S", "H", "K", "hd"))
+    q = randn((B, S, H, hd), torch.bfloat16)
+    k, v = randn((B, S, K, hd), torch.bfloat16), randn((B, S, K, hd),
+                                                       torch.bfloat16)
+    flash_err = {}
+    for window in (0, 128):
+        got = tfl.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        flash_err[window] = float((got.float() - want.float()).abs().max())
+        if not flash_err[window] <= 2e-2:
+            raise AssertionError(f"flash bf16 full width window={window}: "
+                                 f"{flash_err[window]} > 2e-2")
+    info["flash_bf16_window128_err"] = flash_err[128]
+    info["flash_window128_ms"] = _time_ms(
+        torch, lambda: tfl.flash_attention(q, k, v, causal=True, window=128))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # head-major views
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * hd * B * H * _flash_pairs(S, S, True, 0)
+    flash_rec = _record(
+        torch, "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87",
+        lambda: tfl.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True),
+        nbytes=nbytes, ops=flops, err=flash_err[0], peak=BF16_OPS_PER_S)
+
+    S, Hs, P, G, N, chunk = (SSD_FULL[k] for k in ("S", "H", "P", "G", "N",
+                                                   "chunk"))
+    x, dt, A, Bm, Cm = ssd_inputs(B, S, Hs, P, G, N, torch.bfloat16)
+    got = tss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    ssd_max, over = ssd_err(got, want, SSD_BF16_ATOL, SSD_BF16_RTOL)
+    if over > 0:
+        raise AssertionError(f"ssd bf16 full width: {ssd_max} beyond "
+                             f"{SSD_BF16_ATOL} + {SSD_BF16_RTOL} |plain|")
+    info["ssd_bf16_rel_l2"] = float(torch.linalg.vector_norm(
+        got.float() - want.float()) / torch.linalg.vector_norm(want.float()))
+    nc = S // chunk
+    tri = chunk * (chunk + 1) // 2
+    ssd_flops = B * Hs * nc * (2 * tri * (N + P) + 4 * chunk * N * P)
+    ssd_bytes = 2 * (2 * x.numel() + Bm.numel() + Cm.numel()) + \
+        4 * (dt.numel() + A.numel())
+    ssd_rec = _record(
+        torch, "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:73",
+        lambda: tss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk),
+        lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk), None,
+        nbytes=ssd_bytes, ops=ssd_flops, err=ssd_max, peak=BF16_OPS_PER_S)
+    return [flash_rec, ssd_rec], info
+
+
+def _lm_prefill(torch, dev):
+    """The LM prefill path at full width: per model, three scoring requests
+    through ``loss_fn`` with its kernel on, launch counts zeroed just before
+    and read just after; then the first request against the plain path.
+    Prints a line per request and per model; returns (per-request lines,
+    launch totals)."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    requests, models, totals = [], [], {}
+    for arch, flag, kname in (("tinyllama-1.1b", "use_flash",
+                               "flash_attention"),
+                              ("mamba2-780m", "use_ssm_kernel", "ssd_scan")):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        batches = [{key: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_BATCH, seq))).to(dev)
+            for key in ("tokens", "targets")} for seq in LM_SEQS]
+        ln_v = math.log(cfg.vocab_size)
+        ops.reset_launch_counts()
+        for batch in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.launch_counts()[kname]
+            t = time.perf_counter()
+            _, metrics = M.loss_fn(params, batch, cfg, **{flag: True})
+            ce = float(metrics["ce"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            per_fwd = ops.launch_counts()[kname] - before
+            if per_fwd != cfg.num_layers:
+                raise AssertionError(f"{arch}: {per_fwd} {kname} launches in "
+                                     f"a forward, want {cfg.num_layers}: the "
+                                     f"path bypassed the kernel")
+            if not (math.isfinite(ce) and abs(ce - ln_v) < 2.0):
+                raise AssertionError(f"{arch}: CE {ce} not near ln V {ln_v}")
+            seq = batch["tokens"].shape[1]
+            requests.append({
+                "model": arch, "kernel": kname, "batch": LM_BATCH,
+                "seq": seq, "ms": wall * 1e3,
+                "tokens_per_s": LM_BATCH * seq / wall,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "ce": ce, "ln_v": ln_v, "launches_per_forward": per_fwd})
+        counts = ops.launch_counts()
+        others = {k: v for k, v in counts.items() if k != kname and v}
+        if others:
+            raise AssertionError(f"{arch}: unexpected launches {others}")
+        totals[kname] = (counts[kname], cfg.num_layers)
+
+        models.append(_lm_vs_plain(torch, M, cfg, params, flag,
+                                   {"tokens": batches[0]["tokens"]}))
+        models[-1].update(init_s=init_s, params=sum(
+            t.numel() for t in _np_leaves(params)))
+        for line in requests[-len(LM_SEQS):] + models[-1:]:
+            print("[lm] " + json.dumps(line), flush=True)
+        _check_lm_vs_plain(models[-1])
+        del params
+        torch.cuda.empty_cache()
+    return requests, totals
+
+
+def _rel_l2(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _lm_vs_plain(torch, M, cfg, params, flag, batch) -> dict:
+    """Logits of the kernel path against the model's own plain path (flag
+    off) on one request: in bf16 as the model runs, and with the same
+    weights in f32, where the plain path is the arbiter of both bf16
+    paths."""
+    import dataclasses
+
+    from repro_torch.models.common import tree_map
+
+    got, _ = M.forward(params, batch, cfg, **{flag: True})
+    want, _ = M.forward(params, batch, cfg, **{flag: False})
+    line = {"model": cfg.name, "layers": cfg.num_layers,
+            "logits_max_abs_diff": float((got - want).abs().max()),
+            "logits_max_abs": float(want.abs().max()),
+            "logits_rel_l2": _rel_l2(torch, got, want),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.to(torch.float32), params)
+    truth, _ = M.forward(p32, batch, cfg32, **{flag: False})
+    line["kernel_vs_f32_rel_l2"] = _rel_l2(torch, got, truth)
+    line["plain_vs_f32_rel_l2"] = _rel_l2(torch, want, truth)
+    del got, want
+    got32, _ = M.forward(p32, batch, cfg32, **{flag: True})
+    line["f32_kernel_vs_plain_rel_l2"] = _rel_l2(torch, got32, truth)
+    del p32, got32, truth
+    torch.cuda.empty_cache()
+    return line
+
+
+def _check_lm_vs_plain(line: dict) -> None:
+    bf16_tol, f32_tol = LM_REL_L2[line["model"]]
+    if not line["logits_rel_l2"] <= bf16_tol:
+        raise AssertionError(f"{line['model']}: kernel vs plain bf16 logits "
+                             f"rel L2 {line['logits_rel_l2']} > {bf16_tol}")
+    if not line["f32_kernel_vs_plain_rel_l2"] <= f32_tol:
+        raise AssertionError(f"{line['model']}: kernel vs plain f32 logits "
+                             f"rel L2 {line['f32_kernel_vs_plain_rel_l2']} > "
+                             f"{f32_tol}")
+    if not line["kernel_vs_f32_rel_l2"] <= \
+            LM_F32_RATIO * line["plain_vs_f32_rel_l2"]:
+        raise AssertionError(f"{line['model']}: the bf16 kernel path is "
+                             f"farther from f32 than the plain path: {line}")
+
+
+def _lm_cpu_agreement(torch, dev) -> dict:
+    """The reduced f32 configs from one seed, on the card (kernels) and on
+    the CPU (plain versions), at the reference's tolerances
+    (tests/test_kernels.py: 2e-4; 5e-4 + 1e-4 |x| at chunk 16)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    worst = {}
+    for arch, flag, kname, chunk, atol, rtol in (
+            ("tinyllama-1.1b", "use_flash", "flash_attention", None, 2e-4,
+             0.0),
+            ("mamba2-780m", "use_ssm_kernel", "ssd_scan", 16, 5e-4, 1e-4)):
+        cfg = get_config(arch).reduced()
+        if chunk:
+            cfg = dataclasses.replace(cfg, chunk_size=chunk)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 32)))
+        before = ops.launch_counts()[kname]
+        got, _ = M.forward(M.init_params(cfg, 0, device=dev),
+                           {"tokens": tokens.to(dev)}, cfg, **{flag: True})
+        if ops.launch_counts()[kname] != before + cfg.num_layers:
+            raise AssertionError(f"{arch}: card forward did not use {kname}")
+        want, _ = M.forward(M.init_params(cfg, 0, device="cpu"),
+                            {"tokens": tokens}, cfg, **{flag: True})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=atol, rtol=rtol)
+        worst[arch] = float((got.cpu() - want).abs().max())
+    return worst
 
 
 def _digits_dataset(num_users: int, size: int, per_class: int):
@@ -242,13 +567,14 @@ def _main_path(torch, dev):
         lossy = codec != "none"
         want = {"topk_mask_rows": rounds,
                 "quantize_rows": rounds if lossy else 0,
-                "dequantize_rows": rounds if lossy else 0}
+                "dequantize_rows": rounds if lossy else 0,
+                "flash_attention": 0, "ssd_scan": 0}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want} "
                                  f"({codec}, stochastic={stochastic})")
-        for k, v in counts.items():
+        for k in ("topk_mask_rows", "quantize_rows", "dequantize_rows"):
             totals[k + ("_stochastic" if stochastic and k == "quantize_rows"
-                        else "")] += v
+                        else "")] += counts[k]
         if not (np.all(np.isfinite(res.g_losses))
                 and np.all(np.isfinite(res.d_losses))):
             raise AssertionError(f"non-finite losses ({codec})")
@@ -366,7 +692,28 @@ def main() -> int:
     print(f"[check] card vs CPU small session, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
 
-    print(json.dumps({"kernels": recs}))
+    t0 = time.perf_counter()
+    lm_recs, info = _lm_kernel_phase(torch, dev)
+    print(f"[kernels] LM kernels vs plain ({time.perf_counter() - t0:.1f} s):"
+          f" {json.dumps(info)}", flush=True)
+
+    t0 = time.perf_counter()
+    requests, totals = _lm_prefill(torch, dev)
+    for rec in lm_recs:
+        rec["launches"], rec["launches_per_forward"] = totals[rec["name"]]
+        full = [r["ms"] for r in requests
+                if r["kernel"] == rec["name"] and r["seq"] == LM_SEQS[0]]
+        print(f"[lm] {rec['name']}: {rec['launches_per_forward']} x "
+              f"{rec['ms']:.4f} ms = "
+              f"{rec['launches_per_forward'] * rec['ms'] / min(full):.3f} "
+              f"of the fastest S={LM_SEQS[0]} request", flush=True)
+    print(f"[lm] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    worst = _lm_cpu_agreement(torch, dev)
+    print(f"[check] card vs CPU reduced LM forwards, worst |diff|: "
+          f"{json.dumps(worst)}", flush=True)
+
+    print(json.dumps({"kernels": recs + lm_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

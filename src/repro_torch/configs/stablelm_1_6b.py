@@ -1,0 +1,19 @@
+"""stablelm-1.6b [dense] — [hf:stabilityai/stablelm-2-1_6b].
+
+24L d_model=2048 32H (MHA kv=32) d_ff=5632 vocab=100352, LayerNorm.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b",
+    arch_type="dense",
+    source="hf:stabilityai/stablelm-2-1_6b",
+    num_layers=24,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=32,
+    d_ff=5632,
+    vocab_size=100352,
+    norm="layernorm",
+)

@@ -1,4 +1,10 @@
-"""Carry training state between the JAX reference and the port as numpy.
+"""Carry parameters and training state between the JAX reference and the
+port as numpy.
+
+``params_from_numpy(tree, device, dtype=None)`` takes any nested dict of
+numpy floating leaves (a model's parameter tree exported from JAX, bf16
+leaves included) and builds the port's tree of tensors on ``device``;
+``params_to_numpy`` goes the other way.
 
 ``state_from_numpy(tree, device)`` takes a reference ``DistGANState``
 exported as numpy — a mapping (or an object with the same attributes)
@@ -15,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.approaches import DistGANState
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import dtype_of, tree_map
 
 _FIELDS = ("g", "g_opt", "ds", "d_opts", "server_d", "step")
 
@@ -43,3 +49,33 @@ def state_to_numpy(state: DistGANState) -> dict:
     names; no key)."""
     return {name: tree_map(lambda t: t.detach().cpu().numpy(),
                            getattr(state, name)) for name in _FIELDS}
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """Nested dict of numpy floating leaves -> the same dict of tensors on
+    ``device`` in ``dtype`` (a ``torch.dtype`` or a config name such as
+    ``"bfloat16"``; default f32).  Every leaf goes through f32, which holds
+    bf16, f16 and f32 values exactly, so ml_dtypes' bfloat16 (what JAX
+    exports) needs no ml_dtypes here."""
+    if isinstance(dtype, str):
+        dtype = dtype_of(dtype)
+    dtype = dtype or torch.float32
+
+    def leaf(a):
+        arr = np.asarray(a).astype(np.float32)        # a fresh copy
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+    return tree_map(leaf, tree)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter tree -> the same nested dict of numpy leaves
+    (f32 for bf16 tensors, which numpy cannot hold; other types as they
+    are)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+
+    return tree_map(leaf, params)

@@ -8,8 +8,11 @@ Nothing is built when a module is imported: the first launch builds, or
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
 all started together.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` (the reference rounds
-each operation separately, so no FMA contraction), no fast math.
+Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and per source what its
+contract needs (:func:`nvcc_flags`): the int8 codec is held bitwise to a
+plain version that rounds each operation separately, so ``quantize.cu``
+builds with ``-fmad=false``; the attention and SSD kernels are held at a
+tolerance and let nvcc contract multiply-adds into FMAs.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"quantize": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -36,6 +40,11 @@ build_logs: dict[str, str] = {}     # name -> nvcc/ptxas output of the build
 def sources() -> list[str]:
     """Kernel source names (``csrc/<name>.cu``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``: the common ones and its own."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -51,7 +60,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode()
+                          ).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
@@ -63,7 +73,8 @@ def _start(name: str):
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, (proc, tmp)

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quantize as _quantize
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk_select as _topk
 
 
@@ -49,13 +51,42 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return ref.dequantize_rows_ref(q, scale)
 
 
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None, bq=128,
+                    bkv=128):
+    """q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd) online-softmax attention;
+    ``bq``/``bkv`` are the reference's tiling hints (see the wrapper)."""
+    if _route(q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale, bq=bq, bkv=bkv)
+    if q.shape[1] % bq or k.shape[1] % bkv:
+        raise ValueError(f"flash_attention: S={q.shape[1]} and T="
+                         f"{k.shape[1]} must be multiples of bq={bq} and "
+                         f"bkv={bkv}")
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256):
+    """Mamba-2 SSD scan: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N)
+    -> y (B,S,H,P); ``S % chunk == 0``."""
+    if _route(x):
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.shape[1] % chunk:
+        raise ValueError(f"ssd_scan: S={x.shape[1]} must be a multiple of "
+                         f"chunk={chunk}")
+    return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by wrapper (plain-version calls not
     counted)."""
-    return {"topk_mask_rows": _topk.launches, **_quantize.launches}
+    return {"topk_mask_rows": _topk.launches, **_quantize.launches,
+            "flash_attention": _flash.launches, "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _topk.launches = 0
+    _flash.launches = 0
+    _ssd.launches = 0
     for k in _quantize.launches:
         _quantize.launches[k] = 0

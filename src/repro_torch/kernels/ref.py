@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the Hopper kernels (port of the reference's
-``kernels/ref.py:15-51``).
+``kernels/ref.py``).
 
-These are the oracles every kernel is held to, bitwise, and the path a
-CPU tensor takes through ``kernels/ops.py``.  They repeat the reference's
-eager arithmetic operation by operation:
+These are the oracles every kernel is held to and the path a CPU tensor
+takes through ``kernels/ops.py``.  The codec and top-k versions are held
+bitwise, so they repeat the reference's eager arithmetic operation by
+operation:
 
 * divisions are tensor-by-tensor (a division by a Python scalar may be
   lowered to a multiply by its reciprocal, which rounds differently);
@@ -13,6 +14,8 @@ eager arithmetic operation by operation:
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,3 +86,50 @@ def topk_mask_global_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
     mag = torch.abs(x)
     kth = torch.topk(mag, k, dim=-1).values[..., -1:]
     return mag >= kth
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """Dense attention matching the flash kernel: q (B,S,H,hd), k/v
+    (B,T,K,hd) with H % K == 0 -> (B,S,H,hd) in q's type.  Scores, softmax
+    and the weighted sum in f32; masked scores are the finite -2e38."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32)) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, torch.full_like(s, -2.0e38))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """Sequential-recurrence version of the SSD kernel (O(S) scan, exact in
+    f32): x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) -> y (B,S,H,P)
+    in x's type.  ``chunk`` is accepted for the kernel's signature and does
+    not change the result."""
+    del chunk
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Bh = torch.repeat_interleave(Bm, rep, dim=2).to(torch.float32)
+    Ch = torch.repeat_interleave(Cm, rep, dim=2).to(torch.float32)
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    Af = A.to(torch.float32)
+    state = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af)                      # (B,H)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bhn,bhp->bhnp", Bh[:, t], xf[:, t] * dtf[:, t, :, None])
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)

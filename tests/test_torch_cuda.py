@@ -77,7 +77,8 @@ def test_cuda_tensors_launch_the_kernels(cuda):
     ops.topk_mask(x, 0.1)
     ops.dequantize_rows(*ops.quantize_rows(x, stochastic=True, seed=5))
     assert ops.launch_counts() == {"topk_mask_rows": 1, "quantize_rows": 1,
-                                   "dequantize_rows": 1}
+                                   "dequantize_rows": 1, "flash_attention": 0,
+                                   "ssd_scan": 0}
     with pytest.raises(ValueError, match="contiguous"):
         ttopk.topk_mask_rows(x.t(), 0.1)
     with pytest.raises(ValueError):

@@ -1,0 +1,134 @@
+"""The LM Hopper kernels (flash attention, the SSD scan) held to their plain
+PyTorch versions on the card, and the reduced LM forwards on the card
+(kernels) against the CPU (plain versions).
+
+Every test here needs a CUDA device and nvcc: it carries the ``cuda``
+marker and skips without a card.  The file imports no JAX (run it with
+``--noconftest`` where JAX is missing):
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda_lm.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.models import model as TM
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the Hopper kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _normal(shape, seed, scale=1.0):
+    return torch.from_numpy((np.random.default_rng(seed).normal(size=shape)
+                             * scale).astype(np.float32))
+
+
+# (B, S, H, K, hd, causal, window): the cases of tests/test_kernels.py
+_FLASH = [(2, 256, 4, 4, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
+          (2, 128, 8, 1, 32, True, 0), (1, 256, 2, 2, 64, True, 64),
+          (1, 256, 2, 2, 64, True, 128), (1, 128, 2, 2, 64, False, 0),
+          (1, 192, 4, 2, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, S, H, K, hd, causal, window = case
+    q, k, v = (_normal(s, i).to(cuda, dtype) for i, s in enumerate(
+        [(B, S, H, hd), (B, S, K, hd), (B, S, K, hd)]))
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window,
+                                 bq=64, bkv=64)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def _ssd(B, S, H, P, G, N, seed, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(B, S, H, P)) * 0.5
+                          ).astype(np.float32)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(size=(B, S, H)).astype(np.float32)))
+    A = -torch.exp(torch.from_numpy(rng.uniform(0, 1, (H,)).astype(
+        np.float32)))
+    Bm = torch.from_numpy((rng.normal(size=(B, S, G, N)) * 0.3).astype(
+        np.float32)).to(dtype)
+    Cm = torch.from_numpy((rng.normal(size=(B, S, G, N)) * 0.3).astype(
+        np.float32)).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 256])
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_kernel_matches_plain(cuda, chunk, G):
+    arrs = [a.to(cuda) for a in _ssd(2, 512, 4, 32, G, 16, chunk + G,
+                                      torch.float32)]
+    got = tssd.ssd_scan(*arrs, chunk=chunk)
+    want = ref.ssd_scan_ref(*arrs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_full_state_width(cuda):
+    """N 128, P 64 (mamba2-780m's head) in f32, three chunks of 256."""
+    arrs = [a.to(cuda) for a in _ssd(1, 768, 2, 64, 1, 128, 5,
+                                      torch.float32)]
+    got = tssd.ssd_scan(*arrs, chunk=256)
+    torch.testing.assert_close(got, ref.ssd_scan_ref(*arrs), atol=1e-4,
+                               rtol=1e-4)
+
+
+_LM = [("tinyllama-1.1b", None, "use_flash", 2e-4, 0.0),
+       ("mamba2-780m", 16, "use_ssm_kernel", 5e-4, 1e-4)]
+
+
+@pytest.mark.parametrize("arch,chunk,flag,atol,rtol", _LM,
+                         ids=[c[0] for c in _LM])
+def test_reduced_forward_card_matches_cpu(cuda, arch, chunk, flag, atol,
+                                          rtol):
+    cfg = get_config(arch).reduced()
+    if chunk:
+        cfg = dataclasses.replace(cfg, chunk_size=chunk)
+    cpu = TM.init_params(cfg, 0, device="cpu")
+    card = TM.init_params(cfg, 0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int64))
+    ops.reset_launch_counts()
+    got, _ = TM.forward(card, {"tokens": tokens.to(cuda)}, cfg,
+                        **{flag: True})
+    assert ops.launch_counts()[{"use_flash": "flash_attention",
+                                "use_ssm_kernel": "ssd_scan"}[flag]] == \
+        cfg.num_layers
+    want, _ = TM.forward(cpu, {"tokens": tokens}, cfg, **{flag: True})
+    torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=rtol)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = _normal((1, 128, 2, 48), 0).to(cuda)
+    with pytest.raises(ValueError, match="hd"):
+        tflash.flash_attention(q, q, q)
+    q = _normal((1, 128, 3, 32), 0).to(cuda)
+    k = _normal((1, 128, 2, 32), 1).to(cuda)
+    with pytest.raises(ValueError, match="H % K"):
+        tflash.flash_attention(q, k, k)
+    x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(1, 64, 2, 32, 1, 16, 0,
+                                                 torch.float32))
+    with pytest.raises(ValueError, match="multiple"):
+        tssd.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="one type"):
+        tssd.ssd_scan(x.to(torch.bfloat16), dt, A, Bm, Cm, chunk=32)
