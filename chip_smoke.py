@@ -31,7 +31,24 @@ it goes wrong:
    show one launch of each kernel per round where the run uses it; losses
    must be finite and the state on the card.  A small session run on the
    card and on the CPU (plain versions) from the same seed must agree;
-5. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
+5. block-local top-k — the kernel held BITWISE to its plain version on the
+   cases of ``tests/test_kernels.py``, ties, all-zero rows and the main
+   shape (8 x 267,009, fraction 0.1), timed beside its plain version and
+   ``torch.topk`` over the 8192-element slices; then its entry point
+   ``ops.topk_mask(mode="block")`` once with the counts zeroed;
+6. cohort path — cohort-virtualized approach-1 federation at full MLP
+   width: U = 256 and U = 32 logical users in a resident store on the card,
+   a uniform cohort of 8 per round, ``topk_int8`` uploads with error
+   feedback, the ``staleness_max_abs`` fold, 64 + 32 rounds in two windows
+   with the fused-store engine, and U = 256 again with the plain cohort
+   engine, which must give the same state bitwise.  One top-k, quantize
+   and dequantize launch per round; ``last_round`` must equal the value
+   computed from the schedule on the host.  Prints the U = 256 / U = 32
+   ratio of steady ms per round.  Then approaches 2, 3 and the baseline,
+   16 + 16 rounds each with 8 users, and approach 2 with a cohort of 4 of
+   16 users; finite losses.  A small cohort session with error-fed int8
+   uploads on the card and on the CPU must agree;
+7. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
    and its cross-entropy) of tinyllama-1.1b with ``use_flash=True``, then
    of mamba2-780m with ``use_ssm_kernel=True``, at their full published
    width in bf16, random weights from seed 0 on the card, answering three
@@ -44,7 +61,7 @@ it goes wrong:
    f32 logits than the bf16 plain path (``LM_F32_RATIO``).  The reduced
    f32 configs from one seed on the card (kernels) and on the CPU (plain
    versions) must agree at the reference's tolerances;
-6. the result: a ``kernels`` JSON line, the card line, and as the last
+8. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -528,16 +545,21 @@ def _digits_dataset(num_users: int, size: int, per_class: int):
 
 
 def _session(pair, dataset, num_users, codec, stochastic, device,
-             batch=64, rpj=16, eval_samples=256):
+             batch=64, rpj=16, eval_samples=256, approach="approach1",
+             scheduler="full", cohort=None, fuse=False, ef=False,
+             combiner="max_abs"):
     from repro_torch.core.approaches import DistGANConfig
     from repro_torch.core.session import FederationSession
     from repro_torch.core.spec import (CombineSpec, CompressionSpec,
-                                       EngineSpec, FederationSpec)
+                                       EngineSpec, FederationSpec,
+                                       ParticipationSpec)
     spec = FederationSpec(
-        "approach1", batch_size=batch, seed=0, eval_samples=eval_samples,
-        engine=EngineSpec(kind="fused", rounds_per_jit=rpj),
-        combine=CombineSpec(compression=CompressionSpec(
-            codec=codec, error_feedback=False, stochastic=stochastic)))
+        approach, batch_size=batch, seed=0, eval_samples=eval_samples,
+        engine=EngineSpec(kind="fused", rounds_per_jit=rpj,
+                          fuse_store_rounds=fuse),
+        participation=ParticipationSpec(scheduler, cohort_size=cohort),
+        combine=CombineSpec(combiner=combiner, compression=CompressionSpec(
+            codec=codec, error_feedback=ef, stochastic=stochastic)))
     return FederationSession(pair, DistGANConfig(num_users=num_users,
                                                  upload_frac=FRAC),
                              dataset, spec, device=device)
@@ -547,12 +569,10 @@ def _main_path(torch, dev):
     """The three main-path runs; returns (per-run lines, launch totals)."""
     import numpy as np
 
-    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
     from repro_torch.kernels import ops
     from repro_torch.models.common import tree_leaves
 
-    pair = make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
-                                      d_hidden=256))
+    pair = _paper_pair()
     dataset = _digits_dataset(MAIN_ROWS, 28, 400)
     totals = {k: 0 for k in ("topk_mask_rows", "quantize_rows",
                              "quantize_rows_stochastic", "dequantize_rows")}
@@ -565,10 +585,10 @@ def _main_path(torch, dev):
         res = sess.run(rounds)
         counts = ops.launch_counts()
         lossy = codec != "none"
-        want = {"topk_mask_rows": rounds,
-                "quantize_rows": rounds if lossy else 0,
-                "dequantize_rows": rounds if lossy else 0,
-                "flash_attention": 0, "ssd_scan": 0}
+        want = dict.fromkeys(counts, 0)
+        want.update(topk_mask_rows=rounds,
+                    quantize_rows=rounds if lossy else 0,
+                    dequantize_rows=rounds if lossy else 0)
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want} "
                                  f"({codec}, stochastic={stochastic})")
@@ -647,6 +667,262 @@ def _np_leaves(tree):
     return [tree]
 
 
+def _block_topk_phase(torch, dev):
+    """The block-local top-k held BITWISE to its plain version on the cases
+    of tests/test_kernels.py (as 3-row batches), ties at quarter steps,
+    all-zero rows and the main shape; timings at the main shape.  Returns
+    its record (launches filled in by ``_block_topk_path``), the main input
+    and the number of cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as tt
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    blk = ref.BLOCK
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    main = randn((MAIN_ROWS, MAIN_N)) * 2e-4
+    zeros = torch.zeros((2, blk + 17), device=dev)
+    cases = [(randn((3, n)), frac) for n in (blk, 3 * blk, blk + 17, 5000)
+             for frac in (0.01, 0.1, 0.5)]
+    cases += [(torch.round(randn((3, 2 * blk + 100)) * 4) / 4, 0.1),
+              (zeros, 0.1), (main, FRAC)]
+    for x, frac in cases:
+        if not torch.equal(tt.topk_mask_block_rows(x, frac),
+                           ref.topk_mask_block_ref(x, frac)):
+            raise AssertionError(f"topk_mask_block_rows != plain at "
+                                 f"{tuple(x.shape)} frac={frac}")
+    if not tt.topk_mask_block_rows(zeros, 0.1).all():
+        raise AssertionError("all-zero rows must keep every entry (lo = 0)")
+
+    nblk = -(-MAIN_N // blk)
+    k = ref.topk_k(blk, FRAC)
+
+    def lib_topk():
+        mag = torch.nn.functional.pad(main.abs(), (0, nblk * blk - MAIN_N))
+        mag = mag.view(-1, blk)
+        kth = torch.topk(mag, k, dim=1).values[:, -1:]
+        return (mag >= kth).view(MAIN_ROWS, -1)[:, :MAIN_N]
+
+    err = float((tt.topk_mask_block_rows(main, FRAC).float()
+                 - ref.topk_mask_block_ref(main, FRAC).float()).abs().max())
+    # bytes: x read once, the mask written once; operations: |x|, the max
+    # and 32 compare-and-count rounds over every (zero-padded) slot
+    rec = _record(torch, "topk_mask_block",
+                  "src/repro_torch/kernels/csrc/topk_block.cu",
+                  "src/repro/kernels/topk_select.py:65",
+                  lambda: tt.topk_mask_block_rows(main, FRAC),
+                  lambda: ref.topk_mask_block_ref(main, FRAC), lib_topk,
+                  nbytes=MAIN_ROWS * MAIN_N * 5,
+                  ops=MAIN_ROWS * nblk * blk * (2 * 32 + 2), err=err)
+    return rec, main, len(cases)
+
+
+def _block_topk_path(torch, main) -> dict:
+    """B5's entry point, ``ops.topk_mask(mode="block")``, on the main shape
+    with the counts zeroed just before and read just after."""
+    from repro_torch.kernels import ops, ref
+    ops.reset_launch_counts()
+    mask = ops.topk_mask(main, FRAC, mode="block")
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["topk_mask_block"] = 1
+    if counts != want:
+        raise AssertionError(f"ops.topk_mask(mode='block') launches {counts}"
+                             f" != {want}")
+    if not torch.equal(mask, ref.topk_mask_block_ref(main, FRAC)):
+        raise AssertionError("ops.topk_mask(mode='block') != plain")
+    return {"launches": counts["topk_mask_block"],
+            "kept_frac": float(mask.float().mean())}
+
+
+COHORT_C, COHORT_US, COHORT_WINDOWS = 8, (256, 32), (64, 32)
+
+
+def _state_tensors(cstate) -> list:
+    s = cstate.store
+    return ([s.d_flat, s.opt_flat, s.residual, s.last_round, cstate.step]
+            + [t for tree in (cstate.g, cstate.g_opt, cstate.server_d)
+               for t in _np_leaves(tree)])
+
+
+def _paper_pair():
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    return make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
+                                      d_hidden=256))
+
+
+def _cohort_phase(torch, dev):
+    """Cohort-virtualized approach-1 federation at full MLP width: U logical
+    users in a resident store on the card, a uniform cohort of C = 8 per
+    round, topk_int8 uploads with error feedback, the staleness-aware fold.
+    U = 256 and U = 32 with the fused-store engine, then U = 256 with the
+    plain cohort engine, each over two windows; counts zeroed per window.
+    Returns (per-run lines, launch totals, the U-independence ratio)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    pair = _paper_pair()
+    totals = dict.fromkeys(("topk_mask_rows", "quantize_rows",
+                            "dequantize_rows"), 0)
+    lines, finals = [], {}
+    for U in COHORT_US:
+        dataset = _digits_dataset(U, 28, 400)
+        for fuse in (True, False) if U == COHORT_US[0] else (True,):
+            sess = _session(pair, dataset, U, "topk_int8", False, dev,
+                            eval_samples=0, scheduler="uniform",
+                            cohort=COHORT_C, fuse=fuse, ef=True,
+                            combiner="staleness_max_abs")
+            results = []
+            for rounds in COHORT_WINDOWS:
+                ops.reset_launch_counts()
+                res = sess.run(rounds)
+                counts = ops.launch_counts()
+                want = dict.fromkeys(counts, 0)
+                want.update(dict.fromkeys(totals, rounds))
+                if counts != want:
+                    raise AssertionError(f"cohort U={U}: launches {counts} "
+                                         f"!= {want}")
+                for key in totals:
+                    totals[key] += counts[key]
+                if not (np.all(np.isfinite(res.g_losses))
+                        and np.all(np.isfinite(res.d_losses))):
+                    raise AssertionError(f"cohort U={U}: non-finite losses")
+                if res.d_losses.shape != (rounds, COHORT_C) or \
+                        res.extra["participation_counts"].sum() != \
+                        rounds * COHORT_C:
+                    raise AssertionError(f"cohort U={U}: loss shape or "
+                                         f"participation counts")
+                results.append(res)
+            cstate = sess._driver.state
+            last = np.zeros(U, np.int64)
+            schedule = np.concatenate([r.extra["schedule"] for r in results])
+            for r, row in enumerate(schedule):
+                last[row] = r + 1
+            if not np.array_equal(cstate.store.last_round.cpu().numpy(),
+                                  last):
+                raise AssertionError(f"cohort U={U}: last_round differs from"
+                                     f" the schedule")
+            if cstate.store.d_flat.device != torch.device(dev):
+                raise AssertionError("the store left the card")
+            store_gb = sum(t.numel() * t.element_size() for t in
+                           _state_tensors(cstate)[:3]) / 1e9
+            lines.append({
+                "run": f"cohort approach1 U={U} C={COHORT_C} uniform "
+                       f"topk_int8+EF staleness_max_abs "
+                       f"{'fused_store' if fuse else 'plain'}",
+                "rounds": list(COHORT_WINDOWS), "launches_per_round": 1,
+                "steady_ms_per_round": [r.step_time_s * 1e3
+                                        for r in results],
+                "best_chunk_ms_per_round": [r.extra["min_step_time_s"] * 1e3
+                                            for r in results],
+                "first_chunk_s": [r.extra["compile_s"] for r in results],
+                "store_gb": store_gb,
+                "mean_age": float(np.mean(results[-1].extra["mean_age"])),
+                "staleness_max": int(results[-1].extra["staleness"].max()),
+                "upload_bytes_per_round":
+                    results[-1].extra["upload_bytes_per_round"],
+                "g_loss_first_last": [float(results[0].g_losses[0]),
+                                      float(results[-1].g_losses[-1])]})
+            if U == COHORT_US[0]:
+                finals[fuse] = (cstate, np.concatenate(
+                    [r.d_losses for r in results]))
+            del sess, cstate, results
+        del dataset
+    (fused, fused_d), (plain, plain_d) = finals[True], finals[False]
+    if not (np.array_equal(fused_d, plain_d) and all(
+            torch.equal(a, b) for a, b in zip(_state_tensors(fused),
+                                              _state_tensors(plain)))):
+        raise AssertionError("fused-store and plain cohort engines differ")
+    del finals, fused, plain
+    torch.cuda.empty_cache()
+    ms = {line["run"].split()[2]: line["steady_ms_per_round"][0]
+          for line in lines if "fused_store" in line["run"]}
+    return lines, totals, ms[f"U={COHORT_US[0]}"] / ms[f"U={COHORT_US[1]}"]
+
+
+def _approaches_phase(torch, dev) -> list:
+    """Approaches 2, 3 and the baseline at full MLP width, 16 + 16 rounds
+    each with 8 users under full participation, then approach 2 under a
+    uniform cohort of 4 of 16 users.  They upload nothing, so no kernel
+    launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    pair, lines = _paper_pair(), []
+    for approach, U, sched, C in (("approach2", 8, "full", None),
+                                  ("approach3", 8, "full", None),
+                                  ("baseline", 8, "full", None),
+                                  ("approach2", 16, "uniform", 4)):
+        sess = _session(pair, _digits_dataset(U, 28, 400), U, "none", False,
+                        dev, rpj=8, approach=approach, scheduler=sched,
+                        cohort=C)
+        ops.reset_launch_counts()
+        results = [sess.run(16), sess.run(16)]
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{approach}: unexpected kernel launches "
+                                 f"{ops.launch_counts()}")
+        for res in results:
+            if not (np.all(np.isfinite(res.g_losses))
+                    and np.all(np.isfinite(res.d_losses))):
+                raise AssertionError(f"{approach}: non-finite losses")
+            if res.samples.shape != (256, 784) or \
+                    not np.all(np.abs(res.samples) <= 1.0):
+                raise AssertionError(f"{approach}: generator samples")
+        lines.append({
+            "run": f"{approach} U={U} {sched}" + (f" C={C}" if C else ""),
+            "rounds": [16, 16],
+            "steady_ms_per_round": [r.step_time_s * 1e3 for r in results],
+            "first_chunk_s": [r.extra["compile_s"] for r in results],
+            "g_loss_first_last": [float(results[0].g_losses[0]),
+                                  float(results[-1].g_losses[-1])]})
+    return lines
+
+
+def _cohort_cpu_agreement(torch, dev) -> dict:
+    """A small cohort session (U 6, C 3, topk_int8 with stochastic rounding
+    and error feedback) from one seed on the card (kernels) and on the CPU
+    (plain versions), at ``_cpu_agreement``'s tolerances; the schedule and
+    ``last_round`` bitwise."""
+    import numpy as np
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.kernels import ops
+
+    pair = make_mlp_pair(MLPGanConfig(data_dim=64, z_dim=16, g_hidden=32,
+                                      d_hidden=32))
+    dataset = _digits_dataset(6, 8, 60)
+    kw = dict(batch=16, rpj=4, eval_samples=0, scheduler="uniform", cohort=3,
+              fuse=True, ef=True, combiner="staleness_max_abs")
+    ops.reset_launch_counts()
+    sa = _session(pair, dataset, 6, "topk_int8", True, dev, **kw)
+    a = sa.run(6)
+    counts = ops.launch_counts()
+    if (counts["topk_mask_rows"], counts["quantize_rows"],
+            counts["dequantize_rows"]) != (6, 6, 6):
+        raise AssertionError(f"card cohort session launches {counts}")
+    sb = _session(pair, dataset, 6, "topk_int8", True, "cpu", **kw)
+    b = sb.run(6)
+    np.testing.assert_array_equal(a.extra["schedule"], b.extra["schedule"])
+    np.testing.assert_allclose(a.g_losses, b.g_losses, atol=1e-3)
+    xa, xb = state_to_numpy(a.state), state_to_numpy(b.state)
+    pairs = [(x, y) for key in xa
+             for x, y in zip(_np_leaves(xa[key]), _np_leaves(xb[key]))]
+    ca, cb = sa._driver.state.store, sb._driver.state.store
+    np.testing.assert_array_equal(ca.last_round.cpu().numpy(),
+                                  cb.last_round.numpy())
+    pairs.append((ca.residual.cpu().numpy(), cb.residual.numpy()))
+    diffs = []
+    for x, y in pairs:
+        np.testing.assert_allclose(x, y, atol=2e-3, rtol=1e-3)
+        diffs.append(float(np.max(np.abs(np.asarray(x, np.float64) - y))))
+    return {"cohort_topk_int8_sr_ef": max(diffs)}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -693,6 +969,34 @@ def main() -> int:
           f"{json.dumps(worst)}", flush=True)
 
     t0 = time.perf_counter()
+    block_rec, block_main, n_block = _block_topk_phase(torch, dev)
+    block_path = _block_topk_path(torch, block_main)
+    block_rec["launches"] = block_path["launches"]
+    del block_main
+    print(f"[kernels] block top-k bitwise vs plain: {n_block} cases; entry "
+          f"point {json.dumps(block_path)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    lines, cohort_totals, ratio = _cohort_phase(torch, dev)
+    for line in lines:
+        print("[cohort] " + json.dumps(line), flush=True)
+    print(f"[cohort] steady ms/round U={COHORT_US[0]} / U={COHORT_US[1]}: "
+          f"{ratio:.4f} (fused store, first window); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in recs:
+        rec["launches"] += cohort_totals.get(rec["name"], 0)
+
+    t0 = time.perf_counter()
+    for line in _approaches_phase(torch, dev):
+        print("[approaches] " + json.dumps(line), flush=True)
+    print(f"[approaches] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    worst = _cohort_cpu_agreement(torch, dev)
+    print(f"[check] card vs CPU small cohort session, worst |diff|: "
+          f"{json.dumps(worst)}", flush=True)
+
+    t0 = time.perf_counter()
     lm_recs, info = _lm_kernel_phase(torch, dev)
     print(f"[kernels] LM kernels vs plain ({time.perf_counter() - t0:.1f} s):"
           f" {json.dumps(info)}", flush=True)
@@ -713,7 +1017,7 @@ def main() -> int:
     print(f"[check] card vs CPU reduced LM forwards, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
 
-    print(json.dumps({"kernels": recs + lm_recs}))
+    print(json.dumps({"kernels": recs + [block_rec] + lm_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
-"""The paper's approach 1 (alg. 1, selective-gradient federated server
-discriminator) as a PyTorch round body (port of the reference's
-``core/approaches.py:48-283, 291-328``).  Approaches 2/3 and the
-single-node baseline come in a later slice (ROADMAP queue A item 5).
+"""The paper's three Distributed-GAN approaches and the single-node
+baseline as PyTorch round bodies (port of the reference's
+``core/approaches.py``): approach 1 (alg. 1, selective-gradient federated
+server discriminator) and its ``download_first`` variant, approach 2
+(alg. 2, averaged-output multi-discriminator), approach 3 (alg. 3,
+round-robin G against each D_j) and ``baseline`` (one GAN on the union
+data).  The WGAN losses are not ported yet (ROADMAP queue A item 5).
 
 State layout, as in the reference:
 
@@ -9,18 +12,20 @@ State layout, as in the reference:
 
 ``ds`` holds the U local discriminators stacked on a leading user axis
 (``w (U, in, out)``); user u's real data enters only through slice u of
-``real (U, B, data_dim)``.  The reference's ``vmap`` over users is a
-batched matmul over that leading axis, and one backward pass over the sum
-of the per-user losses gives each user exactly its own gradient (the
-users share no parameter).
+``real (U, B, data_dim)``; under the cohort engine the user axis holds
+the C gathered rows.  The reference's ``vmap`` over users is a batched
+matmul over that leading axis, and one backward pass over the sum of the
+per-user losses gives each user exactly its own gradient (the users share
+no parameter).
 
 The body updates D, G, the server D and every optimizer buffer IN PLACE,
 where the reference donates the state to its jitted step
-(``approaches.py:163-167``, ``engine.py:101``).  Noise (the two latent
+(``approaches.py:163-167``, ``engine.py:101``).  Noise (the latent
 batches and the stochastic-rounding seed) is drawn from the state's host
 ``torch.Generator`` and moved to the device, so a run's draws do not
 depend on the device; the tests inject the reference's own draws
-instead (``z1``, ``z2``, ``seed``).
+instead (``z1``, ``z2``, ``seed``; approach 3 takes one pair per member,
+stacked ``(C, B, z_dim)``).
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ class DistGANConfig:
     server_scale: float = 1.0  # fold factor for combined deltas
     staleness_decay: float = 0.5  # delta age discount (staleness_* combiners)
     use_topk_kernel: bool = True  # Hopper top-k + int8 codec kernels
-    loss_type: str = "bce"     # bce (paper); wgan comes with approach 2/3
+    loss_type: str = "bce"     # bce (paper); wgan not ported yet
     wgan_clip: float = 0.05
     codec: str = "none"        # upload wire codec (spec.CODECS)
     error_feedback: bool = True   # EF-SGD residual for lossy codecs
@@ -85,8 +90,8 @@ def init_state(pair, fcfg: DistGANConfig, seed: int, device, *,
     each user draws its own D."""
     if fcfg.loss_type != "bce":
         raise NotImplementedError(
-            "the WGAN losses come with approaches 2/3 (ROADMAP queue A "
-            "item 5)")
+            "the WGAN losses are not ported to repro_torch yet (ROADMAP "
+            "queue A item 5)")
     gen = torch.Generator().manual_seed(seed)
     g_opt_def, d_opt_def = _opts(fcfg)
     g, d0 = pair.init(gen, device)
@@ -102,11 +107,22 @@ def init_state(pair, fcfg: DistGANConfig, seed: int, device, *,
                         gen)
 
 
+def _d_shapes(pair):
+    return tree_map(lambda d: torch.empty(d.shape, device="meta"),
+                    pair.d_decls)
+
+
 def d_flat_layout(pair):
     """FlatLayout of one discriminator of ``pair`` (shapes only)."""
-    shapes = tree_map(lambda d: torch.empty(d.shape, device="meta"),
-                      pair.d_decls)
-    return make_flat_layout(shapes)
+    return make_flat_layout(_d_shapes(pair))
+
+
+def d_opt_flat_layout(pair, fcfg: DistGANConfig):
+    """FlatLayout of one user's D-optimizer state in jax tree order
+    (``mu`` leaves, ``nu`` leaves, ``step``), the int step stored as f32:
+    the cohort store's optimizer rows line up with the reference's."""
+    _, d_opt_def = _opts(fcfg)
+    return make_flat_layout(d_opt_def.init(_d_shapes(pair)))
 
 
 def _grad(loss_fn, params):
@@ -133,6 +149,19 @@ def _d_update_fn(pair, d_opt_def):
         apply_updates(ds, d_opt_def.update(grads, opts, ds))
         return loss
     return update
+
+
+def _g_step(pair, g_opt_def, state, d, z):
+    """One G step against discriminator ``d`` (non-saturating loss on
+    ``G(z)``); returns the loss."""
+
+    def g_loss(gp):
+        return losses.g_loss_nonsat(pair.d_apply(d, pair.g_apply(gp, z)))
+
+    gl, grads = _grad(g_loss, state.g)
+    with torch.no_grad():
+        apply_updates(state.g, g_opt_def.update(grads, state.g_opt, state.g))
+    return gl.reshape(())
 
 
 def _copy_into(dst_tree, src_tree) -> None:
@@ -216,16 +245,8 @@ def make_approach1_body(pair, fcfg: DistGANConfig):
                 d.copy_(s.unsqueeze(0).expand_as(d))
 
         # G trains against the server D only (alg. 1 lines 7-10)
-        server_d = state.server_d
-
-        def g_loss(gp):
-            s = pair.d_apply(server_d, pair.g_apply(gp, z2))
-            return losses.g_loss_nonsat(s)
-
-        gl, grads = _grad(g_loss, state.g)
+        gl = _g_step(pair, g_opt_def, state, state.server_d, z2)
         with torch.no_grad():
-            apply_updates(state.g, g_opt_def.update(grads, state.g_opt,
-                                                    state.g))
             state.step += 1
         metrics = {"d_loss": d_losses, "g_loss": gl,
                    "kept_frac": torch.mean(kept)}
@@ -259,7 +280,109 @@ def make_download_first_body(pair, fcfg: DistGANConfig):
     return body
 
 
+# ---------------------------------------------------------------------------
+# Approaches 2, 3 and the baseline
+# ---------------------------------------------------------------------------
+
+def _row(tree, j: int):
+    """Member ``j`` of a stacked tree as (1, ...) views: in-place updates
+    of the views land in the stacked tensors."""
+    return tree_map(lambda x: x[j:j + 1], tree)
+
+
+def _one(dev):
+    return torch.ones((), dtype=torch.float32, device=dev)
+
+
+def make_approach2_body(pair, fcfg: DistGANConfig):
+    g_opt_def, d_opt_def = _opts(fcfg)
+    d_update = _d_update_fn(pair, d_opt_def)
+
+    def body(state: DistGANState, real, ages=None, weights=None, *,
+             z1=None, z2=None):
+        """Every member trains its D on the shared fake batch; G trains
+        against the members' AVERAGED output probabilities (alg. 2)."""
+        dev, B = real.device, real.shape[1]
+        z1 = (pair.sample_z(state.generator, B) if z1 is None else z1).to(dev)
+        z2 = (pair.sample_z(state.generator, B) if z2 is None else z2).to(dev)
+        with torch.no_grad():
+            fake = pair.g_apply(state.g, z1)
+        d_losses = d_update(state.ds, state.d_opts, real, fake)
+        ds = state.ds
+
+        def g_loss(gp):
+            return losses.g_loss_avg_probs(pair.d_apply(ds,
+                                                        pair.g_apply(gp, z2)))
+
+        gl, grads = _grad(g_loss, state.g)
+        with torch.no_grad():
+            apply_updates(state.g, g_opt_def.update(grads, state.g_opt,
+                                                    state.g))
+            state.step += 1
+        return state, {"d_loss": d_losses, "g_loss": gl,
+                       "kept_frac": _one(dev)}
+
+    return body
+
+
+def make_approach3_body(pair, fcfg: DistGANConfig):
+    g_opt_def, d_opt_def = _opts(fcfg)
+    d_update = _d_update_fn(pair, d_opt_def)
+
+    def body(state: DistGANState, real, ages=None, weights=None, *,
+             z1=None, z2=None):
+        """alg. 3: for each member j in turn, train D_j on a fresh fake
+        batch, then step G against D_j alone.  ``z1``/``z2`` (C, B, z_dim)
+        replace the per-member draws."""
+        dev, C, B = real.device, real.shape[0], real.shape[1]
+        g_losses, d_losses = [], []
+        for j in range(C):
+            za = (pair.sample_z(state.generator, B) if z1 is None
+                  else z1[j]).to(dev)
+            zb = (pair.sample_z(state.generator, B) if z2 is None
+                  else z2[j]).to(dev)
+            with torch.no_grad():
+                fake = pair.g_apply(state.g, za)
+            d_j = _row(state.ds, j)
+            d_losses.append(d_update(d_j, _row(state.d_opts, j),
+                                     real[j:j + 1], fake))
+            g_losses.append(_g_step(pair, g_opt_def, state, d_j, zb))
+        with torch.no_grad():
+            state.step += 1
+        return state, {"d_loss": torch.cat(d_losses),
+                       "g_loss": torch.mean(torch.stack(g_losses)),
+                       "kept_frac": _one(dev)}
+
+    return body
+
+
+def make_baseline_body(pair, fcfg: DistGANConfig):
+    g_opt_def, d_opt_def = _opts(fcfg)
+    d_update = _d_update_fn(pair, d_opt_def)
+
+    def body(state: DistGANState, real, ages=None, weights=None, *,
+             z1=None, z2=None):
+        """real: (B, ...) union-data batch; one D (user row 0) and G train
+        as a normal GAN (no privacy boundary, no cohort)."""
+        dev, B = real.device, real.shape[0]
+        z1 = (pair.sample_z(state.generator, B) if z1 is None else z1).to(dev)
+        z2 = (pair.sample_z(state.generator, B) if z2 is None else z2).to(dev)
+        with torch.no_grad():
+            fake = pair.g_apply(state.g, z1)
+        d = _row(state.ds, 0)
+        dl = d_update(d, _row(state.d_opts, 0), real[None], fake)
+        gl = _g_step(pair, g_opt_def, state, d, z2)
+        with torch.no_grad():
+            state.step += 1
+        return state, {"d_loss": dl, "g_loss": gl, "kept_frac": _one(dev)}
+
+    return body
+
+
 register_approach("approach1", make_approach1_body, sync_ds=True,
                   uploads=True)
+register_approach("approach2", make_approach2_body)
+register_approach("approach3", make_approach3_body)
+register_approach("baseline", make_baseline_body, user_axis=False)
 register_approach("download_first", make_download_first_body, sync_ds=True,
                   uploads=True)

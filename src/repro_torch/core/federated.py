@@ -9,19 +9,25 @@ argmax-|.| rule or a mean.  Every function here works on stacked
 ``(C, N)`` rows, one row per user: the reference's per-row Python list of
 top-k calls becomes one row-batched kernel launch.
 
-``CohortStore``, the participation schedulers and the host backend come
-with the cohort slice (ROADMAP queue A items 4 and 6).
+Cohort virtualization keeps U logical users' rows in a resident
+``CohortStore`` of flat ``(U, N)`` buffers; each round the scheduled cohort
+of C rows is gathered, trained and scattered back.  The participation
+schedulers are numpy, so a seed gives the reference's schedule bitwise.
+The host backend's ``UserStateBackend`` and ``window_forwarding`` wait for
+ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Literal
+from typing import Callable, Literal
 
+import numpy as np
 import torch
 
-from repro_torch.core.spec import register_combiner
+from repro_torch.core.spec import (register_combiner, register_scheduler,
+                                   resolve_scheduler)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.common import tree_leaves
@@ -47,20 +53,30 @@ class FlatLayout:
     ``l1.b, l1.w, l2.b, l2.w, l3.b, l3.w`` — which makes flat indices
     interchangeable with the reference (the stochastic-rounding hash keys
     on the column index).  ``_stacked`` variants handle trees with a
-    leading user axis and ``(U, N)`` rows."""
+    leading user axis and ``(U, N)`` rows.  Rows are f32; an int leaf (an
+    optimizer's step) is stored as f32 and cast back on unflatten, exact
+    below 2**24 as in the reference."""
 
     paths: tuple
     shapes: tuple
     sizes: tuple
     n: int
+    dtypes: tuple = ()
 
     def flatten(self, tree) -> torch.Tensor:
-        return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(tree)])
+        return torch.cat([leaf.reshape(-1).to(torch.float32)
+                          for leaf in tree_leaves(tree)])
 
     def flatten_stacked(self, tree) -> torch.Tensor:
         leaves = tree_leaves(tree)
         u = leaves[0].shape[0]
-        return torch.cat([leaf.reshape(u, -1) for leaf in leaves], dim=1)
+        return torch.cat([leaf.reshape(u, -1).to(torch.float32)
+                          for leaf in leaves], dim=1)
+
+    def _cast(self, parts):
+        if not self.dtypes:
+            return parts
+        return [p.to(dt) for p, dt in zip(parts, self.dtypes)]
 
     def _build(self, parts):
         out: dict = {}
@@ -74,22 +90,197 @@ class FlatLayout:
     def unflatten(self, flat: torch.Tensor):
         """(N,) -> tree of views into ``flat``."""
         parts = torch.split(flat, self.sizes)
-        return self._build([p.view(s) for p, s in zip(parts, self.shapes)])
+        return self._build(self._cast([p.view(s) for p, s in
+                                       zip(parts, self.shapes)]))
 
     def unflatten_stacked(self, flat: torch.Tensor):
-        """(U, N) -> tree with a leading user axis."""
+        """(U, N) -> tree with a leading user axis; every leaf is a fresh
+        contiguous tensor (not a view into ``flat``)."""
         u = flat.shape[0]
         parts = torch.split(flat, self.sizes, dim=1)
-        return self._build([p.reshape((u,) + s)
-                            for p, s in zip(parts, self.shapes)])
+        return self._build(self._cast(
+            [p.reshape((u,) + s).clone(memory_format=torch.contiguous_format)
+             for p, s in zip(parts, self.shapes)]))
 
 
 def make_flat_layout(example_tree) -> FlatLayout:
-    """Build the static layout from a tree of tensors (shapes only)."""
+    """Build the static layout from a tree of tensors (shapes and types
+    only)."""
     leaves = tree_leaves(example_tree)
     shapes = tuple(tuple(leaf.shape) for leaf in leaves)
     sizes = tuple(math.prod(s) for s in shapes)
-    return FlatLayout(tuple(_paths(example_tree)), shapes, sizes, sum(sizes))
+    dtypes = tuple(leaf.dtype for leaf in leaves)
+    if all(dt == torch.float32 for dt in dtypes):
+        dtypes = ()
+    return FlatLayout(tuple(_paths(example_tree)), shapes, sizes, sum(sizes),
+                      dtypes)
+
+
+# ---------------------------------------------------------------------------
+# Cohort-virtualized per-user state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CohortStore:
+    """Resident per-user state as flat buffers (one row per logical user).
+
+    ``d_flat``     (U, Nd)  discriminator params, FlatLayout row layout
+    ``opt_flat``   (U, No)  optimizer state (the int step stored as f32)
+    ``last_round`` (U,) i32 the round a user last trained through, plus
+                            one (0 = never trained)
+    ``residual``   (U, Nd) f32 error-feedback residual (what upload
+                            compression dropped from the user's last
+                            delta), or None without a lossy codec with
+                            error feedback.
+
+    The port scatters into these buffers IN PLACE, where the reference
+    returns a new store from its jitted scatter."""
+
+    d_flat: torch.Tensor
+    opt_flat: torch.Tensor
+    last_round: torch.Tensor
+    residual: torch.Tensor | None = None
+
+    @property
+    def num_users(self) -> int:
+        return self.d_flat.shape[0]
+
+    def clone(self) -> "CohortStore":
+        return CohortStore(*(None if t is None else t.clone() for t in (
+            self.d_flat, self.opt_flat, self.last_round, self.residual)))
+
+
+def make_cohort_store(ds, d_opts, d_layout: FlatLayout,
+                      opt_layout: FlatLayout, *,
+                      error_feedback: bool = False) -> CohortStore:
+    """Pack (U, ...)-stacked D/optimizer trees into resident flat buffers;
+    ``error_feedback`` allocates the zero-initialized (U, Nd) residual."""
+    d_flat = d_layout.flatten_stacked(ds)
+    return CohortStore(
+        d_flat=d_flat, opt_flat=opt_layout.flatten_stacked(d_opts),
+        last_round=torch.zeros((d_flat.shape[0],), dtype=torch.int32,
+                               device=d_flat.device),
+        residual=torch.zeros_like(d_flat) if error_feedback else None)
+
+
+def cohort_gather(store: CohortStore, idx: torch.Tensor,
+                  d_layout: FlatLayout, opt_layout: FlatLayout):
+    """Cohort rows ``idx`` (C,) of the store as stacked (C, ...) D and
+    optimizer trees, the layout the round bodies take (fresh tensors)."""
+    ds = d_layout.unflatten_stacked(store.d_flat.index_select(0, idx))
+    opts = opt_layout.unflatten_stacked(store.opt_flat.index_select(0, idx))
+    return ds, opts
+
+
+def cohort_scatter(store: CohortStore, idx: torch.Tensor, ds, d_opts,
+                   round_idx: torch.Tensor, d_layout: FlatLayout,
+                   opt_layout: FlatLayout, residual=None) -> CohortStore:
+    """Write the cohort's updated rows back (row replacement: values land
+    bit-exactly; a schedule row never repeats a user, so rows never
+    collide) and stamp the members' ``last_round`` with ``round_idx``.
+    ``residual`` rows are scattered iff the store carries them."""
+    assert (residual is None) == (store.residual is None), \
+        "residual rows must be scattered iff the store carries them"
+    store.d_flat.index_copy_(0, idx, d_layout.flatten_stacked(ds))
+    store.opt_flat.index_copy_(0, idx, opt_layout.flatten_stacked(d_opts))
+    store.last_round.index_fill_(0, idx, round_idx.to(torch.int32))
+    if residual is not None:
+        store.residual.index_copy_(0, idx, residual)
+    return store
+
+
+# ---------------------------------------------------------------------------
+# Participation schedulers (host-side numpy: they decide whose data is
+# sampled, so they run before anything reaches the device)
+# ---------------------------------------------------------------------------
+
+def _sched_full(rng, num_users, cohort, rounds, shard_sizes=None, start=0):
+    assert cohort == num_users, (
+        f"'full' participation needs cohort == num_users "
+        f"(got C={cohort}, U={num_users})")
+    return np.tile(np.arange(num_users, dtype=np.int32), (rounds, 1))
+
+
+def _sched_uniform(rng, num_users, cohort, rounds, shard_sizes=None,
+                   start=0):
+    return np.stack([rng.choice(num_users, size=cohort, replace=False)
+                     for _ in range(rounds)]).astype(np.int32)
+
+
+def _sched_round_robin(rng, num_users, cohort, rounds, shard_sizes=None,
+                       start=0):
+    # keyed off the GLOBAL round index so a window generated at start=k
+    # continues the rotation where round k-1 left it
+    first = np.arange(start, start + rounds, dtype=np.int64)[:, None] * cohort
+    return ((first + np.arange(cohort)) % num_users).astype(np.int32)
+
+
+def _sched_weighted(rng, num_users, cohort, rounds, shard_sizes=None,
+                    start=0):
+    assert shard_sizes is not None and len(shard_sizes) == num_users, (
+        "'weighted' participation needs per-user shard sizes "
+        "(dataset.meta['shard_sizes'])")
+    p = np.asarray(shard_sizes, np.float64)
+    p = p / p.sum()
+    return np.stack([rng.choice(num_users, size=cohort, replace=False, p=p)
+                     for _ in range(rounds)]).astype(np.int32)
+
+
+register_scheduler("full", _sched_full)
+register_scheduler("uniform", _sched_uniform)
+register_scheduler("round_robin", _sched_round_robin)
+register_scheduler("weighted", _sched_weighted)
+
+
+def make_schedule(participation: str, num_users: int, cohort: int,
+                  rounds: int, rng: np.random.Generator,
+                  shard_sizes=None, start: int = 0) -> np.ndarray:
+    """(rounds, C) int32 cohort membership, replacement-free per row.
+    ``start`` is the global index of the first generated round:
+    rng-driven schedulers consume their stream sequentially, so windows
+    generated one after another continue the single-shot schedule."""
+    assert 1 <= cohort <= num_users, (cohort, num_users)
+    sched = resolve_scheduler(participation)(
+        rng, num_users, cohort, rounds, shard_sizes, start=start)
+    assert sched.shape == (rounds, cohort)
+    return sched
+
+
+def make_schedule_source(participation: str, num_users: int, cohort: int,
+                         shard_sizes=None) -> Callable:
+    """Bind a scheduler's static parameters once; returns
+    ``schedule_window(rng, start, K) -> (K, C) int32``.  Windows generated
+    at ``start=0, K`` then ``start=K, K'`` concatenate to the single-shot
+    ``start=0, K+K'`` schedule exactly."""
+
+    def schedule_window(rng: np.random.Generator, start: int,
+                        rounds: int) -> np.ndarray:
+        return make_schedule(participation, num_users, cohort, rounds, rng,
+                             shard_sizes, start=start)
+
+    return schedule_window
+
+
+def participation_weights(schedule: np.ndarray, num_users: int, *,
+                          counts: np.ndarray | None = None,
+                          start_round: int = 0) -> np.ndarray:
+    """(rounds, C) f32 participation-adaptive combine weights: member u's
+    raw weight is ``(expected + 1) / (count_u + 1)`` with ``count_u`` its
+    prior participation count and ``expected = r*C/U`` at global round r,
+    normalized to mean 1 over the cohort.  ``counts`` (U,) f64 over rounds
+    [0, start_round) is UPDATED IN PLACE, so weights generated window by
+    window equal the single-shot weights."""
+    rounds, cohort = schedule.shape
+    if counts is None:
+        counts = np.zeros(num_users, np.float64)
+    out = np.empty((rounds, cohort), np.float32)
+    for r in range(rounds):
+        idx = schedule[r]
+        expected = (start_round + r) * cohort / num_users
+        w = (expected + 1.0) / (counts[idx] + 1.0)
+        out[r] = (w / w.mean()).astype(np.float32)
+        counts[idx] += 1.0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +350,36 @@ def codec_transport(rows: torch.Tensor, codec: str, *,
                                           seed=seed)
         return kref.dequantize_rows_ref(q, scale)
     raise ValueError(f"unknown codec {codec!r}")
+
+
+def packed_payload_nbytes(row, policy: Selection | str,
+                          codec: str = "none") -> int:
+    """Materialize ONE transported (already-masked) row's wire payload as
+    packed buffers (int32 indices, codec-encoded values, per-row scale)
+    and return their total nbytes: the ground truth ``upload_bytes_flat``
+    is held to."""
+    row = np.asarray(row, np.float32)
+    assert row.ndim == 1, f"one row at a time, got {row.shape}"
+    nbytes = 0
+    if policy == "none":
+        vals = row
+    elif policy == "shared_random":
+        vals = row[np.nonzero(row)[0]]       # indices derive from the
+    else:                                    # shared key: values only
+        idx = np.nonzero(row)[0].astype(np.int32)
+        vals = row[idx]
+        nbytes += idx.nbytes
+    if codec == "none":
+        nbytes += vals.nbytes
+    elif codec == "bf16":
+        enc = torch.from_numpy(vals).to(torch.bfloat16)
+        nbytes += enc.numel() * enc.element_size()
+    elif codec in ("int8", "topk_int8"):
+        q, scale = kref.quantize_rows_ref(torch.from_numpy(vals)[None])
+        nbytes += q.numpy().nbytes + scale.numpy().nbytes
+    else:
+        raise ValueError(f"unknown codec {codec!r}")
+    return nbytes
 
 
 # ---------------------------------------------------------------------------

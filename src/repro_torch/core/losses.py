@@ -1,9 +1,11 @@
 """GAN losses (port of the reference's ``core/losses.py``).
 
 D emits logits; BCE-with-logits is written in the reference's form
-``max(l, 0) - l*t + log1p(exp(-|l|))``.  The WGAN losses wait for the
-approach-2/3 slice.  Losses reduce over the LAST axis, so a ``(U, B)``
-stack of per-user logits gives ``(U,)`` per-user losses.
+``max(l, 0) - l*t + log1p(exp(-|l|))``.  Approach 2 averages the users'
+D probabilities before its criterion (``g_loss_avg_probs``).  The WGAN
+losses are not ported yet (ROADMAP queue A item 5).  Losses reduce over
+the LAST axis, so a ``(U, B)`` stack of per-user logits gives ``(U,)``
+per-user losses.
 """
 
 from __future__ import annotations
@@ -27,3 +29,10 @@ def d_loss(real_logits, fake_logits):
 def g_loss_nonsat(fake_logits):
     """Non-saturating generator loss: fake->1."""
     return bce_with_logits(fake_logits, torch.ones_like(fake_logits)).mean(-1)
+
+
+def g_loss_avg_probs(fake_logits_per_user):
+    """Approach 2 (alg. 2 line 4): average the users' D probabilities over
+    the user axis of ``(U, B)`` logits, then BCE against 1."""
+    avg = torch.mean(torch.sigmoid(fake_logits_per_user), dim=0)
+    return -torch.mean(torch.log(avg + 1e-7))

@@ -13,7 +13,7 @@ from repro_torch.core.approaches import DistGANConfig
 from repro_torch.core.session import FederationSession, RunResult
 from repro_torch.core.spec import (DEFAULT_ROUNDS_PER_JIT, CombineSpec,
                                    CompressionSpec, EngineSpec,
-                                   FederationSpec)
+                                   FederationSpec, ParticipationSpec)
 from repro_torch.data.federated import FederatedDataset
 
 
@@ -28,16 +28,38 @@ def run_distgan(
     eval_samples: int = 2048,
     engine: str = "fused",
     rounds_per_jit: int = DEFAULT_ROUNDS_PER_JIT,
+    fuse_store_rounds: bool = False,
+    participation: str = "full",
+    cohort_size: int | None = None,
+    state_backend: str = "device",
+    adaptive_server_scale: bool = False,
     codec: str = "none",
     error_feedback: bool = True,
     codec_stochastic: bool = False,
     device=None,
 ) -> RunResult:
-    """Train with a registered approach for ``steps`` rounds (legacy
-    keyword shim over :class:`FederationSpec` + :class:`FederationSession`;
-    the kwargs keep the reference's names and meanings; the participation
-    and backend kwargs arrive with the cohort and host slices).
-    ``device`` is CUDA unless ``"cpu"`` is passed."""
+    """Train with a registered approach (approach1/2/3, baseline,
+    download_first) for ``steps`` rounds (legacy keyword shim over
+    :class:`FederationSpec` + :class:`FederationSession`; the kwargs keep
+    the reference's names and meanings).  ``participation`` /
+    ``cohort_size`` run a cohort-virtualized federation of
+    ``fcfg.num_users`` logical users; ``state_backend`` is ``"device"``
+    (the host, SPMD and multihost backends are not ported).  ``device`` is
+    CUDA unless ``"cpu"`` is passed."""
+    if state_backend != "device":
+        raise NotImplementedError(
+            f"state_backend={state_backend!r} is not ported to repro_torch "
+            f"yet (ROADMAP queue A item 8: the host streaming backend; "
+            f"items 9 and 10: SPMD and multihost)")
+    if (cohort_size is not None and participation == "full"
+            and cohort_size != fcfg.num_users):
+        warnings.warn(
+            f"run_distgan: cohort_size={cohort_size} conflicts with "
+            f"participation='full' (U={fcfg.num_users}); falling back to "
+            f"the 'uniform' scheduler.  Build a FederationSpec with an "
+            f"explicit ParticipationSpec instead.",
+            DeprecationWarning, stacklevel=2)
+        participation = "uniform"
     if engine == "per_step" and rounds_per_jit != DEFAULT_ROUNDS_PER_JIT:
         warnings.warn(
             "run_distgan: rounds_per_jit is ignored by the per_step "
@@ -55,9 +77,13 @@ def run_distgan(
     spec = FederationSpec(
         approach=approach, batch_size=batch_size, seed=seed,
         eval_samples=eval_samples,
-        engine=EngineSpec(kind=engine, rounds_per_jit=rounds_per_jit),
+        engine=EngineSpec(kind=engine, rounds_per_jit=rounds_per_jit,
+                          fuse_store_rounds=fuse_store_rounds),
+        participation=ParticipationSpec(scheduler=participation,
+                                        cohort_size=cohort_size),
         combine=CombineSpec(combiner=fcfg.combiner,
                             staleness_decay=fcfg.staleness_decay,
+                            adaptive_server_scale=adaptive_server_scale,
                             compression=CompressionSpec(
                                 codec=codec, error_feedback=error_feedback,
                                 stochastic=codec_stochastic)))

@@ -9,9 +9,12 @@ state: the training state, the data RNG stream and the round counter.
 that window's :class:`RunResult`; windowing does not change the
 trajectory (``run(5); run(6)`` equals ``run(11)`` bitwise).
 
-This slice ports the ``device`` backend in its ``fused`` and
-``per_step`` modes.  ``save``/``restore`` and the cohort, host and
-streaming drivers come in later slices (ROADMAP queue A items 4-8).
+The port has the ``device`` backend in its ``fused`` and ``per_step``
+modes under full participation and, for a cohort-virtualized spec, its
+``cohort`` mode: U logical users' rows live in a resident store on the
+device and each round a scheduled cohort of C users trains.
+``save``/``restore`` and the host and streaming drivers come in later
+slices (ROADMAP queue A items 7 and 8).
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.approaches import DistGANConfig, d_flat_layout, init_state
-from repro_torch.core.engine import make_engine
-from repro_torch.core.federated import upload_bytes_flat
+from repro_torch.core.engine import (cohort_state_to_full, init_cohort_state,
+                                     make_cohort_engine, make_engine,
+                                     make_fused_store_engine)
+from repro_torch.core.federated import (make_schedule_source,
+                                        participation_weights,
+                                        upload_bytes_flat)
 from repro_torch.core.spec import (FederationSpec, register_backend,
                                    resolve_approach, resolve_backend)
 from repro_torch.device import resolve_device
@@ -80,6 +87,19 @@ def _drive_chunks(run_chunk, carry, steps: int, rpj: int, device):
     return carry, chunks, compile_s, steady, window_rates
 
 
+def _stager(batch_round, rounds: int, round_nbytes: int, device):
+    """``reals(start, k)``: rounds ``[start, start + k)`` of a window as one
+    (k, ...) device tensor.  The whole window is staged in one copy when it
+    fits under ``_STAGE_CAP_BYTES``, else each chunk is drawn and copied
+    when it runs; ``batch_round(r)`` draws round r, called in order."""
+    if rounds * round_nbytes <= _STAGE_CAP_BYTES:
+        staged = torch.from_numpy(np.stack(
+            [batch_round(r) for r in range(rounds)])).to(device)
+        return lambda start, k: staged[start:start + k]
+    return lambda start, k: torch.from_numpy(np.stack(
+        [batch_round(start + j) for j in range(k)])).to(device)
+
+
 def _upload_accounting(pair, fcfg: DistGANConfig, approach, C: int,
                        kept_frac: float) -> dict:
     """Per-round upload bytes for delta-uploading approaches: C members
@@ -111,31 +131,48 @@ def _fetch(metrics: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 class DeviceBackendDriver:
-    """Device-resident state under full participation: the chunked
+    """Device-resident state: under full participation the chunked
     ``fused`` engine, or the ``per_step`` loop that stages data, runs and
-    fetches metrics one round at a time (the comparison target).  A
-    backend driver is built as ``driver_cls(session)`` and offers ``run``,
-    ``generator_params`` and ``user_d_flat``."""
+    fetches metrics one round at a time (the comparison target); for a
+    cohort-virtualized spec the cohort engine over a resident store
+    (``fuse_store_rounds`` picks the engine that writes the store in
+    place).  A backend driver is built as ``driver_cls(session)`` and
+    offers ``run``, ``generator_params`` and ``user_d_flat``."""
 
     def __init__(self, sess: "FederationSession"):
         self.sess = sess
         pair, fcfg, sp = sess.pair, sess.fcfg, sess.spec
+        sync = sess.approach.sync_ds
+        if sess.cohort_virtual:
+            self.mode = "cohort"
+            self.fused_store = sp.engine.fuse_store_rounds
+            mk = (make_fused_store_engine if self.fused_store
+                  else make_cohort_engine)
+            self.eng = mk(pair, fcfg, sp.approach,
+                          adaptive=sp.combine.adaptive_server_scale)
+            self.state = init_cohort_state(pair, fcfg, sp.seed, sess.device,
+                                           sync_ds=sync)
+            return
         self.mode = sp.engine.kind
         if self.mode == "fused":
             self.eng = make_engine(pair, fcfg, sp.approach)
         else:
             self.step_fn = sess.approach.body_factory(pair, fcfg)
         self.state = init_state(pair, fcfg, sp.seed, sess.device,
-                                sync_ds=sess.approach.sync_ds)
+                                sync_ds=sync)
 
     def generator_params(self):
         return self.state.g
 
     def user_d_flat(self, user_id: int) -> np.ndarray:
+        if self.mode == "cohort":
+            return self.state.store.d_flat[user_id].cpu().numpy()
         row = tree_map(lambda x: x[user_id], self.state.ds)
         return d_flat_layout(self.sess.pair).flatten(row).cpu().numpy()
 
     def run(self, rounds: int) -> RunResult:
+        if self.mode == "cohort":
+            return self._run_cohort(rounds)
         if self.mode == "fused":
             return self._run_fused(rounds)
         return self._run_per_step(rounds)
@@ -143,46 +180,46 @@ class DeviceBackendDriver:
     def _result(self, g_losses, d_losses, kept, compile_s, steady,
                 step_denom, min_step_s, engine) -> RunResult:
         sess = self.sess
+        state = (cohort_state_to_full(sess.pair, sess.fcfg, self.state)
+                 if self.mode == "cohort" else self.state)
         return RunResult(
             g_losses=g_losses, d_losses=d_losses,
             wall_time_s=compile_s + steady,
             step_time_s=steady / step_denom,
             samples=sess._eval_samples(self.state.g),
-            state=self.state,
+            state=state,
             extra={"compile_s": compile_s, "kept_frac": float(kept[-1]),
                    "engine": engine, "min_step_time_s": min_step_s,
                    "device": str(sess.device),
                    **_upload_accounting(sess.pair, sess.fcfg,
                                         sess.spec.approach,
-                                        sess.fcfg.num_users,
+                                        sess.cohort_size,
                                         float(np.mean(kept)))})
 
     def _run_fused(self, rounds: int) -> RunResult:
         sess = self.sess
-        rpj = sess.spec.engine.rounds_per_jit
-        prestage = rounds * sess._probe_nbytes_full() <= _STAGE_CAP_BYTES
-        if prestage:
-            staged = torch.from_numpy(np.stack(
-                [sess._batch_full() for _ in range(rounds)])).to(sess.device)
+        reals = _stager(lambda r: sess._batch_full(), rounds,
+                        sess._probe_nbytes_full(), sess.device)
 
         def run_chunk(start: int, k: int, state):
-            if prestage:
-                reals = staged[start:start + k]
-            else:
-                reals = torch.from_numpy(np.stack(
-                    [sess._batch_full() for _ in range(k)])).to(sess.device)
-            state, m = self.eng(state, reals)
+            state, m = self.eng(state, reals(start, k))
             return state, _fetch(m)        # one host sync per chunk
 
-        state, chunks, compile_s, steady, rates = _drive_chunks(
-            run_chunk, self.state, rounds, rpj, sess.device)
-        self.state = state
+        return self._run_chunks(run_chunk, rounds)[0]
+
+    def _run_chunks(self, run_chunk, rounds: int):
+        """Drive a window chunk by chunk; returns its ``RunResult`` and the
+        concatenation of one metric over the window."""
+        rpj = self.sess.spec.engine.rounds_per_jit
+        self.state, chunks, compile_s, steady, rates = _drive_chunks(
+            run_chunk, self.state, rounds, rpj, self.sess.device)
         cat = lambda key: np.concatenate([c[key] for c in chunks])
         step_denom = max(rounds - rpj, 1)
-        return self._result(cat("g_loss"), cat("d_loss"), cat("kept_frac"),
-                            compile_s, steady, step_denom,
-                            min(rates) if rates else steady / step_denom,
-                            "fused")
+        res = self._result(cat("g_loss"), cat("d_loss"), cat("kept_frac"),
+                           compile_s, steady, step_denom,
+                           min(rates) if rates else steady / step_denom,
+                           "fused")
+        return res, cat
 
     def _run_per_step(self, rounds: int) -> RunResult:
         sess = self.sess
@@ -215,6 +252,43 @@ class DeviceBackendDriver:
                             np.asarray(kept), compile_s, steady, step_denom,
                             min(round_times) if round_times else steady,
                             "per_step")
+
+    def _run_cohort(self, rounds: int) -> RunResult:
+        """A cohort-virtualized window: U logical users, C-wide rounds.
+        The schedule comes from the session's scheduler stream; each
+        round's batches are drawn for the cohort's users only, in schedule
+        order, from ``data_rng``."""
+        sess = self.sess
+        U, C = sess.fcfg.num_users, sess.cohort_size
+        schedule = sess._next_schedule(rounds)
+        wts = sess._next_weights(schedule)
+        reals = _stager(lambda r: sess._batch_cohort(schedule[r]), rounds,
+                        sess._probe_nbytes_cohort(schedule), sess.device)
+        sched_dev = torch.from_numpy(schedule.astype(np.int64)).to(
+            sess.device)
+        wts_dev = None if wts is None else torch.from_numpy(wts).to(
+            sess.device)
+
+        def run_chunk(start: int, k: int, cstate):
+            w = None if wts_dev is None else wts_dev[start:start + k]
+            cstate, m = self.eng(cstate, reals(start, k),
+                                 sched_dev[start:start + k], wts=w)
+            return cstate, _fetch(m)       # one host sync per chunk
+
+        res, cat = self._run_chunks(run_chunk, rounds)
+        staleness = (sess.round + rounds
+                     - self.state.store.last_round.cpu().numpy())
+        res.extra.update({
+            "participation": sess.spec.participation.scheduler,
+            "cohort_size": C, "schedule": schedule,
+            "participation_counts": np.bincount(schedule.ravel(),
+                                                minlength=U),
+            "staleness": staleness, "mean_age": cat("mean_age"),
+            "state_backend": "device", "fused_store": self.fused_store,
+            "adaptive_server_scale":
+                sess.spec.combine.adaptive_server_scale,
+            **({"participation_weights": wts} if wts is not None else {})})
+        return res
 
 
 register_backend("device", DeviceBackendDriver, streams=False)
@@ -252,33 +326,85 @@ class FederationSession:
         self.approach = resolve_approach(spec.approach)
         self.round = 0
         self.data_rng = np.random.default_rng(spec.seed)
+        # a SEPARATE stream for the scheduler, so data sampling consumes
+        # data_rng exactly as the full-participation path does (C == U
+        # under "full" is then bitwise the plain fused engine)
+        self.sched_rng = np.random.default_rng([spec.seed, 0x5EED])
+        shard_sizes = None
+        if dataset is not None and isinstance(dataset.meta, dict):
+            shard_sizes = dataset.meta.get("shard_sizes")
+        self._schedule_window = make_schedule_source(
+            spec.participation.scheduler, fcfg.num_users,
+            spec.cohort_size_for(fcfg.num_users), shard_sizes)
+        self._part_counts = (np.zeros(fcfg.num_users, np.float64)
+                             if spec.combine.adaptive_server_scale else None)
         self._probe_nbytes: int | None = None
         self._eval_override: int | None = None
         self._driver = resolve_backend(spec.backend.kind).driver_cls(self)
+
+    @property
+    def cohort_virtual(self) -> bool:
+        return self.spec.cohort_virtual
+
+    @property
+    def cohort_size(self) -> int:
+        return self.spec.cohort_size_for(self.fcfg.num_users)
 
     # -- host-side sampling ------------------------------------------------
 
     def _batch_full(self) -> np.ndarray:
         """One full-participation round of data: (U, B, ...) per-user
-        batches, drawn from ``data_rng`` user by user, as f32 (the
-        reference's arrays are f32)."""
+        batches drawn from ``data_rng`` user by user, or a (B, ...) union
+        batch for an approach without a user axis; f32 (the reference's
+        arrays are f32)."""
         B = self.spec.batch_size
-        return np.stack([np.asarray(self.dataset.user_batch(u, self.data_rng,
-                                                            B))
-                         for u in range(self.fcfg.num_users)]
-                        ).astype(np.float32, copy=False)
+        if not self.approach.user_axis:
+            batch = self.dataset.union_sampler(self.data_rng, B)
+        else:
+            batch = np.stack([np.asarray(self.dataset.user_batch(
+                u, self.data_rng, B)) for u in range(self.fcfg.num_users)])
+        return np.asarray(batch).astype(np.float32, copy=False)
 
-    def _probe_nbytes_full(self) -> int:
+    def _probe(self, sample) -> int:
         """nbytes of one round's batch, sampled from a throwaway rng so the
         real data stream is untouched (cached — shapes are fixed)."""
         if self._probe_nbytes is None:
             saved = self.data_rng
             self.data_rng = np.random.default_rng(self.spec.seed)
             try:
-                self._probe_nbytes = int(self._batch_full().nbytes)
+                self._probe_nbytes = int(sample().nbytes)
             finally:
                 self.data_rng = saved
         return self._probe_nbytes
+
+    def _probe_nbytes_full(self) -> int:
+        return self._probe(self._batch_full)
+
+    def _batch_cohort(self, users) -> np.ndarray:
+        """One cohort round of data: (C, B, ...) batches of ``users`` in
+        schedule order, drawn from ``data_rng``, as f32."""
+        B = self.spec.batch_size
+        return np.stack([np.asarray(self.dataset.user_batch(
+            int(u), self.data_rng, B)) for u in users]).astype(
+                np.float32, copy=False)
+
+    def _probe_nbytes_cohort(self, schedule) -> int:
+        return self._probe(lambda: self._batch_cohort(schedule[0]))
+
+    # -- schedule / weights windows ----------------------------------------
+
+    def _next_schedule(self, rounds: int) -> np.ndarray:
+        """The next ``rounds`` rows of the cohort schedule, drawn from the
+        scheduler stream at the session's global round: windows
+        concatenate to the single-shot schedule."""
+        return self._schedule_window(self.sched_rng, self.round, rounds)
+
+    def _next_weights(self, schedule) -> np.ndarray | None:
+        if self._part_counts is None:
+            return None
+        return participation_weights(schedule, self.fcfg.num_users,
+                                     counts=self._part_counts,
+                                     start_round=self.round)
 
     def _eval_samples(self, g_params) -> np.ndarray | None:
         n = (self.spec.eval_samples if self._eval_override is None

@@ -10,9 +10,9 @@ describes a run of either package.
 
 The registries hold only what the port has.  A manifest that names a
 part of the reference not yet ported (the host/spmd/multihost backends,
-cohort virtualization, approaches 2/3 and the baseline, the serve and
-decode sections) raises ``NotImplementedError`` naming the ROADMAP item
-that brings it; an unknown name raises ``KeyError`` as in the reference.
+the serve and decode sections) raises ``NotImplementedError`` naming the
+ROADMAP item that brings it; an unknown name raises ``KeyError`` as in the
+reference.
 """
 
 from __future__ import annotations
@@ -27,17 +27,9 @@ _ENGINE_KINDS = ("fused", "per_step")
 
 # reference features this slice does not run yet -> the ROADMAP item
 _LATER = {
-    "approach2": "approach 2 (ROADMAP queue A item 5)",
-    "approach3": "approach 3 (ROADMAP queue A item 5)",
-    "baseline": "the baseline approach (ROADMAP queue A item 5)",
     "host": "the host streaming backend (ROADMAP queue A item 8)",
     "spmd": "the SPMD backend (ROADMAP queue A item 9)",
     "multihost": "the multihost backend (ROADMAP queue A item 10)",
-    "uniform": "cohort schedulers (ROADMAP queue A items 4 and 6)",
-    "round_robin": "cohort schedulers (ROADMAP queue A items 4 and 6)",
-    "weighted": "cohort schedulers (ROADMAP queue A items 4 and 6)",
-    "cohort": "cohort virtualization: CohortStore and the cohort engine "
-              "(ROADMAP queue A items 4 and 6)",
     "serve": "the serve section (ROADMAP queue A item 11)",
     "decode": "the decode section (ROADMAP queue A item 12)",
 }
@@ -45,9 +37,9 @@ _LATER = {
 
 def _not_ported(name: str):
     return NotImplementedError(
-        f"{_LATER[name]} is not ported to repro_torch yet; this slice runs "
-        f"approach-1 federation with full participation on the device "
-        f"backend")
+        f"{_LATER[name]} is not ported to repro_torch yet; the port runs "
+        f"federation (full or cohort-virtualized participation) on the "
+        f"device backend")
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +59,7 @@ def _load_builtins() -> None:
     _builtins_state = "loading"
     try:
         import repro_torch.core.approaches  # noqa: F401  (approaches)
-        import repro_torch.core.federated   # noqa: F401  (combiners)
+        import repro_torch.core.federated   # noqa: F401  (combiners etc.)
         import repro_torch.core.session     # noqa: F401  (device backend)
     except BaseException:
         _builtins_state = "unloaded"
@@ -115,6 +107,7 @@ class Registry:
 
 
 APPROACH_REGISTRY = Registry("approach")
+SCHEDULER_REGISTRY = Registry("scheduler")
 COMBINER_REGISTRY = Registry("combiner")
 BACKEND_REGISTRY = Registry("backend")
 
@@ -141,6 +134,13 @@ def register_approach(name: str, body_factory: Callable, *,
                           user_axis=user_axis, uploads=uploads))
 
 
+def register_scheduler(name: str, fn: Callable) -> Callable:
+    """``fn(rng, num_users, cohort, rounds, shard_sizes=None, start=0)
+    -> (rounds, cohort) int32``; ``start`` is the global index of the
+    window's first round."""
+    return SCHEDULER_REGISTRY.register(name, fn)
+
+
 def register_combiner(name: str, fn: Callable) -> Callable:
     """Server fold over stacked ``(C, ...)`` delta rows; combiners that
     consume participation ages carry ``fn.needs_ages = True``."""
@@ -163,6 +163,10 @@ def resolve_approach(name: str) -> ApproachDef:
     return APPROACH_REGISTRY.get(name)
 
 
+def resolve_scheduler(name: str) -> Callable:
+    return SCHEDULER_REGISTRY.get(name)
+
+
 def resolve_combiner(name: str) -> Callable:
     return COMBINER_REGISTRY.get(name)
 
@@ -179,9 +183,10 @@ def resolve_backend(name: str) -> _BackendDef:
 class EngineSpec:
     """``fused`` runs ``rounds_per_jit`` rounds per chunk over a pre-staged
     data stack and fetches metrics once per chunk; ``per_step`` stages,
-    runs and fetches round by round.  ``fuse_store_rounds`` belongs to
-    the cohort engine (not ported) and, as in the reference, does nothing
-    under full participation."""
+    runs and fetches round by round.  ``fuse_store_rounds`` makes the
+    cohort engine update the resident (U, N) store in place across a
+    window instead of working on a copy; as in the reference, it does
+    nothing under full participation without a cohort."""
 
     kind: str = "fused"
     rounds_per_jit: int = DEFAULT_ROUNDS_PER_JIT
@@ -202,18 +207,15 @@ class EngineSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ParticipationSpec:
-    """Which users train each round.  The port runs the ``full`` scheduler
-    (every user, every round) only."""
+    """Which logical users train each round: a registered ``scheduler``
+    draws a cohort of ``cohort_size`` members per round (``None`` means
+    all ``num_users``)."""
 
     scheduler: str = "full"
     cohort_size: int | None = None
 
     def __post_init__(self):
-        if self.scheduler != "full":
-            if self.scheduler in _LATER:
-                raise _not_ported(self.scheduler)
-            raise KeyError(f"unknown scheduler {self.scheduler!r}; "
-                           f"registered: ['full']")
+        resolve_scheduler(self.scheduler)  # raises on unknown
         if self.cohort_size is not None and (
                 not isinstance(self.cohort_size, int)
                 or self.cohort_size < 1):
@@ -277,8 +279,8 @@ class CompressionSpec:
     """Wire encoding of the uploaded delta rows, applied after selection:
     ``none`` (f32), ``bf16``, ``int8`` (per-row absmax scale) or
     ``topk_int8`` (int8 values of a sparse selection).  ``error_feedback``
-    keeps a per-user residual of what compression dropped (it needs the
-    cohort store, so a session runs it only under cohort virtualization);
+    keeps a per-user residual of what compression dropped (it lives in the
+    cohort store, so it needs a cohort-virtualized run);
     ``stochastic`` selects counter-hash stochastic rounding;
     ``stage_rows`` belongs to the host/SPMD backends."""
 
@@ -381,9 +383,20 @@ class FederationSpec:
         for section in ("serve", "decode"):
             if getattr(self, section) is not None:
                 raise _not_ported(section)
-        if self.cohort_virtual:
-            raise _not_ported("cohort")
-        if self.combine.adaptive_server_scale:
+        if not isinstance(self.participation, ParticipationSpec):
+            raise ValueError(f"participation must be a ParticipationSpec, "
+                             f"got {self.participation!r}")
+        if not approach.user_axis and self.cohort_virtual:
+            raise ValueError(
+                f"approach {self.approach!r} has no user axis to "
+                f"virtualize (cohort scheduling / streaming backends "
+                f"need one)")
+        if self.cohort_virtual and self.engine.kind != "fused":
+            raise ValueError(
+                "cohort virtualization needs the fused engine (the "
+                "per_step loop runs the full-participation layout)")
+        if self.combine.adaptive_server_scale and not (
+                approach.uploads and self.cohort_virtual):
             raise ValueError(
                 "adaptive_server_scale is a combiner option for "
                 "delta-uploading approaches under cohort scheduling")
@@ -393,7 +406,7 @@ class FederationSpec:
                 raise ValueError(
                     f"compression codecs encode uploaded delta rows; "
                     f"approach {self.approach!r} uploads nothing")
-            if comp.error_feedback:
+            if comp.error_feedback and not self.cohort_virtual:
                 raise ValueError(
                     "error feedback keeps a per-user residual row in the "
                     "cohort store; run a cohort-virtualized configuration "
@@ -421,6 +434,11 @@ class FederationSpec:
         if c > num_users:
             raise ValueError(f"cohort_size {c} exceeds num_users "
                              f"{num_users}")
+        if self.participation.scheduler == "full" and c != num_users:
+            raise ValueError(
+                f"'full' participation needs cohort_size == num_users "
+                f"(got C={c}, U={num_users}); pick a partial scheduler "
+                f"for C < U")
 
     # -- serialization -----------------------------------------------------
 

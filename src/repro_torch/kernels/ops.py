@@ -26,11 +26,20 @@ def _route(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def topk_mask(rows: torch.Tensor, frac: float) -> torch.Tensor:
-    """Row-batched exact global top-k magnitude mask: ``(C, N)`` -> bool
-    ``(C, N)`` (an ``(N,)`` vector is one row)."""
+def topk_mask(rows: torch.Tensor, frac: float,
+              mode: str = "global") -> torch.Tensor:
+    """Row-batched top-k magnitude mask: ``(C, N)`` -> bool ``(C, N)`` (an
+    ``(N,)`` vector is one row).  ``mode="global"`` (default): each row's
+    exact top-k, ties kept.  ``mode="block"``: the block-local variant,
+    each ``BLOCK``-element slice of a row selects its own k."""
+    if mode not in ("global", "block"):
+        raise ValueError(f"unknown top-k mode {mode!r} (global or block)")
     if rows.ndim == 1:
-        return topk_mask(rows[None], frac)[0]
+        return topk_mask(rows[None], frac, mode)[0]
+    if mode == "block":
+        if _route(rows):
+            return _topk.topk_mask_block_rows(rows.contiguous(), frac)
+        return ref.topk_mask_block_ref(rows, frac)
     if _route(rows):
         return _topk.topk_mask_rows(rows.contiguous(), frac)
     return ref.topk_mask_global_ref(rows, frac)
@@ -80,12 +89,14 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256):
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by wrapper (plain-version calls not
     counted)."""
-    return {"topk_mask_rows": _topk.launches, **_quantize.launches,
+    return {"topk_mask_rows": _topk.launches,
+            "topk_mask_block": _topk.block_launches, **_quantize.launches,
             "flash_attention": _flash.launches, "ssd_scan": _ssd.launches}
 
 
 def reset_launch_counts() -> None:
     _topk.launches = 0
+    _topk.block_launches = 0
     _flash.launches = 0
     _ssd.launches = 0
     for k in _quantize.launches:

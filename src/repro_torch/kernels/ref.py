@@ -79,6 +79,34 @@ def topk_k(n: int, frac: float) -> int:
     return max(int(n * frac), 1)
 
 
+BLOCK = 8 * 128 * 8      # the block-local top-k's slice (topk_select.py:40)
+_BISECT_ITERS = 32
+
+
+def topk_mask_block_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Block-local top-k, the reference kernel's own arithmetic
+    (``topk_select.py:45-87``): each row is zero-padded to a multiple of
+    ``BLOCK`` and every ``BLOCK`` slice keeps ``|x| >= lo`` after a 32-step
+    f32 bisection (``lo = 0``, ``hi = max|x|``, ``mid = 0.5 * (lo + hi)``,
+    ``count(|x| >= mid) >= k`` -> ``lo = mid`` else ``hi = mid``) with
+    ``k = max(int(BLOCK * frac), 1)``.  ``x`` is (N,) or (C, N); a row is
+    padded on its own."""
+    if x.ndim == 1:
+        return topk_mask_block_ref(x[None], frac)[0]
+    rows, n = x.shape
+    k = topk_k(BLOCK, frac)
+    mag = torch.abs(x.to(torch.float32))
+    mag = torch.nn.functional.pad(mag, (0, (-n) % BLOCK)).reshape(-1, BLOCK)
+    hi = torch.amax(mag, dim=1)
+    lo = torch.zeros_like(hi)
+    half = torch.full_like(hi, 0.5)
+    for _ in range(_BISECT_ITERS):
+        mid = half * (lo + hi)
+        take = torch.sum(mag >= mid[:, None], dim=1) >= k
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    return (mag >= lo[:, None]).reshape(rows, -1)[:, :n]
+
+
 def topk_mask_global_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
     """Row-wise full-vector top-k: keep entries with ``|x| >=`` the k-th
     largest magnitude of their row (ties kept).  ``x`` is (N,) or (C, N)."""

@@ -14,11 +14,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import topk_k
+from repro_torch.kernels.ref import BLOCK, topk_k
 
 _PASSES, _BINS, _THREADS = 4, 256, 256
 
 launches = 0
+block_launches = 0
 
 
 def _lib():
@@ -30,6 +31,25 @@ def _lib():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _block_lib():
+    fn = build.load("topk_block").topk_mask_block_rows
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rows(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel; got a {x.device} "
+                         f"tensor")
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{what} wants contiguous (C, N) float32, got "
+                         f"{tuple(x.shape)} {x.dtype} "
+                         f"contiguous={x.is_contiguous()}")
 
 
 def blocks_per_row(x: torch.Tensor) -> int:
@@ -45,13 +65,7 @@ def topk_mask_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
     """(C, N) f32 CUDA rows -> (C, N) bool: ``|x| >=`` the row's k-th
     largest magnitude, ``k = max(int(N * frac), 1)``."""
     global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"topk_mask_rows launches a CUDA kernel; got a "
-                         f"{x.device} tensor")
-    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"topk_mask_rows wants contiguous (C, N) float32, "
-                         f"got {tuple(x.shape)} {x.dtype} "
-                         f"contiguous={x.is_contiguous()}")
+    _check_rows(x, "topk_mask_rows")
     rows, n = x.shape
     k = topk_k(n, frac)
     if not (0 < rows and 0 < n and k <= n):
@@ -67,4 +81,24 @@ def topk_mask_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
                 state.data_ptr(), rows, n, k, blocks_per_row(x), stream)
     build.check(rc, "topk_mask_rows")
     launches += 1
+    return out
+
+
+def topk_mask_block_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """(C, N) f32 CUDA rows -> (C, N) bool: per ``BLOCK`` slice of each row
+    (zero-padded), ``|x| >=`` the slice's 32-step bisection threshold for
+    ``k = max(int(BLOCK * frac), 1)``."""
+    global block_launches
+    _check_rows(x, "topk_mask_block_rows")
+    rows, n = x.shape
+    if not (0 < rows <= 65535 and 0 < n):
+        raise ValueError(f"bad block top-k problem: rows={rows} n={n}")
+    fn = _block_lib()
+    out = torch.empty((rows, n), dtype=torch.bool, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), out.data_ptr(), rows, n, topk_k(BLOCK, frac),
+                stream)
+    build.check(rc, "topk_mask_block_rows")
+    block_launches += 1
     return out

@@ -44,6 +44,18 @@ def test_topk_kernel_matches_plain_bitwise(cuda, n, frac):
     assert got[2].all()
 
 
+@pytest.mark.parametrize("n", [5000, 8192, 8192 + 17, 3 * 8192, 267009])
+@pytest.mark.parametrize("frac", [0.01, 0.1, 0.5])
+def test_block_topk_kernel_matches_plain_bitwise(cuda, n, frac):
+    x = _rows((8, n), n).to(cuda)
+    x[1] = torch.round(x[1] * 4) / 4           # ties
+    x[2] = 0.0                                 # all-zero row: lo = 0
+    x[3, n // 3:] = 0.0                        # zero tail slices
+    got = ttopk.topk_mask_block_rows(x, frac)
+    assert torch.equal(got, ref.topk_mask_block_ref(x, frac))
+    assert got[2].all()
+
+
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("n", [77, 1000, 267009])
 def test_codec_kernels_match_plain_bitwise(cuda, stochastic, n):
@@ -75,11 +87,40 @@ def test_cuda_tensors_launch_the_kernels(cuda):
     ops.reset_launch_counts()
     x = _rows((3, 5000), 1).to(cuda)
     ops.topk_mask(x, 0.1)
+    ops.topk_mask(x, 0.1, mode="block")
     ops.dequantize_rows(*ops.quantize_rows(x, stochastic=True, seed=5))
-    assert ops.launch_counts() == {"topk_mask_rows": 1, "quantize_rows": 1,
-                                   "dequantize_rows": 1, "flash_attention": 0,
-                                   "ssd_scan": 0}
+    assert ops.launch_counts() == {"topk_mask_rows": 1, "topk_mask_block": 1,
+                                   "quantize_rows": 1, "dequantize_rows": 1,
+                                   "flash_attention": 0, "ssd_scan": 0}
     with pytest.raises(ValueError, match="contiguous"):
         ttopk.topk_mask_rows(x.t(), 0.1)
     with pytest.raises(ValueError):
         ttopk.topk_mask_rows(x.double(), 0.1)
+
+
+def test_cohort_session_launches_the_kernels_every_round(cuda):
+    """A cohort-virtualized approach-1 session with int8 uploads and error
+    feedback runs on the card: one top-k, one quantize and one dequantize
+    launch per round, on C rows; the store stays on the card."""
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.protocol import run_distgan
+    from repro_torch.data import digits_like_mixture, dirichlet_partition
+    rng = np.random.default_rng(0)
+    _, sample = digits_like_mixture(list(range(10)), size=8)
+    data = sample(rng, 400).reshape(400, -1)
+    dataset = dirichlet_partition(data, rng.integers(0, 10, 400), 6, 0.5)
+    ops.reset_launch_counts()
+    res = run_distgan(
+        make_mlp_pair(MLPGanConfig(data_dim=64, z_dim=16, g_hidden=32,
+                                   d_hidden=32)),
+        DistGANConfig(num_users=6, combiner="staleness_max_abs"), dataset,
+        "approach1", steps=8, batch_size=16, eval_samples=0,
+        rounds_per_jit=4, participation="uniform", cohort_size=3,
+        fuse_store_rounds=True, codec="topk_int8", device=cuda)
+    counts = ops.launch_counts()
+    assert (counts["topk_mask_rows"], counts["quantize_rows"],
+            counts["dequantize_rows"]) == (8, 8, 8)
+    assert np.all(np.isfinite(res.g_losses)) and res.d_losses.shape == (8, 3)
+    assert res.extra["participation_counts"].sum() == 8 * 3
+    assert res.state.ds["l1"]["w"].device.type == "cuda"

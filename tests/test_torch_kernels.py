@@ -123,11 +123,14 @@ def test_cpu_tensors_never_reach_the_kernels():
     ops.reset_launch_counts()
     x = torch.from_numpy(_codec_rows())
     ops.topk_mask(x, 0.1)
+    ops.topk_mask(x, 0.1, mode="block")
     ops.dequantize_rows(*ops.quantize_rows(x))
-    assert ops.launch_counts() == {"topk_mask_rows": 0, "quantize_rows": 0,
-                                   "dequantize_rows": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+    assert ops.launch_counts() == {"topk_mask_rows": 0, "topk_mask_block": 0,
+                                   "quantize_rows": 0, "dequantize_rows": 0,
+                                   "flash_attention": 0, "ssd_scan": 0}
     with pytest.raises(ValueError, match="CUDA"):
         ttopk.topk_mask_rows(x, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttopk.topk_mask_block_rows(x, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         tquant.quantize_rows(x)
