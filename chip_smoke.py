@@ -9,14 +9,15 @@ it goes wrong:
 1. environment — the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build — every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
-   for sm_90a, all sources at once;
+   for sm_90a, all sources at once (the wall seconds of each);
 3. kernels — each Hopper kernel on the card at its main path's shape and
    on edge cases, held to its plain PyTorch version on the same inputs:
    top-k and the int8 codec BITWISE (8 user rows of the 784/256/256 MLP
    discriminator, N = 267,009 f32, upload fraction 0.1); flash attention
    at tinyllama-1.1b's full width (B 4, S 2048, 32 q heads over 4 kv heads,
-   hd 64, bf16; causal and window 128) within 2e-2 and on the f32 cases of
-   ``tests/test_kernels.py`` within 2e-5; the SSD scan at mamba2-780m's
+   hd 64; causal and window 128) on both routes: bf16 on the wgmma kernel
+   within 2e-2, f32 on the CUDA-core kernel within 2e-5, and the f32 cases
+   of ``tests/test_kernels.py`` within 2e-5; the SSD scan at mamba2-780m's
    full width (B 4, S 2048, H 48, P 64, G 1, N 128, chunk 256, bf16)
    within ``SSD_BF16_ATOL`` + ``SSD_BF16_RTOL`` |plain| and on the f32
    cases within 1e-4 + 1e-4 |plain|.  CUDA-event times (median of 30 after
@@ -54,13 +55,16 @@ it goes wrong:
    width in bf16, random weights from seed 0 on the card, answering three
    scoring requests each (B 4; S 2048, 2048, 512; tokens from a numpy
    seed).  Launch counts are zeroed before each model and must show one
-   launch per layer per forward; the CE must be finite and near ln V.  The
+   launch per layer per forward (for tinyllama on the wgmma route, none on
+   the f32 route); the CE must be finite and near ln V.  The
    logits of the first request must agree with the model's own plain path
    (flag off) on the card within ``LM_REL_L2``, in bf16 and with the same
    weights in f32, and the bf16 kernel path must be no farther from the
-   f32 logits than the bf16 plain path (``LM_F32_RATIO``).  The reduced
-   f32 configs from one seed on the card (kernels) and on the CPU (plain
-   versions) must agree at the reference's tolerances;
+   f32 logits than the bf16 plain path (``LM_F32_RATIO``); the f32
+   forward with its kernel on runs with the counts zeroed and must launch
+   the f32 flash route once per layer.  The reduced f32 configs from one
+   seed on the card (kernels) and on the CPU (plain versions) must agree at
+   the reference's tolerances;
 8. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -337,17 +341,33 @@ def _lm_kernel_phase(torch, dev):
     info["flash_bf16_window128_err"] = flash_err[128]
     info["flash_window128_ms"] = _time_ms(
         torch, lambda: tfl.flash_attention(q, k, v, causal=True, window=128))
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # head-major views
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     flops = 4 * hd * B * H * _flash_pairs(S, S, True, 0)
-    flash_rec = _record(
-        torch, "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:87",
-        lambda: tfl.flash_attention(q, k, v, causal=True),
-        lambda: ref.flash_attention_ref(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                               enable_gqa=True),
-        nbytes=nbytes, ops=flops, err=flash_err[0], peak=BF16_OPS_PER_S)
+    flash_recs = []
+    # bf16 -> the wgmma kernel, f32 -> the CUDA-core kernel, same shape
+    for name, source, dtype, peak, tol in (
+            ("flash_attention", "flash_attention_wgmma.cu", torch.bfloat16,
+             BF16_OPS_PER_S, 2e-2),
+            ("flash_attention_f32", "flash_attention.cu", torch.float32,
+             F32_OPS_PER_S, 2e-5)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        err = float((tfl.flash_attention(qd, kd, vd, causal=True).float()
+                     - ref.flash_attention_ref(qd, kd, vd, causal=True)
+                     .float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{name} full width: {err} > {tol}")
+        qh, kh, vh = (t.transpose(1, 2) for t in (qd, kd, vd))  # head-major
+        flash_recs.append(_record(
+            torch, name, f"src/repro_torch/kernels/csrc/{source}",
+            "src/repro/kernels/flash_attention.py:87",
+            lambda: tfl.flash_attention(qd, kd, vd, causal=True),
+            lambda: ref.flash_attention_ref(qd, kd, vd, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True),
+            nbytes=qd.element_size() * (2 * qd.numel() + kd.numel()
+                                        + vd.numel()),
+            ops=flops, err=err, peak=peak))
+        del qd, kd, vd, qh, kh, vh
+    torch.cuda.empty_cache()
 
     S, Hs, P, G, N, chunk = (SSD_FULL[k] for k in ("S", "H", "P", "G", "N",
                                                    "chunk"))
@@ -371,7 +391,7 @@ def _lm_kernel_phase(torch, dev):
         lambda: tss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk),
         lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk), None,
         nbytes=ssd_bytes, ops=ssd_flops, err=ssd_max, peak=BF16_OPS_PER_S)
-    return [flash_rec, ssd_rec], info
+    return flash_recs + [ssd_rec], info
 
 
 def _lm_prefill(torch, dev):
@@ -407,6 +427,7 @@ def _lm_prefill(torch, dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = ops.launch_counts()[kname]
+            routes = ops.flash_route_counts()
             t = time.perf_counter()
             _, metrics = M.loss_fn(params, batch, cfg, **{flag: True})
             ce = float(metrics["ce"])
@@ -417,6 +438,12 @@ def _lm_prefill(torch, dev):
                 raise AssertionError(f"{arch}: {per_fwd} {kname} launches in "
                                      f"a forward, want {cfg.num_layers}: the "
                                      f"path bypassed the kernel")
+            if kname == "flash_attention":
+                got = {r: n - routes[r] for r, n in
+                       ops.flash_route_counts().items()}
+                if got != {"wgmma": cfg.num_layers, "f32": 0}:
+                    raise AssertionError(f"{arch}: bf16 forward flash routes "
+                                         f"{got}, want every launch on wgmma")
             if not (math.isfinite(ce) and abs(ce - ln_v) < 2.0):
                 raise AssertionError(f"{arch}: CE {ce} not near ln V {ln_v}")
             seq = batch["tokens"].shape[1]
@@ -434,6 +461,16 @@ def _lm_prefill(torch, dev):
 
         models.append(_lm_vs_plain(torch, M, cfg, params, flag,
                                    {"tokens": batches[0]["tokens"]}))
+        f32_counts = models[-1].pop("f32_forward_launches")
+        if kname == "flash_attention":
+            routes = models[-1]["f32_forward_flash_routes"]
+            if routes != {"wgmma": 0, "f32": cfg.num_layers}:
+                raise AssertionError(f"{arch}: f32 forward flash routes "
+                                     f"{routes}, want every launch on f32")
+            totals["flash_attention_f32"] = (routes["f32"], cfg.num_layers)
+        elif f32_counts[kname] != cfg.num_layers:
+            raise AssertionError(f"{arch}: f32 forward launched {kname} "
+                                 f"{f32_counts[kname]} times")
         models[-1].update(init_s=init_s, params=sum(
             t.numel() for t in _np_leaves(params)))
         for line in requests[-len(LM_SEQS):] + models[-1:]:
@@ -455,6 +492,7 @@ def _lm_vs_plain(torch, M, cfg, params, flag, batch) -> dict:
     paths."""
     import dataclasses
 
+    from repro_torch.kernels import ops
     from repro_torch.models.common import tree_map
 
     got, _ = M.forward(params, batch, cfg, **{flag: True})
@@ -472,7 +510,10 @@ def _lm_vs_plain(torch, M, cfg, params, flag, batch) -> dict:
     line["kernel_vs_f32_rel_l2"] = _rel_l2(torch, got, truth)
     line["plain_vs_f32_rel_l2"] = _rel_l2(torch, want, truth)
     del got, want
+    ops.reset_launch_counts()
     got32, _ = M.forward(p32, batch, cfg32, **{flag: True})
+    line["f32_forward_launches"] = ops.launch_counts()
+    line["f32_forward_flash_routes"] = ops.flash_route_counts()
     line["f32_kernel_vs_plain_rel_l2"] = _rel_l2(torch, got32, truth)
     del p32, got32, truth
     torch.cuda.empty_cache()
@@ -941,8 +982,10 @@ def main() -> int:
           f"{torch.cuda.device_count()}", flush=True)
 
     build_s = build.build_all()
-    print(f"[build] {len(build.sources())} sources in {build_s:.2f} s",
-          flush=True)
+    print(f"[build] {len(build.sources())} sources in {build_s:.2f} s: "
+          + (", ".join(f"{n} {t:.2f} s" for n, t in
+                       sorted(build.build_seconds.items()))
+             or "all built before"), flush=True)
     for name, log in sorted(build.build_logs.items()):
         for line in log.strip().splitlines():
             if "registers" in line or "spill" in line:
@@ -1007,6 +1050,8 @@ def main() -> int:
         rec["launches"], rec["launches_per_forward"] = totals[rec["name"]]
         full = [r["ms"] for r in requests
                 if r["kernel"] == rec["name"] and r["seq"] == LM_SEQS[0]]
+        if not full:            # the f32 route: driven by the f32 forward
+            continue
         print(f"[lm] {rec['name']}: {rec['launches_per_forward']} x "
               f"{rec['ms']:.4f} ms = "
               f"{rec['launches_per_forward'] * rec['ms'] / min(full):.3f} "

@@ -6,7 +6,7 @@ into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds, or
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
-all started together.
+all started together (``build_seconds`` keeps each one's wall time).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and per source what its
 contract needs (:func:`nvcc_flags`): the int8 codec is held bitwise to a
@@ -35,6 +35,7 @@ SOURCE_FLAGS = {"quantize": ("-fmad=false",)}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}     # name -> nvcc/ptxas output of the build
+build_seconds: dict[str, float] = {}  # name -> wall seconds of its nvcc run
 
 
 def sources() -> list[str]:
@@ -67,7 +68,7 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for ``name`` unless its library is already built;
-    returns (target, process or None)."""
+    returns (target, (process, temporary path, start time) or None)."""
     target = _target(name)
     if target.exists():
         return target, None
@@ -77,14 +78,15 @@ def _start(name: str):
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return target, (proc, tmp)
+    return target, (proc, tmp, time.perf_counter())
 
 
 def _finish(name: str, target: Path, started) -> None:
     if started is None:
         return
-    proc, tmp = started
+    proc, tmp, t0 = started
     out, _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
     build_logs[name] = out
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
@@ -97,8 +99,17 @@ def build_all() -> float:
     t0 = time.perf_counter()
     with _lock:
         started = {n: _start(n) for n in sources()}
-        for n, (target, st) in started.items():
-            _finish(n, target, st)
+        waiters = [threading.Thread(target=_finish, args=(n, target, st))
+                   for n, (target, st) in started.items()]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
+        failed = [n for n, (target, _) in started.items()
+                  if not target.exists()]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(
+                build_logs.get(n, "") for n in failed))
     return time.perf_counter() - t0
 
 

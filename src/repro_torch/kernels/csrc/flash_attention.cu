@@ -1,7 +1,8 @@
-// Online-softmax (flash) attention for Hopper (sm_90a), on CUDA cores.
+// Online-softmax (flash) attention for Hopper (sm_90a), on CUDA cores, f32.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
-//   (_flash_kernel).
+//   (_flash_kernel) for f32 inputs, which need f32 products that bf16 or TF32
+//   tensor cores cannot give; bf16 inputs go to flash_attention_wgmma.cu.
 //
 // What it computes (the TPU kernel's arithmetic, in f32):
 //   q (B, S, H, hd), k/v (B, T, K, hd), H % K == 0, query head h reads kv
@@ -12,10 +13,9 @@
 //   far stays 0; out = acc / max(l, 1e-30) in q's type.
 //
 // What bounds it on this card: operations.  At the full-width tinyllama
-// shape (B 4, S = T = 2048, H 32 over K 4, hd 64, causal, bf16) the two
-// products take ~6.9e10 FLOP over the causal half, against ~75 MB of q, k,
-// v and out: 0.07 ms on bf16 tensor cores, 1.0 ms at the f32 rate of the
-// CUDA cores this kernel uses.
+// shape in f32 (B 4, S = T = 2048, H 32 over K 4, hd 64, causal) the two
+// products take ~6.9e10 FLOP over the causal half: 1.0 ms at the f32 rate
+// of the CUDA cores, against 0.05 ms for the ~151 MB of q, k, v and out.
 //
 // Design: the TPU grid (b, h, q-block, kv-block) ran its last axis in order
 // on one core with m/l/acc in VMEM scratch.  Here one CTA owns one
@@ -27,10 +27,8 @@
 // strided by 8, so the float4 reads of K rows fall in distinct banks) and a
 // 4 x hd/8 block of the output.  Row max and row sum reduce over the 8
 // threads of a row group with shuffles; p goes through shared memory for
-// the p.v product.  Tiles are staged as f32 in shared memory; bf16 inputs
-// are widened on load.  Tensor cores (wgmma, TMA) are a later step.
+// the p.v product.  Tiles are staged as f32 in shared memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -39,27 +37,18 @@ constexpr int kTile = 64;        // query rows per CTA = keys per kv tile
 constexpr int kThreads = 128;    // 16 row groups x 8 column groups
 constexpr float kMaskValue = -2.0e38f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // Rows [r0, r0 + kTile) of one head of a (batch, L, heads, HD) tensor ->
-// dst[row * ld + d] as f32; rows at or past L are zero.  ``src`` points at
+// dst[row * ld + d]; rows at or past L are zero.  ``src`` points at
 // (b, 0, head, 0) and ``row_stride`` is heads * HD.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
                                           long long row_stride, int r0, int L,
                                           float* __restrict__ dst, int ld) {
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
     const int r = idx / HD;
     const int d = idx % HD;
     float v = 0.0f;
-    if (r0 + r < L) v = to_f32(src[static_cast<long long>(r0 + r) * row_stride + d]);
+    if (r0 + r < L) v = src[static_cast<long long>(r0 + r) * row_stride + d];
     dst[r * ld + d] = v;
   }
 }
@@ -87,10 +76,11 @@ constexpr int smem_floats() {
   return 3 * kTile * (HD + 4) + kTile * (kTile + 4);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int S, int T_len,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int S,
+          int T_len,
           int H, int K, float scale, int causal, int window) {
   constexpr int LD = HD + 4;       // padded rows: float4-aligned, no conflicts
   constexpr int LDP = kTile + 4;
@@ -107,15 +97,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / K);
   const long long q_stride = static_cast<long long>(H) * HD;
   const long long kv_stride = static_cast<long long>(K) * HD;
-  const T* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
-  const T* kb = k + (static_cast<long long>(b) * T_len * K + kvh) * HD;
-  const T* vb = v + (static_cast<long long>(b) * T_len * K + kvh) * HD;
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
+  const float* kb = k + (static_cast<long long>(b) * T_len * K + kvh) * HD;
+  const float* vb = v + (static_cast<long long>(b) * T_len * K + kvh) * HD;
 
   const int rg = threadIdx.x / 8;  // rows rg*4 .. rg*4+3
   const int cg = threadIdx.x % 8;  // score columns cg + 8j; output columns
                                    // 32*c4 + 4*cg + e
 
-  load_tile<T, HD>(qb, q_stride, q0, S, qs, LD);
+  load_tile<HD>(qb, q_stride, q0, S, qs, LD);
 
   float m[4], l[4], acc[4][OC];
 #pragma unroll
@@ -134,8 +124,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = t_begin; k0 < kv_end; k0 += kTile) {
     __syncthreads();               // the last tile's ks/vs/ps reads are done
-    load_tile<T, HD>(kb, kv_stride, k0, T_len, ks, LD);
-    load_tile<T, HD>(vb, kv_stride, k0, T_len, vs, LD);
+    load_tile<HD>(kb, kv_stride, k0, T_len, ks, LD);
+    load_tile<HD>(vb, kv_stride, k0, T_len, vs, LD);
     __syncthreads();
 
     float s[4][8];
@@ -220,49 +210,30 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + rg * 4 + i;
     if (qi >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = out + (static_cast<long long>(b) * S + qi) * q_stride +
-              static_cast<long long>(h) * HD;
+    float* orow = out + (static_cast<long long>(b) * S + qi) * q_stride +
+                  static_cast<long long>(h) * HD;
 #pragma unroll
     for (int c4 = 0; c4 < HD / 32; ++c4)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(&orow[32 * c4 + 4 * cg + e], acc[i][4 * c4 + e] / denom);
+        orow[32 * c4 + 4 * cg + e] = acc[i][4 * c4 + e] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int T_len, int H, int K, float scale, int causal,
            int window, cudaStream_t stream) {
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  flash_fwd<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, K, scale,
-      causal, window);
+  flash_fwd<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, T_len, H, K,
+      scale, causal, window);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int S, int T_len, int H, int K, float scale,
-                int causal, int window, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, S, T_len, H, K, scale, causal,
-                           window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, S, T_len, H, K, scale, causal,
-                           window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, S, T_len, H, K, scale, causal,
-                            window, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -270,25 +241,29 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 extern "C" {
 
 // q: (B, S, H, hd), k/v: (B, T, K, hd), out: (B, S, H, hd), all contiguous
-// and of one type: dtype 0 = f32, 1 = bf16.  hd in {32, 64, 128}, H % K == 0.
-// Returns the launch's CUDA error code (0 on success).
+// f32.  hd in {32, 64, 128}, H % K == 0.  Returns the launch's CUDA error
+// code (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* out, int dtype, int B, int S, int T_len, int H,
-                        int K, int hd, float scale, int causal, int window,
+                        void* out, int B, int S, int T_len, int H, int K,
+                        int hd, float scale, int causal, int window,
                         cudaStream_t stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
       B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return dispatch_hd<float>(hd, q, k, v, out, B, S, T_len, H, K, scale,
-                              causal, window, stream);
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, out, B, S, T_len, H, K, scale, causal,
+                        window, stream);
+    case 64:
+      return launch<64>(q, k, v, out, B, S, T_len, H, K, scale, causal,
+                        window, stream);
+    case 128:
+      return launch<128>(q, k, v, out, B, S, T_len, H, K, scale, causal,
+                         window, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, T_len, H, K,
-                                      scale, causal, window, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

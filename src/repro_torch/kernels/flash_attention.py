@@ -1,12 +1,19 @@
-"""Wrapper for the Hopper flash-attention kernel (``csrc/flash_attention.cu``),
-the port of the reference's ``kernels/flash_attention.py::
-flash_attention_pallas``.
+"""Wrapper for the Hopper flash-attention kernels, the port of the
+reference's ``kernels/flash_attention.py::flash_attention_pallas``.
 
 ``flash_attention(q, k, v, causal=, window=, scale=, bq=, bkv=)`` takes
 q ``(B, S, H, hd)`` and k/v ``(B, T, K, hd)`` on a CUDA device (f32 or
 bf16, one type, hd in {32, 64, 128}, H % K == 0) and returns
-``(B, S, H, hd)`` in q's type; ``launches`` counts its calls.  The plain
-version is ``kernels/ref.py::flash_attention_ref``.
+``(B, S, H, hd)`` in q's type.  The route depends on the type alone:
+
+* bf16 -> ``csrc/flash_attention_wgmma.cu`` (tensor cores: wgmma fed by
+  TMA; p rounded to bf16 before the p.v product);
+* f32 -> ``csrc/flash_attention.cu`` (CUDA cores, f32 products).
+
+If the build fails or a launch is refused the wrapper raises; a bf16
+tensor never reaches the f32 kernel.  ``launches`` counts the calls of
+both routes, ``route_launches`` each route.  The plain version is
+``kernels/ref.py::flash_attention_ref``.
 """
 
 from __future__ import annotations
@@ -18,16 +25,30 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+# dtype -> (route name, kernel source, C entry point)
+ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_wgmma",
+                           "flash_attention_wgmma_fwd"),
+          torch.float32: ("f32", "flash_attention", "flash_attention_fwd")}
 
 launches = 0
+route_launches = {name: 0 for name, _, _ in ROUTES.values()}
 
 
-def _lib():
-    fn = build.load("flash_attention").flash_attention_fwd
+def route(dtype: torch.dtype) -> tuple[str, str]:
+    """(route name, kernel source) that a CUDA tensor of ``dtype`` takes."""
+    if dtype not in ROUTES:
+        raise ValueError(f"flash_attention wants f32 or bf16 q, k, v of one "
+                         f"type; got {dtype}")
+    name, source, _ = ROUTES[dtype]
+    return name, source
+
+
+def _lib(dtype: torch.dtype):
+    _, source, entry = ROUTES[dtype]
+    fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -39,8 +60,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Online-softmax attention, causal / sliding window / none, GQA by
     ``h // (H // K)``.  ``bq``/``bkv`` are the TPU kernel's tiling hints:
     they are checked as the reference checks them (``S % bq == 0``,
-    ``T % bkv == 0``) and do not reach the CUDA kernel, whose 64 x 64 tile
-    is its own."""
+    ``T % bkv == 0``) and do not reach the CUDA kernels, whose tiles are
+    their own (128 rows for bf16, 64 for f32; ragged ends are masked)."""
     global launches
     for t in (q, k, v):
         if t.device.type != "cuda":
@@ -55,9 +76,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != hd or H % K:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)} (H % K must be 0)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention wants f32 or bf16 q, k, v of one "
                          f"type; got {q.dtype}, {k.dtype}, {v.dtype}")
+    name, _ = route(q.dtype)
     if hd not in _HEAD_DIMS:
         raise ValueError(f"flash_attention supports hd in {_HEAD_DIMS}, "
                          f"got {hd}")
@@ -66,13 +88,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"multiples of bq={bq} and bkv={bkv}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if name == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: TMA reads bf16 q, k, v from "
+                         "16-byte aligned bases only")
     out = torch.empty_like(q)
-    fn = _lib()
+    fn = _lib(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, S, T, H, K, hd, float(scale),
-                int(bool(causal)), int(window), stream)
-    build.check(rc, "flash_attention")
+                B, S, T, H, K, hd, float(scale), int(bool(causal)),
+                int(window), stream)
+    build.check(rc, f"flash_attention ({name})")
     launches += 1
+    route_launches[name] += 1
     return out

@@ -94,10 +94,18 @@ def launch_counts() -> dict[str, int]:
             "flash_attention": _flash.launches, "ssd_scan": _ssd.launches}
 
 
+def flash_route_counts() -> dict[str, int]:
+    """Flash-attention launches by route (``wgmma`` for bf16, ``f32``); they
+    sum to ``launch_counts()["flash_attention"]``."""
+    return dict(_flash.route_launches)
+
+
 def reset_launch_counts() -> None:
     _topk.launches = 0
     _topk.block_launches = 0
     _flash.launches = 0
+    for k in _flash.route_launches:
+        _flash.route_launches[k] = 0
     _ssd.launches = 0
     for k in _quantize.launches:
         _quantize.launches[k] = 0

@@ -58,6 +58,49 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+# bf16 cases of the wgmma kernel: hd 32/64/128, the ragged S 192 (a
+# 128-row tile half past S), window edges, unmasked, and one full-width
+# tinyllama head group (S 2048, 8 query heads over one kv head)
+_WGMMA = [(2, 192, 4, 2, 32, True, 0), (1, 192, 8, 1, 64, True, 64),
+          (1, 192, 2, 2, 128, False, 0), (1, 384, 4, 1, 128, True, 128),
+          (2, 256, 8, 2, 32, False, 0), (1, 2048, 8, 1, 64, True, 0),
+          (1, 2048, 8, 1, 64, True, 128)]
+
+
+@pytest.mark.parametrize("case", _WGMMA, ids=lambda c: "-".join(map(str, c)))
+def test_flash_wgmma_bf16_matches_plain(cuda, case):
+    B, S, H, K, hd, causal, window = case
+    q, k, v = (_normal(s, 10 + i).to(cuda, torch.bfloat16)
+               for i, s in enumerate([(B, S, H, hd), (B, S, K, hd),
+                                      (B, S, K, hd)]))
+    ops.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window,
+                                 bq=64, bkv=64)
+    assert ops.flash_route_counts() == {"wgmma": 1, "f32": 0}
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+def test_flash_routes_by_dtype(cuda):
+    """A bf16 call counts on the wgmma route, an f32 call on the f32 route;
+    the total counts both."""
+    q = _normal((1, 128, 4, 64), 0).to(cuda)
+    k = _normal((1, 128, 2, 64), 1).to(cuda)
+    ops.reset_launch_counts()
+    tflash.flash_attention(q, k, k)
+    assert ops.flash_route_counts() == {"wgmma": 0, "f32": 1}
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    ops.flash_attention(qb, kb, kb)
+    ops.flash_attention(qb, kb, kb, causal=False)
+    torch.cuda.synchronize()
+    assert ops.flash_route_counts() == {"wgmma": 2, "f32": 1}
+    assert ops.launch_counts()["flash_attention"] == 3
+    with pytest.raises(ValueError, match="one type"):
+        tflash.flash_attention(qb, k, k)
+
+
 def _ssd(B, S, H, P, G, N, seed, dtype):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((rng.normal(size=(B, S, H, P)) * 0.5
@@ -126,6 +169,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k = _normal((1, 128, 2, 32), 1).to(cuda)
     with pytest.raises(ValueError, match="H % K"):
         tflash.flash_attention(q, k, k)
+    flat = torch.zeros(1 + 128 * 2 * 32, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(1, 128, 2, 32)          # base 2 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, q, q)
     x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(1, 64, 2, 32, 1, 16, 0,
                                                  torch.float32))
     with pytest.raises(ValueError, match="multiple"):
