@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/<name>-<hash>.so`` at the repository root
-(a directory ``.gitignore`` lists).  The hash covers the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused.
+(a directory ``.gitignore`` lists).  The hash covers the source, every
+header under ``csrc/`` (``*.cuh``) and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds, or
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
 all started together (``build_seconds`` keeps each one's wall time).
@@ -60,10 +61,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode()
-                          ).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -1,6 +1,7 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a), on CUDA cores.
+// Mamba-2 SSD chunked scan for f32 on Hopper (sm_90a), on CUDA cores.
 //
-// Replaces: src/repro/kernels/ssd_scan.py::ssd_scan_pallas (_ssd_kernel).
+// Replaces: src/repro/kernels/ssd_scan.py::ssd_scan_pallas (_ssd_kernel)
+//   for f32 inputs; bf16 inputs go to ssd_scan_wgmma.cu (tensor cores).
 //
 // What it computes, per (b, h) and chunk of `chunk` steps, in f32 (the TPU
 // kernel's chunked dual form):
@@ -9,13 +10,12 @@
 //   y   = (C B^T o L) xdt + exp(cum) o (C S_prev),
 //   S   = exp(cum_last) S_prev + (B o exp(cum_last - cum))^T xdt,
 // with the (N, P) state S carried from chunk to chunk (zero at the start)
-// and B, C of group h / (H / G).  y is stored in x's type.
+// and B, C of group h / (H / G).
 //
 // What bounds it on this card: operations and bytes alike.  At the
 // full-width mamba2-780m shape (B 4, S 2048, H 48, P 64, G 1, N 128, chunk
-// 256, bf16) the lower-triangle work is ~3.2e10 FLOP against ~106 MB of x,
-// dt, B, C and y: ~0.03 ms on bf16 tensor cores or at the memory rate, and
-// 0.5 ms at the f32 rate of the CUDA cores this kernel uses.
+// 256) the lower-triangle work is ~3.2e10 FLOP against ~210 MB of x, dt, B,
+// C and y in f32: 0.5 ms at the f32 rate of the CUDA cores this kernel uses.
 //
 // Design: the TPU kernel ran one grid cell per (b*h, chunk), the chunk axis
 // in order, with the state in VMEM scratch and B/C repeated to every head
@@ -30,9 +30,7 @@
 // i >= j only (no exp of a positive difference).  256 threads form 16 row
 // groups x 16 column groups; each owns 4 rows x 4 strided columns of a
 // score tile and 4 rows x P/16 strided columns of y or of the state.
-// Tensor cores are a later step.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,13 +40,7 @@ constexpr int kThreads = 256;   // 16 row groups x 16 column groups
 constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -336,27 +328,19 @@ int ssd_scan_smem_bytes(int P, int N, int chunk) {
   return smem_bytes(P, N, chunk);
 }
 
-// x: (B, S, H, P), dt: (B, S, H) f32, A: (H,) f32, Bm/Cm: (B, S, G, N),
-// y: (B, S, H, P); all contiguous; x, Bm, Cm, y of one type (dtype 0 = f32,
-// 1 = bf16).  P in {16, 32, 64, 128}, N % 4 == 0, H % G == 0,
-// S % chunk == 0.  Returns the launch's CUDA error code (0 on success).
+// x: (B, S, H, P), dt: (B, S, H), A: (H,), Bm/Cm: (B, S, G, N),
+// y: (B, S, H, P); all contiguous f32.  P in {16, 32, 64, 128}, N % 4 == 0,
+// H % G == 0, S % chunk == 0.  Returns the launch's CUDA error code (0 on
+// success).
 int ssd_scan_fwd(const void* x, const float* dt, const float* A,
-                 const void* Bm, const void* Cm, void* y, int dtype, int B,
-                 int S, int H, int P, int G, int N, int chunk,
-                 cudaStream_t stream) {
+                 const void* Bm, const void* Cm, void* y, int B, int S, int H,
+                 int P, int G, int N, int chunk, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || N <= 0 || chunk <= 0 ||
       H % G != 0 || N % 4 != 0 || S % chunk != 0 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return dispatch_p<float>(P, x, dt, A, Bm, Cm, y, B, S, H, G, N, chunk,
-                             stream);
-  }
-  if (dtype == 1) {
-    return dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, y, B, S, H, G, N,
-                                     chunk, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_p<float>(P, x, dt, A, Bm, Cm, y, B, S, H, G, N, chunk,
+                           stream);
 }
 
 }  // extern "C"

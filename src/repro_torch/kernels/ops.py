@@ -100,12 +100,18 @@ def flash_route_counts() -> dict[str, int]:
     return dict(_flash.route_launches)
 
 
+def ssd_route_counts() -> dict[str, int]:
+    """SSD-scan launches by route (``wgmma`` for bf16, ``f32``); they sum to
+    ``launch_counts()["ssd_scan"]``."""
+    return dict(_ssd.route_launches)
+
+
 def reset_launch_counts() -> None:
     _topk.launches = 0
     _topk.block_launches = 0
-    _flash.launches = 0
-    for k in _flash.route_launches:
-        _flash.route_launches[k] = 0
-    _ssd.launches = 0
+    for mod in (_flash, _ssd):
+        mod.launches = 0
+        for k in mod.route_launches:
+            mod.route_launches[k] = 0
     for k in _quantize.launches:
         _quantize.launches[k] = 0

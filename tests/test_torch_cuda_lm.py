@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import model as TM
+from repro_torch.models.ssm import ssd_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +137,92 @@ def test_ssd_kernel_full_state_width(cuda):
                                rtol=1e-4)
 
 
+def _dist(got, want):
+    got, want = got.double(), want.double()
+    return (float(torch.linalg.vector_norm(got - want)
+                  / torch.linalg.vector_norm(want)),
+            float((got - want).abs().max()))
+
+
+# (B, S, H, P, G, N, chunk): the cases of tests/test_torch_ssd_wgmma.py
+# (chunks of 64, 128 and 256 over 2-3 chunks, P 32 and 64, N 16 and 128,
+# G 1 and 2), then the full state width over 3 chunks, P 128, a 192-row
+# chunk (a chunk-scan CTA with one 64-row tile), and N 256 with P 128 at
+# chunk 256 (one ring stage: two do not fit in shared memory)
+_SSD_WGMMA = [(1, 128, 2, 32, 1, 16, 64), (1, 192, 4, 64, 2, 16, 64),
+              (1, 256, 2, 64, 1, 128, 128), (1, 384, 4, 32, 2, 128, 128),
+              (1, 512, 2, 32, 2, 16, 256), (1, 768, 2, 64, 1, 128, 256),
+              (2, 768, 8, 64, 1, 128, 256), (1, 512, 4, 128, 2, 64, 256),
+              (1, 384, 2, 64, 1, 128, 192), (1, 512, 2, 128, 1, 256, 256)]
+
+
+@pytest.mark.parametrize("case", _SSD_WGMMA,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_wgmma_bf16_matches_plain(cuda, case):
+    """The bf16 kernel against the f32 recurrence on the same bf16 inputs:
+    relative L2 and max |diff| each within 1.25x those of the model's plain
+    path (ssd_chunked) in bf16, and relative L2 within 1e-2 (the criterion
+    of tests/test_torch_ssd_wgmma.py)."""
+    B, S, H, P, G, N, chunk = case
+    x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(B, S, H, P, G, N,
+                                                 S + N + P + G,
+                                                 torch.bfloat16))
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ops.ssd_route_counts() == {"wgmma": 1, "f32": 0}
+    truth = ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float())
+    plain, _ = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    kern_l2, kern_max = _dist(got, truth)
+    plain_l2, plain_max = _dist(plain, truth)
+    assert kern_l2 <= 1.25 * plain_l2, (kern_l2, plain_l2)
+    assert kern_max <= 1.25 * plain_max, (kern_max, plain_max)
+    assert kern_l2 <= 1e-2
+
+
+def test_ssd_routes_by_dtype(cuda):
+    """A bf16 call counts on the wgmma route, an f32 call on the f32 route;
+    the total counts both."""
+    arrs = [a.to(cuda) for a in _ssd(1, 256, 2, 64, 1, 128, 3,
+                                      torch.float32)]
+    ops.reset_launch_counts()
+    ops.ssd_scan(*arrs, chunk=64)
+    assert ops.ssd_route_counts() == {"wgmma": 0, "f32": 1}
+    x, dt, A, Bm, Cm = arrs
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    ops.ssd_scan(xb, dt, A, Bb, Cb, chunk=64)
+    ops.ssd_scan(xb, dt, A, Bb, Cb, chunk=128)
+    torch.cuda.synchronize()
+    assert ops.ssd_route_counts() == {"wgmma": 2, "f32": 1}
+    assert ops.launch_counts()["ssd_scan"] == 3
+
+
+@pytest.mark.parametrize("S,P,N,chunk,what", [
+    (256, 64, 128, 32, "chunk"), (240, 64, 128, 48, "chunk"),
+    (256, 48, 128, 64, "P"), (256, 64, 8, 64, "N")])
+def test_ssd_wgmma_refuses_what_it_does_not_take(cuda, S, P, N, chunk,
+                                                 what):
+    """bf16 CUDA tensors at shapes the wgmma kernel does not take raise;
+    nothing falls back to the f32 kernel or the plain version."""
+    x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(1, S, 2, P, 1, N, 0,
+                                                 torch.bfloat16))
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=what):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ops.ssd_route_counts() == {"wgmma": 0, "f32": 0}
+
+
+def test_ssd_wgmma_refuses_unaligned_bases(cuda):
+    x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(1, 128, 2, 32, 1, 16, 0,
+                                                 torch.bfloat16))
+    flat = torch.zeros(1 + x.numel(), dtype=torch.bfloat16, device=cuda)
+    xs = flat[1:].view(x.shape)          # base 2 bytes past alignment
+    xs.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=64)
+
+
 _LM = [("tinyllama-1.1b", None, "use_flash", 2e-4, 0.0),
        ("mamba2-780m", 16, "use_ssm_kernel", 5e-4, 1e-4)]
 
@@ -157,6 +244,9 @@ def test_reduced_forward_card_matches_cpu(cuda, arch, chunk, flag, atol,
     assert ops.launch_counts()[{"use_flash": "flash_attention",
                                 "use_ssm_kernel": "ssd_scan"}[flag]] == \
         cfg.num_layers
+    routes = (ops.flash_route_counts() if flag == "use_flash"
+              else ops.ssd_route_counts())
+    assert routes == {"wgmma": 0, "f32": cfg.num_layers}
     want, _ = TM.forward(cpu, {"tokens": tokens}, cfg, **{flag: True})
     torch.testing.assert_close(got.cpu(), want, atol=atol, rtol=rtol)
 

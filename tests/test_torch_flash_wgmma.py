@@ -160,7 +160,10 @@ def test_dtype_routing():
         tflash.route(torch.float16)
     assert {"flash_attention", "flash_attention_wgmma"} <= set(
         build.sources())
+    # the source and the shared Hopper header it includes
     src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
+    assert '#include "hopper.cuh"' in src
+    src += (build.CSRC / "hopper.cuh").read_text()
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
                   "setmaxnreg"):
         assert instr in src
