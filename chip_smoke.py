@@ -13,7 +13,12 @@ it goes wrong:
 3. kernels — each Hopper kernel on the card at its main path's shape and
    on edge cases, held to its plain PyTorch version on the same inputs:
    top-k and the int8 codec BITWISE (8 user rows of the 784/256/256 MLP
-   discriminator, N = 267,009 f32, upload fraction 0.1); flash attention
+   discriminator, N = 267,009 f32, upload fraction 0.1; also rows of 1 and
+   7 elements, rows beyond shared memory (N = 1,000,003), one row and 33
+   rows at an odd address, a seed in device memory, and both kernels
+   replayed from a CUDA graph with new rows and a new seed written into its
+   buffers), each of them one device operation per call (torch.profiler);
+   flash attention
    at tinyllama-1.1b's full width (B 4, S 2048, 32 q heads over 4 kv heads,
    hd 64; causal and window 128) on both routes: bf16 on the wgmma kernel
    within 2e-2, f32 on the CUDA-core kernel within 2e-5, and the f32 cases
@@ -24,10 +29,11 @@ it goes wrong:
    model's own plain path in bf16 and within ``SSD_BF16_REL_L2``, f32 on the
    CUDA-core kernel at the same shape, and the f32 cases within 1e-4 +
    1e-4 |plain|; the bf16 route's three launches timed apart, with their
-   CTA counts.  CUDA-event times (median of 30 after warm-up) of the
-   kernel, the plain version and, where one exists, the single PyTorch call
-   computing the same function; the least time the card needs for each
-   kernel's bytes or operations;
+   CTA counts.  CUDA-event times (median of 30 after warm-up, host enqueue
+   included) of the kernel, the plain version and, where one exists, the
+   single PyTorch call computing the same function; each kernel's device
+   time (30 calls replayed from one CUDA graph); the least time the card
+   needs for each kernel's bytes or operations;
 4. federation path — ``FederationSession`` approach-1 federation at the
    paper's full MLP width (8 users, Dirichlet-split 28x28 digit-like data,
    batch 64, fused engine, 16 rounds per chunk): 64 rounds with codec
@@ -79,7 +85,6 @@ Needs one CUDA device and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -92,6 +97,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 MAIN_ROWS, MAIN_N, FRAC = 8, 267009, 0.1
+BIG_N = 1_000_003     # top-k and codec slices beyond shared memory
 LM_BATCH, LM_SEQS = 4, (2048, 2048, 512)
 # the kernels' shapes on the LM path at full width (B = LM_BATCH)
 FLASH_FULL = dict(S=2048, H=32, K=4, hd=64)            # tinyllama-1.1b
@@ -133,24 +139,6 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, reps: int = 30, warm: int = 5) -> float:
-    """Median CUDA-event time of one call (host enqueue included, inputs
-    resident in L2 as on the main path, where the rows were just written)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def _bound(nbytes: float, ops: float,
            peak: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -174,14 +162,23 @@ def _kernel_phase(torch, dev):
         x = torch.randn((r, n), generator=gen, device=dev)
         return x
 
+    def odd_rows(n, r):
+        """(r, n) rows whose base sits 4 bytes past an allocation."""
+        return torch.randn((r * n + 1,), generator=gen, device=dev)[1:].view(
+            r, n)
+
     topk_cases = [(main, FRAC), (main, 1.0), (main, 0.01)]
-    for n in (100, 5000, 8192, 8192 + 17, 3 * 8192):
+    for n in (1, 7, 100, 5000, 8192, 8192 + 17, 3 * 8192):
         for frac in (0.01, 0.1, 0.5, 1.0):
             topk_cases.append((rows(n), frac))
     degenerate = torch.stack([torch.zeros(300, device=dev),
                               torch.ones(300, device=dev),
                               torch.full((300,), -0.5, device=dev)])
-    topk_cases += [(degenerate, 0.1), (torch.round(rows(5000) * 4) / 4, 0.3)]
+    # beyond shared memory (the passes read device memory), one row, and
+    # 33 rows (clusters in more than one wave)
+    big, one, many = rows(BIG_N), odd_rows(MAIN_N, 1), odd_rows(20011, 33)
+    topk_cases += [(degenerate, 0.1), (torch.round(rows(5000) * 4) / 4, 0.3),
+                   (big, FRAC), (one, FRAC), (many, FRAC), (many, 0.01)]
     for x, frac in topk_cases:
         got = tt.topk_mask_rows(x, frac)
         if not torch.equal(got, ref.topk_mask_global_ref(x, frac)):
@@ -190,8 +187,9 @@ def _kernel_phase(torch, dev):
     if not tt.topk_mask_rows(degenerate, 0.1)[0].all():
         raise AssertionError("all-zero row must keep every entry (t = 0)")
 
-    codec_cases = [main, rows(1000), rows(8192 + 17), degenerate,
-                   torch.zeros((2, 77), device=dev)]
+    codec_cases = [main, rows(1), rows(7), rows(1000), rows(8192 + 17),
+                   degenerate, torch.zeros((2, 77), device=dev), big, one,
+                   many]
     for x in codec_cases:
         for stochastic, seed in ((False, None), (True, 123),
                                  (True, 2**31 - 2)):
@@ -206,6 +204,15 @@ def _kernel_phase(torch, dev):
                                ref.dequantize_rows_ref(qr, sr)):
                 raise AssertionError(f"dequantize_rows != plain at "
                                      f"{tuple(x.shape)}")
+
+    seed_t = torch.full((1,), 2**31 - 2, dtype=torch.int32, device=dev)
+    if not all(torch.equal(a, b) for a, b in zip(
+            tq.quantize_rows(many, stochastic=True, seed=seed_t),
+            ref.quantize_rows_ref(many, stochastic=True, seed=2**31 - 2))):
+        raise AssertionError("quantize_rows with a device seed != plain")
+    _graph_replay_check(torch, tt, tq, ref, main)
+    _one_launch_check(torch, tt, tq, main)
+    del big, one, many
 
     k = ref.topk_k(MAIN_N, FRAC)
     elems = MAIN_ROWS * MAIN_N
@@ -252,17 +259,72 @@ def _kernel_phase(torch, dev):
     return recs, len(topk_cases), len(codec_cases)
 
 
+def _graph_replay_check(torch, tt, tq, ref, main) -> None:
+    """``topk_mask_rows`` and stochastic ``quantize_rows`` with a device seed
+    captured in one CUDA graph: new rows and a new seed written into the
+    static buffers before each replay must give the plain versions' results
+    on them, bitwise."""
+    x = main.clone()
+    seed = torch.zeros((1,), dtype=torch.int32, device=main.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tt.topk_mask_rows(x, FRAC)
+        tq.quantize_rows(x, stochastic=True, seed=seed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mask = tt.topk_mask_rows(x, FRAC)
+        q, s = tq.quantize_rows(x, stochastic=True, seed=seed)
+    gen = torch.Generator(device=main.device).manual_seed(3)
+    for value in (7, 2**31 - 2):
+        x.copy_(torch.randn(x.shape, generator=gen, device=x.device))
+        x[1] = torch.round(x[1] * 4) / 4
+        seed.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        qr, sr = ref.quantize_rows_ref(x, stochastic=True, seed=value)
+        if not (torch.equal(mask, ref.topk_mask_global_ref(x, FRAC))
+                and torch.equal(q, qr) and torch.equal(s, sr)):
+            raise AssertionError(f"graph replay != plain (seed {value})")
+    del graph
+
+
+def _one_launch_check(torch, tt, tq, main) -> None:
+    """``topk_mask_rows`` and ``quantize_rows`` each run as exactly one
+    device operation (no memset, no second kernel), by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn in (("topk_mask_rows", lambda: tt.topk_mask_rows(main, FRAC)),
+                     ("quantize_rows", lambda: tq.quantize_rows(main)),
+                     ("quantize_rows_stochastic",
+                      lambda: tq.quantize_rows(main, stochastic=True,
+                                               seed=123))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if len(ops) != 1:
+            raise AssertionError(f"{name}: {len(ops)} device operations per "
+                                 f"call, want 1: {ops}")
+
+
 def _record(torch, name, source, replaces, kern, plain, library, nbytes, ops,
             err, peak=F32_OPS_PER_S):
     """One kernel's line of the ``kernels`` JSON (launches filled in after
-    the main path's run)."""
+    the main path's run).  ``ms`` is the event time of one call with the
+    host's enqueue, ``device_ms`` the device time of one call (30 calls
+    replayed from one CUDA graph)."""
+    from repro_torch.timing import event_ms, graph_ms
     bound_ms, bound_by = _bound(nbytes, ops, peak)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0, "max_abs_err": err,
-        "ms": _time_ms(torch, kern), "plain_ms": _time_ms(torch, plain),
+        "ms": event_ms(kern), "device_ms": graph_ms(kern),
+        "plain_ms": event_ms(plain),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None if library is None else _time_ms(torch, library)}
+        "library_ms": None if library is None else event_ms(library)}
 
 
 # (B, S, H, K, hd, causal, window): the f32 cases of tests/test_kernels.py
@@ -294,6 +356,7 @@ def _lm_kernel_phase(torch, dev):
     from repro_torch.kernels import ssd_scan as tss
     from repro_torch.models.ssm import ssd_chunked
     from repro_torch.profile_ssd import Runner
+    from repro_torch.timing import event_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -351,8 +414,8 @@ def _lm_kernel_phase(torch, dev):
             raise AssertionError(f"flash bf16 full width window={window}: "
                                  f"{flash_err[window]} > 2e-2")
     info["flash_bf16_window128_err"] = flash_err[128]
-    info["flash_window128_ms"] = _time_ms(
-        torch, lambda: tfl.flash_attention(q, k, v, causal=True, window=128))
+    info["flash_window128_ms"] = event_ms(
+        lambda: tfl.flash_attention(q, k, v, causal=True, window=128))
     flops = 4 * hd * B * H * _flash_pairs(S, S, True, 0)
     flash_recs = []
     # bf16 -> the wgmma kernel, f32 -> the CUDA-core kernel, same shape

@@ -8,6 +8,8 @@ header is rebuilt and an unchanged one is reused.
 Nothing is built when a module is imported: the first launch builds, or
 :func:`build_all` builds every source at once, one ``nvcc`` process each,
 all started together (``build_seconds`` keeps each one's wall time).
+:func:`load_variant` builds another version of one kernel (a copy of its
+source, or extra flags) beside the package's own, for the profilers.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and per source what its
 contract needs (:func:`nvcc_flags`): the int8 codec is held bitwise to a
@@ -60,6 +62,14 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(name: str, out: Path, extra: tuple[str, ...] = (),
+                 source: Path | None = None) -> list[str]:
+    """The nvcc command that builds ``source`` (``csrc/<name>.cu`` by
+    default) with ``name``'s flags and ``extra`` into ``out``."""
+    return [_nvcc(), *nvcc_flags(name), *extra, "-o", str(out),
+            str(source or CSRC / f"{name}.cu")]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -76,9 +86,7 @@ def _start(name: str):
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, (proc, tmp, time.perf_counter())
 
@@ -125,6 +133,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             _libs[name] = lib
         return lib
+
+
+def load_variant(name: str, tag: str, extra: tuple[str, ...] = (),
+                 source: Path | None = None) -> ctypes.CDLL:
+    """``source`` (a copy of ``csrc/<name>.cu``; the package's own by
+    default) built with ``name``'s flags and ``extra`` into
+    ``<name>-<tag>.so`` and loaded, beside the package's build of it."""
+    out = BUILD_DIR / f"{name}-{tag}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(nvcc_command(name, out, extra, source),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source or name} {extra}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
 
 
 def check(rc: int, what: str) -> None:

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu): mbarriers, TMA tile loads
+// (flash_attention_wgmma.cu, ssd_scan_wgmma.cu; the row kernels take the
+// mbarriers through row_cluster.cuh): mbarriers, TMA tile loads
 // from 4-D tensor maps, the tensor-map encoder taken from the driver with
 // dlsym, wgmma shared-memory descriptors and the m64nNk16 bf16 products
 // they use, and the register fences around an asynchronous wgmma window.

@@ -3,8 +3,10 @@ port of the reference's ``kernels/topk_select.py::topk_mask_pallas_global``.
 
 ``topk_mask_rows(x, frac)`` takes ``(C, N)`` f32 rows on a CUDA device and
 returns the ``(C, N)`` bool mask of every row's exact global top-k by
-magnitude (ties kept) in one call; ``launches`` counts its calls.  The
-plain version is ``kernels/ref.py::topk_mask_global_ref``.
+magnitude (ties kept) in one launch of one 8-CTA thread-block cluster per
+row (``row_cluster::kCluster`` in ``csrc/row_cluster.cuh``); ``launches``
+counts its calls.  The plain version is
+``kernels/ref.py::topk_mask_global_ref``.
 """
 
 from __future__ import annotations
@@ -16,19 +18,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import BLOCK, topk_k
 
-_PASSES, _BINS, _THREADS = 4, 256, 256
-
 launches = 0
 block_launches = 0
 
 
-def _lib():
-    lib = build.load("topk_select")
+def bind(lib: ctypes.CDLL):
+    """``lib``'s ``topk_mask_rows`` (a build of ``csrc/topk_select.cu``)
+    with its C signature set."""
     fn = lib.topk_mask_rows
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -52,15 +52,6 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
                          f"contiguous={x.is_contiguous()}")
 
 
-def blocks_per_row(x: torch.Tensor) -> int:
-    """About four 256-thread blocks per SM over the whole (C, N) grid, and
-    no block without work."""
-    rows, n = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_row = -(-4 * sms // rows)
-    return max(1, min(per_row, -(-n // _THREADS)))
-
-
 def topk_mask_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
     """(C, N) f32 CUDA rows -> (C, N) bool: ``|x| >=`` the row's k-th
     largest magnitude, ``k = max(int(N * frac), 1)``."""
@@ -68,17 +59,13 @@ def topk_mask_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
     _check_rows(x, "topk_mask_rows")
     rows, n = x.shape
     k = topk_k(n, frac)
-    if not (0 < rows and 0 < n and k <= n):
+    if not (0 < rows <= 65535 and 0 < n and k <= n):
         raise ValueError(f"bad top-k problem: rows={rows} n={n} k={k}")
-    fn = _lib()
-    hist = torch.zeros((_PASSES, rows, _BINS), dtype=torch.int32,
-                       device=x.device)
-    state = torch.empty((rows, 2), dtype=torch.int32, device=x.device)
+    fn = bind(build.load("topk_select"))
     out = torch.empty((rows, n), dtype=torch.bool, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), hist.data_ptr(),
-                state.data_ptr(), rows, n, k, blocks_per_row(x), stream)
+        rc = fn(x.data_ptr(), out.data_ptr(), rows, n, k, stream)
     build.check(rc, "topk_mask_rows")
     launches += 1
     return out

@@ -1,0 +1,186 @@
+"""Device time of the federation round's two kernels on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.profile_codec [--reps 30]
+        [--src OTHER/src] [--stamps]
+
+Runs the global top-k mask (``topk_select.topk_mask_rows``) and the int8
+row codec (``quantize.quantize_rows`` deterministic and stochastic,
+``quantize.dequantize_rows``) through their public wrappers at the main
+path's shape: 8 rows of 267,009 f32 (the D rows of 8 users of the
+784/256/256 MLP discriminator), upload fraction 0.1, inputs from a seed on
+the card.  ``--src`` times the kernels of another source tree instead (for
+example the parent commit unpacked with ``git archive``): its
+``repro_torch`` is imported in place of this one, so two versions can be
+timed in turns on one card, each in its own process.  Prints one JSON line
+per kernel:
+
+* ``event_ms``: CUDA-event time of one call, host enqueue included (median
+  of ``--reps`` after warm-up), what the host-bound round pays;
+* ``device_ms``: ``--reps`` calls captured in one ``torch.cuda.CUDAGraph``,
+  the replay timed with events and divided by ``--reps``: device time per
+  call without the host;
+* ``device_us``: ``torch.profiler`` device microseconds per call, by
+  kernel name (memsets included);
+* ``exact``: the result equals the plain version in ``kernels/ref.py``.
+
+``--stamps`` instead builds this tree's ``csrc/topk_select.cu`` and
+``csrc/quantize.cu`` with ``STAMP_FLAGS`` into libraries of their own
+(``build.load_variant``) and prints, per kernel, the SM clock cycles
+between the stamps that thread 0 of the first CTA of the first row records
+at the end of each phase (``csrc/row_cluster.cuh``), from one launch after
+warm-up.
+
+Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+from repro_torch.timing import event_ms, graph_ms
+
+MAIN_ROWS, MAIN_N, FRAC, SEED = 8, 267009, 0.1, 123
+STAMP_FLAGS = ("-DROW_CLUSTER_STAMPS",)
+
+# phase names of the stamps, in stamp order (csrc/topk_select.cu, quantize.cu)
+TOPK_PHASES = ["load issued"] + [
+    f"pass {p}: {what}" for p in range(4)
+    for what in ("swept", "columns summed", "pushed + barrier", "picked")
+] + ["mask stored"]
+QUANT_PHASES = ["loaded + max (+ SR hashes)", "pushed + barrier", "scale",
+                "coded + stored"]
+
+
+def profiler_us(fn, reps: int) -> dict[str, float]:
+    """``torch.profiler`` device microseconds per call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.device_time_total / reps
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def stamps(x) -> None:
+    """Cycles between the phase stamps of the top-k and quantize kernels
+    (the package's own C interfaces and inputs)."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import quantize as tq
+    from repro_torch.kernels import topk_select as tt
+    rows, n = x.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((rows, n), dtype=torch.bool, device=x.device)
+    q = torch.empty((rows, n), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    topk_lib = build.load_variant("topk_select", "stamps", STAMP_FLAGS)
+    quant_lib = build.load_variant("quantize", "stamps", STAMP_FLAGS)
+    topk, (quant, _) = tt.bind(topk_lib), tq.bind(quant_lib)
+    runs = [("topk_mask_rows", topk_lib, TOPK_PHASES,
+             lambda: topk(x.data_ptr(), out.data_ptr(), rows, n,
+                          ref.topk_k(n, FRAC), stream))]
+    for stochastic in (False, True):
+        runs.append((
+            "quantize_rows" + ("_stochastic" if stochastic else ""),
+            quant_lib, QUANT_PHASES,
+            lambda sr=stochastic: quant(
+                x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, n,
+                int(sr), None, SEED, stream)))
+    host = (ctypes.c_longlong * 32)()
+    for name, lib, phases, launch in runs:
+        for _ in range(3):
+            build.check(launch(), name)
+        torch.cuda.synchronize()
+        build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
+        build.check(launch(), name)
+        torch.cuda.synchronize()
+        build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
+        t = list(host)
+        cycles, last = {}, 0            # an early stop leaves passes unset
+        for i, phase in enumerate(phases, start=1):
+            if t[i]:
+                cycles[phase] = t[i] - t[last]
+                last = i
+        print(json.dumps({"kernel": name, "stamps_of": "thread 0, CTA 0, row 0",
+                          "shape": [rows, n],
+                          "device": torch.cuda.get_device_name(0),
+                          "cycles": cycles, "total_cycles": t[last] - t[0]}),
+              flush=True)
+
+
+def main_input(dev):
+    """The main shape's rows: N(0, 2e-4), one row of ties at 5e-5 steps,
+    one half-zero row."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((MAIN_ROWS, MAIN_N), generator=gen, device=dev) * 2e-4
+    x[1] = torch.round(x[1] * 2e4) / 2e4
+    x[5, : MAIN_N // 2] = 0.0
+    return x
+
+
+def _import_tree(src: str) -> None:
+    """Import ``repro_torch`` from the source tree ``src`` from now on."""
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(src).resolve()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", help="source tree whose kernels to time "
+                                  "(default: this one)")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--stamps", action="store_true",
+                    help="print the phase stamps of the two kernels instead")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_codec needs a CUDA device")
+    if args.src:
+        _import_tree(args.src)
+    from repro_torch.kernels import quantize as tq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as tt
+
+    x = main_input(torch.device("cuda"))
+    if args.stamps:
+        stamps(x)
+        return 0
+    q, s = tq.quantize_rows(x)
+    cases = {
+        "topk_mask_rows": (lambda: tt.topk_mask_rows(x, FRAC),
+                           lambda: ref.topk_mask_global_ref(x, FRAC)),
+        "quantize_rows": (lambda: tq.quantize_rows(x),
+                          lambda: ref.quantize_rows_ref(x)),
+        "quantize_rows_stochastic": (
+            lambda: tq.quantize_rows(x, stochastic=True, seed=SEED),
+            lambda: ref.quantize_rows_ref(x, stochastic=True, seed=SEED)),
+        "dequantize_rows": (lambda: tq.dequantize_rows(q, s),
+                            lambda: ref.dequantize_rows_ref(q, s)),
+    }
+    for name, (kern, plain) in cases.items():
+        got, want = kern(), plain()
+        if isinstance(got, tuple):
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        else:
+            exact = torch.equal(got, want)
+        print(json.dumps({
+            "kernel": name, "src": args.src or "package",
+            "shape": [MAIN_ROWS, MAIN_N],
+            "device": torch.cuda.get_device_name(0), "exact": exact,
+            "event_ms": event_ms(kern, args.reps),
+            "device_ms": graph_ms(kern, args.reps),
+            "device_us": profiler_us(kern, args.reps)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -31,8 +31,8 @@ from repro_torch.core.spec import (CombineSpec, CompressionSpec, EngineSpec,
                                    FederationSpec)
 from repro_torch.data import digits_like_mixture, dirichlet_partition
 
-_OWN = ("hist_pass", "pick_digit", "mask_ge", "row_absmax", "quantize",
-        "dequantize")
+# the kernels of csrc/topk_select.cu and csrc/quantize.cu (B1, B2)
+_OWN = ("topk_mask_cluster", "quantize_cluster", "dequantize")
 
 
 def _dataset(num_users: int):

@@ -23,8 +23,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
-import subprocess
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ssd_scan as tss
+from repro_torch.timing import event_ms
 
 SHAPE = dict(B=4, S=2048, H=48, P=64, G=1, N=128, chunk=256)
 
@@ -39,35 +39,14 @@ SHAPE = dict(B=4, S=2048, H=48, P=64, G=1, N=128, chunk=256)
 def _build(spec: str, tag: str):
     """The C entry point of one source (``path[:flag,flag]``)."""
     path, _, flags = spec.partition(":")
-    out = build.BUILD_DIR / f"profile_ssd_{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build._nvcc(), *build.nvcc_flags("ssd_scan_wgmma"),
-           *[f for f in flags.split(",") if f], "-o", str(out), path]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {spec}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).ssd_scan_wgmma_fwd
+    lib = build.load_variant("ssd_scan_wgmma", f"profile_ssd_{tag}",
+                             tuple(f for f in flags.split(",") if f),
+                             Path(path))
+    fn = lib.ssd_scan_wgmma_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _time_ms(fn, reps: int) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 class Runner:
@@ -96,9 +75,9 @@ class Runner:
     def launch_ms(self, reps: int) -> dict[str, float]:
         """Event ms of the whole call and of each launch alone."""
         self()          # the scratch the later launches read
-        out = {"all": _time_ms(self, reps)}
+        out = {"all": event_ms(self, reps)}
         for name, mask in tss.PHASES.items():
-            out[name] = _time_ms(lambda m=mask: self(m), reps)
+            out[name] = event_ms(lambda m=mask: self(m), reps)
         return out
 
 

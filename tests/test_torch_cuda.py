@@ -32,7 +32,7 @@ def _rows(shape, seed, scale=1.0):
         scale=scale, size=shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("n", [100, 5000, 8192 + 17, 267009])
+@pytest.mark.parametrize("n", [1, 7, 100, 5000, 8192 + 17, 267009])
 @pytest.mark.parametrize("frac", [0.01, 0.1, 1.0])
 def test_topk_kernel_matches_plain_bitwise(cuda, n, frac):
     x = _rows((8, n), n).to(cuda)
@@ -42,6 +42,21 @@ def test_topk_kernel_matches_plain_bitwise(cuda, n, frac):
     got = ttopk.topk_mask_rows(x, frac)
     assert torch.equal(got, ref.topk_mask_global_ref(x, frac))
     assert got[2].all()
+
+
+@pytest.mark.parametrize("rows,n", [(3, 1_000_003), (1, 267009),
+                                    (33, 20011)])
+def test_topk_kernel_beyond_shared_memory_and_one_wave(cuda, rows, n):
+    """A slice too large for shared memory (N = 1,000,003: the passes read
+    device memory), one row, and 33 rows (clusters in more than one wave);
+    a row view at an odd offset, so no row starts 16-byte aligned."""
+    x = _rows((rows, n + 1), n)[:, 1:].contiguous().to(cuda)
+    x[0, : n // 3] = torch.round(x[0, : n // 3] * 4) / 4
+    odd = _rows((rows * n + 1,), rows).to(cuda)[1:].view(rows, n)
+    for t in (x, odd):
+        for frac in (0.01, 0.1):
+            assert torch.equal(ttopk.topk_mask_rows(t, frac),
+                               ref.topk_mask_global_ref(t, frac))
 
 
 @pytest.mark.parametrize("n", [5000, 8192, 8192 + 17, 3 * 8192, 267009])
@@ -57,7 +72,7 @@ def test_block_topk_kernel_matches_plain_bitwise(cuda, n, frac):
 
 
 @pytest.mark.parametrize("stochastic", [False, True])
-@pytest.mark.parametrize("n", [77, 1000, 267009])
+@pytest.mark.parametrize("n", [1, 7, 77, 1000, 267009, 1_000_003])
 def test_codec_kernels_match_plain_bitwise(cuda, stochastic, n):
     x = _rows((8, n), n, scale=0.1).to(cuda)
     x[1, : n // 2] = 0.0
@@ -68,6 +83,67 @@ def test_codec_kernels_match_plain_bitwise(cuda, stochastic, n):
     assert torch.equal(q, qr) and torch.equal(s, sr)
     assert torch.equal(tquant.dequantize_rows(q, s),
                        ref.dequantize_rows_ref(qr, sr))
+
+
+def test_codec_seed_tensor_equals_seed_value(cuda):
+    """A one-element int32 or uint32 seed tensor on the card gives the codes
+    of the same seed passed as an int; a seed on another device is
+    refused."""
+    x = _rows((33, 20011), 4, scale=0.1).to(cuda)
+    want = ref.quantize_rows_ref(x, stochastic=True, seed=2**31 - 2)
+    for dtype in (torch.int32, torch.uint32):
+        seed = torch.full((1,), 2**31 - 2, dtype=dtype, device=cuda)
+        q, s = tquant.quantize_rows(x, stochastic=True, seed=seed)
+        assert torch.equal(q, want[0]) and torch.equal(s, want[1])
+    with pytest.raises(ValueError, match="seed"):
+        tquant.quantize_rows(x, stochastic=True,
+                             seed=torch.tensor([5], dtype=torch.int32))
+
+
+def test_kernels_replay_in_a_cuda_graph(cuda):
+    """``topk_mask_rows`` and stochastic ``quantize_rows`` with a device
+    seed captured in one CUDA graph: new rows and a new seed written into
+    the static buffers before each replay give the plain versions' results
+    on them, bitwise."""
+    x = _rows((8, 267009), 11).to(cuda)
+    seed = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ttopk.topk_mask_rows(x, 0.1)
+        tquant.quantize_rows(x, stochastic=True, seed=seed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mask = ttopk.topk_mask_rows(x, 0.1)
+        q, s = tquant.quantize_rows(x, stochastic=True, seed=seed)
+    for step, value in enumerate((7, 2**31 - 2, 123)):
+        x.copy_(_rows((8, 267009), 20 + step).to(cuda))
+        x[1] = torch.round(x[1] * 4) / 4
+        seed.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(mask, ref.topk_mask_global_ref(x, 0.1))
+        qr, sr = ref.quantize_rows_ref(x, stochastic=True, seed=value)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def test_one_device_launch_per_call(cuda):
+    """``topk_mask_rows`` and ``quantize_rows`` each run as one kernel on the
+    device: no memset, no second launch."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _rows((8, 267009), 12).to(cuda)
+    for fn in (lambda: ttopk.topk_mask_rows(x, 0.1),
+               lambda: tquant.quantize_rows(x),
+               lambda: tquant.quantize_rows(x, stochastic=True, seed=3)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type.name == "CUDA"]
+        assert len(ops) == 1, ops
 
 
 def test_max_abs_fold_takes_first_user_on_ties_on_the_card(cuda):
