@@ -21,19 +21,21 @@ it goes wrong:
    flash attention
    at tinyllama-1.1b's full width (B 4, S 2048, 32 q heads over 4 kv heads,
    hd 64; causal and window 128) on both routes: bf16 on the wgmma kernel
-   within 2e-2, f32 on the CUDA-core kernel within 2e-5, and the f32 cases
-   of ``tests/test_kernels.py`` within 2e-5; the SSD scan at mamba2-780m's
-   full width (B 4, S 2048, H 48, P 64, G 1, N 128, chunk 256) on both
-   routes: bf16 on the wgmma kernel, whose distance from the f32 recurrence
-   (relative L2 and max |diff|) must be within ``SSD_BF16_RATIO`` of the
-   model's own plain path in bf16 and within ``SSD_BF16_REL_L2``, f32 on the
-   CUDA-core kernel at the same shape, and the f32 cases within 1e-4 +
-   1e-4 |plain|; the bf16 route's three launches timed apart, with their
-   CTA counts.  CUDA-event times (median of 30 after warm-up, host enqueue
-   included) of the kernel, the plain version and, where one exists, the
-   single PyTorch call computing the same function; each kernel's device
-   time (30 calls replayed from one CUDA graph); the least time the card
-   needs for each kernel's bytes or operations;
+   within 2e-2, f32 on the split-TF32 kernel within 2e-5, and the f32
+   cases of ``tests/test_kernels.py`` within 2e-5; the SSD scan at
+   mamba2-780m's full width (B 4, S 2048, H 48, P 64, G 1, N 128, chunk
+   256) on both routes: bf16 on the wgmma kernel, whose distance from the
+   f32 recurrence (relative L2 and max |diff|) must be within
+   ``SSD_BF16_RATIO`` of the model's own plain path in bf16 and within
+   ``SSD_BF16_REL_L2``, f32 on the split-TF32 kernel at the same shape, and
+   the f32 cases within 1e-4 + 1e-4 |plain|; the bf16 route's three
+   launches and the f32 route's four timed apart, with their CTA counts.
+   CUDA-event times (median of 30 after warm-up, host enqueue included) of
+   the kernel, the plain version and, where one exists, the single PyTorch
+   call computing the same function; each kernel's device time (30 calls
+   replayed from one CUDA graph); the least time the card needs for each
+   kernel's bytes or operations (for the f32 routes, the lower of their
+   split-TF32 and CUDA-core bounds, both printed);
 4. federation path — ``FederationSession`` approach-1 federation at the
    paper's full MLP width (8 users, Dirichlet-split 28x28 digit-like data,
    batch 64, fused engine, 16 rounds per chunk): 64 rounds with codec
@@ -93,9 +95,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 MAIN_ROWS, MAIN_N, FRAC = 8, 267009, 0.1
 BIG_N = 1_000_003     # top-k and codec slices beyond shared memory
 LM_BATCH, LM_SEQS = 4, (2048, 2048, 512)
@@ -137,13 +136,6 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def _bound(nbytes: float, ops: float,
-           peak: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _kernel_phase(torch, dev):
@@ -311,20 +303,31 @@ def _one_launch_check(torch, tt, tq, main) -> None:
 
 
 def _record(torch, name, source, replaces, kern, plain, library, nbytes, ops,
-            err, peak=F32_OPS_PER_S):
+            err, peak=None, split_tf32=False):
     """One kernel's line of the ``kernels`` JSON (launches filled in after
     the main path's run).  ``ms`` is the event time of one call with the
     host's enqueue, ``device_ms`` the device time of one call (30 calls
-    replayed from one CUDA graph)."""
-    from repro_torch.timing import event_ms, graph_ms
-    bound_ms, bound_by = _bound(nbytes, ops, peak)
-    return {
+    replayed from one CUDA graph).  The bound (``repro_torch.timing``, H100
+    SXM data-sheet rates) is the bytes' time or the operations' at ``peak``
+    (f32 on the CUDA cores by default); for an f32 kernel whose products
+    are split TF32 (``split_tf32``) the lower of two: three TF32 products
+    per product at 495 TFLOP/s, or f32 products at 67 TFLOP/s, both kept
+    in the line.  ``share_of_bound`` is the bound over the device time."""
+    from repro_torch.timing import (F32_OPS_PER_S, bound_ms, event_ms,
+                                    f32_bounds, graph_ms)
+    if split_tf32:
+        bounds = f32_bounds(nbytes, ops)
+    else:
+        t, by = bound_ms(nbytes, ops, peak or F32_OPS_PER_S)
+        bounds = {"bound_ms": t, "bound_by": by}
+    rec = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0, "max_abs_err": err,
         "ms": event_ms(kern), "device_ms": graph_ms(kern),
-        "plain_ms": event_ms(plain),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": event_ms(plain), **bounds,
         "library_ms": None if library is None else event_ms(library)}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    return rec
 
 
 # (B, S, H, K, hd, causal, window): the f32 cases of tests/test_kernels.py
@@ -355,8 +358,8 @@ def _lm_kernel_phase(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as tss
     from repro_torch.models.ssm import ssd_chunked
-    from repro_torch.profile_ssd import Runner
-    from repro_torch.timing import event_ms
+    from repro_torch.profile_ssd import F32Runner, Runner
+    from repro_torch.timing import BF16_OPS_PER_S, event_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -418,12 +421,12 @@ def _lm_kernel_phase(torch, dev):
         lambda: tfl.flash_attention(q, k, v, causal=True, window=128))
     flops = 4 * hd * B * H * _flash_pairs(S, S, True, 0)
     flash_recs = []
-    # bf16 -> the wgmma kernel, f32 -> the CUDA-core kernel, same shape
+    # bf16 -> the wgmma kernel, f32 -> the split-TF32 kernel, same shape
     for name, source, dtype, peak, tol in (
             ("flash_attention", "flash_attention_wgmma.cu", torch.bfloat16,
              BF16_OPS_PER_S, 2e-2),
-            ("flash_attention_f32", "flash_attention.cu", torch.float32,
-             F32_OPS_PER_S, 2e-5)):
+            ("flash_attention_f32", "flash_attention_tf32.cu", torch.float32,
+             None, 2e-5)):
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         err = float((tfl.flash_attention(qd, kd, vd, causal=True).float()
                      - ref.flash_attention_ref(qd, kd, vd, causal=True)
@@ -440,7 +443,7 @@ def _lm_kernel_phase(torch, dev):
                 qh, kh, vh, is_causal=True, enable_gqa=True),
             nbytes=qd.element_size() * (2 * qd.numel() + kd.numel()
                                         + vd.numel()),
-            ops=flops, err=err, peak=peak))
+            ops=flops, err=err, peak=peak, split_tf32=peak is None))
         del qd, kd, vd, qh, kh, vh
     torch.cuda.empty_cache()
 
@@ -483,11 +486,11 @@ def _lm_kernel_phase(torch, dev):
     tri = chunk * (chunk + 1) // 2
     ssd_flops = B * Hs * nc * (2 * tri * (N + P) + 4 * chunk * N * P)
     ssd_recs = []
-    # bf16 -> the wgmma kernel, f32 -> the CUDA-core kernel, same shape
+    # bf16 -> the wgmma kernel, f32 -> the split-TF32 kernel, same shape
     for name, source, dtype, peak in (
             ("ssd_scan", "ssd_scan_wgmma.cu", torch.bfloat16,
              BF16_OPS_PER_S),
-            ("ssd_scan_f32", "ssd_scan.cu", torch.float32, F32_OPS_PER_S)):
+            ("ssd_scan_f32", "ssd_scan_tf32.cu", torch.float32, None)):
         xd, Bd, Cd = (t.to(dtype) for t in (x, Bm, Cm))
         if dtype == torch.float32:
             err, over = ssd_err(tss.ssd_scan(xd, dt, A, Bd, Cd, chunk=chunk),
@@ -497,6 +500,18 @@ def _lm_kernel_phase(torch, dev):
                 raise AssertionError(f"ssd f32 full width: {err} beyond "
                                      f"1e-4 + 1e-4 |plain|")
             info["ssd_f32_full_width_err"] = err
+            info["ssd_f32_full_width_over_tol"] = over
+            # the f32 route's four launches timed apart, with their CTAs
+            ctas = tss.tf32_ctas(B, S, Hs, P, G, N, chunk)
+            phase_ms = F32Runner(xd, dt, A, Bd, Cd, chunk,
+                                 tss.tf32_plan(P, N, chunk),
+                                 tss.tf32_entry()).phase_ms(30)
+            info["ssd_f32_phases"] = {
+                name: {"ctas": ctas[name], "device_ms": phase_ms[name]}
+                for name in ctas}
+            print(f"[kernels] ssd_scan f32 (split TF32) launches, CTAs and "
+                  f"device ms: {json.dumps(info['ssd_f32_phases'])}",
+                  flush=True)
         else:
             err = kern_max
         size = xd.element_size()
@@ -507,7 +522,8 @@ def _lm_kernel_phase(torch, dev):
             "src/repro/kernels/ssd_scan.py:73",
             lambda: tss.ssd_scan(xd, dt, A, Bd, Cd, chunk=chunk),
             lambda: ref.ssd_scan_ref(xd, dt, A, Bd, Cd, chunk=chunk), None,
-            nbytes=ssd_bytes, ops=ssd_flops, err=err, peak=peak))
+            nbytes=ssd_bytes, ops=ssd_flops, err=err, peak=peak,
+            split_tf32=peak is None))
         del xd, Bd, Cd
     torch.cuda.empty_cache()
     return flash_recs + ssd_recs, info
@@ -518,7 +534,7 @@ def _lm_prefill(torch, dev):
     through ``loss_fn`` with its kernel on, launch counts zeroed just before
     and read just after; then the first request against the plain path.
     Prints a line per request and per model; returns (per-request lines,
-    launch totals)."""
+    launch totals, the ms of each f32 forward with its kernel on)."""
     import math
 
     import numpy as np
@@ -527,7 +543,7 @@ def _lm_prefill(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    requests, models, totals = [], [], {}
+    requests, models, totals, f32_ms = [], [], {}, {}
     for arch, flag, kname in (("tinyllama-1.1b", "use_flash",
                                "flash_attention"),
                               ("mamba2-780m", "use_ssm_kernel", "ssd_scan")):
@@ -586,6 +602,7 @@ def _lm_prefill(torch, dev):
             raise AssertionError(f"{arch}: f32 forward {kname} routes "
                                  f"{routes}, want every launch on f32")
         totals[f"{kname}_f32"] = (routes["f32"], cfg.num_layers)
+        f32_ms[f"{kname}_f32"] = models[-1]["f32_kernel_forward_ms"]
         models[-1].update(init_s=init_s, params=sum(
             t.numel() for t in _np_leaves(params)))
         for line in requests[-len(LM_SEQS):] + models[-1:]:
@@ -593,7 +610,7 @@ def _lm_prefill(torch, dev):
         _check_lm_vs_plain(models[-1])
         del params
         torch.cuda.empty_cache()
-    return requests, totals
+    return requests, totals, f32_ms
 
 
 def _route_counts(ops, kname: str) -> dict:
@@ -632,7 +649,11 @@ def _lm_vs_plain(torch, M, cfg, params, flag, batch) -> dict:
     line["plain_vs_f32_rel_l2"] = _rel_l2(torch, want, truth)
     del got, want
     ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     got32, _ = M.forward(p32, batch, cfg32, **{flag: True})
+    torch.cuda.synchronize()
+    line["f32_kernel_forward_ms"] = (time.perf_counter() - t) * 1e3
     line["f32_forward_launches"] = ops.launch_counts()
     line["f32_forward_flash_attention_routes"] = ops.flash_route_counts()
     line["f32_forward_ssd_scan_routes"] = ops.ssd_route_counts()
@@ -1170,17 +1191,19 @@ def main() -> int:
           f" {json.dumps(info)}", flush=True)
 
     t0 = time.perf_counter()
-    requests, totals = _lm_prefill(torch, dev)
+    requests, totals, f32_ms = _lm_prefill(torch, dev)
     for rec in lm_recs:
         rec["launches"], rec["launches_per_forward"] = totals[rec["name"]]
         full = [r["ms"] for r in requests
                 if r["kernel"] == rec["name"] and r["seq"] == LM_SEQS[0]]
-        if not full:            # the f32 route: driven by the f32 forward
-            continue
+        # the f32 routes: driven by the f32 forward of the first request
+        whole, what = ((min(full), f"the fastest S={LM_SEQS[0]} request")
+                       if full else (f32_ms[rec["name"]],
+                                     "the f32 forward"))
         print(f"[lm] {rec['name']}: {rec['launches_per_forward']} x "
               f"{rec['ms']:.4f} ms = "
-              f"{rec['launches_per_forward'] * rec['ms'] / min(full):.3f} "
-              f"of the fastest S={LM_SEQS[0]} request", flush=True)
+              f"{rec['launches_per_forward'] * rec['ms'] / whole:.3f} "
+              f"of {what} ({whole:.2f} ms)", flush=True)
     print(f"[lm] {time.perf_counter() - t0:.1f} s", flush=True)
 
     worst = _lm_cpu_agreement(torch, dev)

@@ -2,7 +2,8 @@
 // wgmma fed by TMA through a two-stage mbarrier ring.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
-//   (_flash_kernel) for bf16 inputs; f32 inputs go to flash_attention.cu.
+//   (_flash_kernel) for bf16 inputs; f32 inputs go to
+//   flash_attention_tf32.cu.
 //
 // What it computes (the TPU kernel's arithmetic, one rounding apart):
 //   q (B, S, H, hd), k/v (B, T, K, hd) in bf16, H % K == 0, query head h

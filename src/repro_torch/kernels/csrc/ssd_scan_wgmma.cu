@@ -2,7 +2,7 @@
 // the chunked dual form, chunk-parallel, on wgmma fed by TMA.
 //
 // Replaces: src/repro/kernels/ssd_scan.py::ssd_scan_pallas (_ssd_kernel)
-//   for bf16 inputs; f32 inputs go to ssd_scan.cu.
+//   for bf16 inputs; f32 inputs go to ssd_scan_tf32.cu.
 //
 // What it computes: x (B, S, H, P), Bm / Cm (B, S, G, N) in bf16, dt
 // (B, S, H) and A (H,) in f32; head h reads B and C of group h / (H / G).

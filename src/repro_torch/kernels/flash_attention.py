@@ -8,7 +8,10 @@ bf16, one type, hd in {32, 64, 128}, H % K == 0) and returns
 
 * bf16 -> ``csrc/flash_attention_wgmma.cu`` (tensor cores: wgmma fed by
   TMA; p rounded to bf16 before the p.v product);
-* f32 -> ``csrc/flash_attention.cu`` (CUDA cores, f32 products).
+* f32 -> ``csrc/flash_attention_tf32.cu`` (tensor cores: mma.sync fed by
+  cp.async, both products in split TF32, each operand hi + lo so that
+  three TF32 products give a near-f32 product).  A base that is not
+  16-byte aligned is copied first (cp.async reads 16-byte words).
 
 If the build fails or a launch is refused the wrapper raises; a bf16
 tensor never reaches the f32 kernel.  ``launches`` counts the calls of
@@ -29,7 +32,8 @@ _HEAD_DIMS = (32, 64, 128)
 # dtype -> (route name, kernel source, C entry point)
 ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_wgmma",
                            "flash_attention_wgmma_fwd"),
-          torch.float32: ("f32", "flash_attention", "flash_attention_fwd")}
+          torch.float32: ("f32", "flash_attention_tf32",
+                          "flash_attention_tf32_fwd")}
 
 launches = 0
 route_launches = {name: 0 for name, _, _ in ROUTES.values()}
@@ -61,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (H // K)``.  ``bq``/``bkv`` are the TPU kernel's tiling hints:
     they are checked as the reference checks them (``S % bq == 0``,
     ``T % bkv == 0``) and do not reach the CUDA kernels, whose tiles are
-    their own (128 rows for bf16, 64 for f32; ragged ends are masked)."""
+    their own (128 query rows on both routes; ragged ends are masked)."""
     global launches
     for t in (q, k, v):
         if t.device.type != "cuda":
@@ -91,6 +95,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if name == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: TMA reads bf16 q, k, v from "
                          "16-byte aligned bases only")
+    if name == "f32":
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _lib(q.dtype)
     with torch.cuda.device(q.device):

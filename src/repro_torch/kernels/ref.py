@@ -161,3 +161,32 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, *, chunk: int = 256):
             "bhn,bhp->bhnp", Bh[:, t], xf[:, t] * dtf[:, t, :, None])
         ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to nearest with 11 significant bits (a TF32 value),
+    as the split-TF32 kernels round (``csrc/tf32_mma.cuh::round_tf32``:
+    Veltkamp's split with 2^13 + 1, each f32 operation rounded on its
+    own)."""
+    x = x.to(torch.float32)
+    c = x * torch.tensor(8193.0, dtype=torch.float32)
+    return c - (c - x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``."""
+    x = x.to(torch.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the split-TF32 kernels take it (``flash_attention_tf32.cu``,
+    ``ssd_scan_tf32.cu``): each operand split into TF32 hi + lo and three
+    TF32 products (lo.hi, hi.lo, hi.hi; lo.lo dropped) accumulated in f32,
+    the small terms first.  The product of two TF32 values is exact in f32.
+    A plain emulation for the tests; no path of the port calls it."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+

@@ -4,13 +4,18 @@ reference's ``kernels/ssd_scan.py::ssd_scan_pallas``.
 ``ssd_scan(x, dt, A, Bm, Cm, chunk=)`` takes x ``(B, S, H, P)``, dt
 ``(B, S, H)``, A ``(H,)`` and Bm/Cm ``(B, S, G, N)`` on a CUDA device and
 returns y ``(B, S, H, P)`` in x's type.  The route depends on the type
-alone:
+alone; both run the chunked dual form chunk-parallel on tensor cores,
+several launches behind one call:
 
-* bf16 -> ``csrc/ssd_scan_wgmma.cu`` (tensor cores: the chunked dual form
-  chunk-parallel on wgmma fed by TMA, three launches behind one call;
-  ``chunk`` a multiple of 64 up to 256, P in {32, 64, 128}, N a multiple
-  of 16 up to 256, 16-byte aligned bases);
-* f32 -> ``csrc/ssd_scan.cu`` (CUDA cores, one CTA per (b, h)).
+* bf16 -> ``csrc/ssd_scan_wgmma.cu`` (wgmma fed by TMA; chunk states,
+  state passing, chunk scan; ``chunk`` a multiple of 64 up to 256, P in
+  {32, 64, 128}, N a multiple of 16 up to 256, 16-byte aligned bases);
+* f32 -> ``csrc/ssd_scan_tf32.cu`` (mma.sync with split-TF32 operands,
+  near-f32 products; C B^T once per group, then the same three phases;
+  P in {16, 32, 64, 128}, N a multiple of 4, any chunk that divides S,
+  within shared memory: :func:`tf32_plan` picks the CTA rows and key-tile
+  rows, or raises).  A base that is not 16-byte aligned is copied first
+  (cp.async reads 16-byte words).
 
 If the build fails or a launch is refused the wrapper raises; a bf16
 tensor never reaches the f32 kernel.  ``launches`` counts the calls of both
@@ -28,14 +33,23 @@ from repro_torch.kernels import build
 
 # dtype -> (route name, kernel source, C entry point)
 ROUTES = {torch.bfloat16: ("wgmma", "ssd_scan_wgmma", "ssd_scan_wgmma_fwd"),
-          torch.float32: ("f32", "ssd_scan", "ssd_scan_fwd")}
+          torch.float32: ("f32", "ssd_scan_tf32", "ssd_scan_tf32_fwd")}
 _F32_HEAD_DIMS = (16, 32, 64, 128)
+MAX_SMEM = 232448                 # shared memory a block may use (H100)
+# f32 route plans, tried in order: (phase-3 rows per CTA, key-tile rows)
+# and phase-1 key-tile rows
+# (the fastest first: PERF.md, profile_ssd --f32 --plan)
+_TF32_SCAN_PLANS = ((128, 16), (64, 16), (32, 16), (16, 16))
+_TF32_STATE_KEYS = (32, 16)
 _WGMMA_HEAD_DIMS = (32, 64, 128)
 _WGMMA_ROWS = 128                 # rows of a chunk-scan CTA (phase 3)
-# the bf16 route's launches as the C entry point's mask: chunk states,
-# state passing, chunk scan
+# both routes' launches as the C entry points' mask: chunk states, state
+# passing, chunk scan
 PHASES = {"chunk_state": 1, "state_passing": 2, "chunk_scan": 4}
 ALL_PHASES = 7
+# the f32 route's launches: the chunk scores (C B^T per group) first
+TF32_PHASES = {"chunk_scores": 8, **PHASES}
+TF32_ALL_PHASES = 15
 
 launches = 0
 route_launches = {name: 0 for name, _, _ in ROUTES.values()}
@@ -56,10 +70,8 @@ def _lib(dtype: torch.dtype):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         if dtype == torch.float32:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
                 ctypes.c_void_p]
-            lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.ssd_scan_smem_bytes.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
@@ -81,6 +93,69 @@ def check_wgmma_shape(S: int, P: int, N: int, chunk: int) -> None:
     if S % chunk:
         raise ValueError(f"ssd_scan: S={S} must be a multiple of "
                          f"chunk={chunk}")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tf32_smem(P: int, N: int, chunk: int, rows: int, keys: int,
+              keys1: int) -> tuple[int, int]:
+    """Shared-memory bytes of the f32 route's chunk-state and chunk-scan
+    launches for a plan, the sums ``csrc/ssd_scan_tf32.cu`` reckons
+    (``state_smem``, ``scan_smem``): the chunk states a two-stage ring of
+    raw key tiles (B's 128 columns in rows of 136 floats, x) and x split
+    into pairs (rows of P + 4); the chunk scan raw C rows (round_up(N,
+    keys) + 4 floats), a two-stage ring of (score rows of keys + 4 floats,
+    raw x or S_before rows) and that tile split into pairs (rows of P + 4);
+    both the dt / cum arrays with their 32-step segment totals.  (The
+    scores launch takes 2 * 64 * (round_up(N, 8) + 4) floats.)"""
+    span = _round_up(chunk, 64)
+    arrays = 4 * (2 * span + span // 32)
+    state = 4 * 2 * keys1 * (136 + P) + 8 * keys1 * (P + 4) + arrays
+    scan = (4 * (rows * (_round_up(N, keys) + 4)
+                 + 2 * (rows * (keys + 4) + keys * P))
+            + 8 * keys * (P + 4) + arrays)
+    return state, scan
+
+
+def tf32_plan(P: int, N: int, chunk: int) -> dict[str, int]:
+    """The f32 route's launch plan: the first phase-3 plan (rows per CTA,
+    at most round_up(chunk, 16); key-tile rows, 16, 32 or 64 and no more
+    than the chunk needs) and phase-1 key-tile rows whose shared memory
+    fits, or ValueError."""
+    c16 = _round_up(chunk, 16)
+    cap = 16 if c16 <= 16 else 32 if c16 <= 32 else 64   # key-tile rows
+    if 4 * 2 * 64 * (_round_up(N, 8) + 4) > MAX_SMEM:
+        raise ValueError(f"ssd_scan (f32): N={N} needs more than the 227 KB "
+                         f"of shared memory a block may use")
+    for keys1 in _TF32_STATE_KEYS:
+        keys1 = min(keys1, cap)
+        if tf32_smem(P, N, chunk, 16, 16, keys1)[0] <= MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"ssd_scan (f32): chunk={chunk} needs more than "
+                         f"the 227 KB of shared memory a block may use")
+    for rows, keys in _TF32_SCAN_PLANS:
+        rows, keys = min(rows, c16), min(keys, cap)
+        if tf32_smem(P, N, chunk, rows, keys, keys1)[1] <= MAX_SMEM:
+            return {"rows": rows, "keys": keys, "keys1": keys1}
+    raise ValueError(f"ssd_scan (f32): P={P}, N={N}, chunk={chunk} need "
+                     f"more than the 227 KB of shared memory a block may "
+                     f"use")
+
+
+def tf32_ctas(B: int, S: int, H: int, P: int, G: int, N: int,
+              chunk: int) -> dict[str, int]:
+    """CTAs of the f32 route's four launches (the scores' blocks right of
+    the diagonal exit at once)."""
+    nc = S // chunk
+    rows = tf32_plan(P, N, chunk)["rows"]
+    nb = -(-chunk // 64)
+    return {"chunk_scores": B * nc * G * nb * nb,
+            "chunk_state": B * H * nc * -(-N // 128),
+            "state_passing": B * H * -(-(N * P // 4) // 256),
+            "chunk_scan": B * H * nc * -(-_round_up(chunk, 16) // rows)}
 
 
 def wgmma_ctas(B: int, S: int, H: int, P: int, N: int,
@@ -123,17 +198,18 @@ def _check(x, dt, A, Bm, Cm, chunk):
         if S % chunk:
             raise ValueError(f"ssd_scan: S={S} must be a multiple of "
                              f"chunk={chunk}")
+        tf32_plan(P, N, chunk)
     return name
 
 
 def _run(name, x, dt, A, Bm, Cm, chunk):
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    lib, fn = _lib(x.dtype)
-    if name == "f32" and lib.ssd_scan_smem_bytes(P, N, chunk) < 0:
-        raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={chunk} need more "
-                         f"than the 227 KB of shared memory a block may use")
+    _, fn = _lib(x.dtype)
     x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    if name == "f32":
+        x, Bm, Cm = (t.clone() if t.data_ptr() % 16 else t
+                     for t in (x, Bm, Cm))
     dt = dt.to(torch.float32).contiguous()
     A = A.to(torch.float32).contiguous()
     if name == "wgmma" and any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
@@ -143,9 +219,13 @@ def _run(name, x, dt, A, Bm, Cm, chunk):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if name == "f32":
+            plan = tf32_plan(P, N, chunk)
+            scratch = tf32_scratch(Bsz, S, H, P, G, N, chunk, x.device)
             rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                    Cm.data_ptr(), y.data_ptr(), Bsz, S, H, P, G, N, chunk,
-                    stream)
+                    Cm.data_ptr(), y.data_ptr(),
+                    *(t.data_ptr() for t in scratch), Bsz, S, H, P, G, N,
+                    chunk,
+                    *tf32_plan_args(plan), TF32_ALL_PHASES, stream)
         else:
             states, decay, before = wgmma_scratch(Bsz, S, H, P, N, chunk,
                                                   x.device)
@@ -166,6 +246,31 @@ def wgmma_scratch(Bsz, S, H, P, N, chunk, device):
             torch.empty((Bsz * H, nc), dtype=torch.float32, device=device),
             torch.empty((Bsz * H, nc, N, P), dtype=torch.bfloat16,
                         device=device))
+
+
+def tf32_scratch(Bsz, S, H, P, G, N, chunk, device):
+    """The f32 route's scratch, f32: chunk states (B*H, nc, N, P), which the
+    state passing overwrites in place with the states before each chunk,
+    chunk decays (B*H, nc) and the chunk scores C B^T (B, nc, G, L, L),
+    L = chunk rounded up to 64."""
+    nc, L = S // chunk, _round_up(chunk, 64)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    return (empty(Bsz * H, nc, N, P), empty(Bsz * H, nc),
+            empty(Bsz, nc, G, L, L))
+
+
+def tf32_plan_args(plan: dict[str, int]) -> tuple[int, ...]:
+    """A plan as the C entry point's arguments, in order."""
+    return tuple(plan[k] for k in ("rows", "keys", "keys1"))
+
+
+def tf32_entry():
+    """The f32 route's C entry point (built on first use), for callers that
+    time its launches apart (``repro_torch.profile_ssd``)."""
+    return _lib(torch.float32)[1]
 
 
 def wgmma_entry():

@@ -38,12 +38,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import sys
-from pathlib import Path
 
 import torch
 
-from repro_torch.timing import event_ms, graph_ms
+from repro_torch.timing import event_ms, graph_ms, import_tree
 
 MAIN_ROWS, MAIN_N, FRAC, SEED = 8, 267009, 0.1, 123
 STAMP_FLAGS = ("-DROW_CLUSTER_STAMPS",)
@@ -126,14 +124,6 @@ def main_input(dev):
     return x
 
 
-def _import_tree(src: str) -> None:
-    """Import ``repro_torch`` from the source tree ``src`` from now on."""
-    for name in [m for m in sys.modules
-                 if m == "repro_torch" or m.startswith("repro_torch.")]:
-        del sys.modules[name]
-    sys.path.insert(0, str(Path(src).resolve()))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", help="source tree whose kernels to time "
@@ -145,7 +135,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_codec needs a CUDA device")
     if args.src:
-        _import_tree(args.src)
+        import_tree(args.src)
     from repro_torch.kernels import quantize as tq
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_select as tt

@@ -1,12 +1,15 @@
-"""Where the bf16 SSD scan's time goes on the GPU, and A/B of kernel sources.
+"""Where the SSD scan's time goes on the GPU, and A/B of kernel builds.
 
     PYTHONPATH=src python -m repro_torch.profile_ssd [SOURCE[:FLAGS] ...]
         [--reps 50]
+    PYTHONPATH=src python -m repro_torch.profile_ssd --f32 [--src OTHER/src]
+        [--plan ROWS,KEYS,KEYS1 ...] [--request] [--reps 30]
 
-Runs the bf16 route of the SSD scan at mamba2-780m's full shape (B 4,
-S 2048, H 48, P 64, G 1, N 128, chunk 256; inputs from a seed on the card)
-for the package's own kernel (``package``, the default) and for each other
-SOURCE (a copy of ``csrc/ssd_scan_wgmma.cu`` beside a copy of
+Both run at mamba2-780m's full shape (B 4, S 2048, H 48, P 64, G 1, N 128,
+chunk 256; inputs from a seed on the card).
+
+The bf16 route (default): the package's own kernel (``package``) and each
+other SOURCE (a copy of ``csrc/ssd_scan_wgmma.cu`` beside a copy of
 ``csrc/hopper.cuh``; FLAGS, separated by commas, are extra nvcc flags such
 as ``-DNAME=1``), built with the package's nvcc flags.  Prints one JSON
 line per source: its relative L2 error and max |diff| from the f32
@@ -15,7 +18,20 @@ CUDA-event ms (median of ``--reps`` after warm-up, host enqueue included)
 of the whole call and of each of its three launches alone, timed in turns
 (A, B, ..., B, A), and the device microseconds of each kernel from
 ``torch.profiler``.  The launches go straight to the C entry point, so none
-is counted as a launch of the wrapper.  Needs a CUDA device and nvcc.
+is counted as a launch of the wrapper.
+
+``--f32``: the f32 route through its public wrapper (``ssd_scan.ssd_scan``
+on f32 inputs): max |diff| from ``ref.ssd_scan_ref``, event ms and device
+ms (``--reps`` calls captured in one CUDA graph).  ``--src`` times another
+source tree's f32 route instead (for example the parent commit unpacked
+with ``git archive``; its ``repro_torch`` is imported in place of this
+one), so two versions can be timed in turns on one card, each in its own
+process.  In this tree it also prints the device ms of each of the three
+launches for the wrapper's plan (``ssd_scan.tf32_plan``) and for each
+``--plan`` (phase-3 rows per CTA, key-tile rows, phase-1 key-tile rows),
+the plans timed in turns.  ``--request`` adds the host ms of three
+mamba2-780m scoring requests of 4 x 2048 tokens with f32 weights and the
+kernel on.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -31,7 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ssd_scan as tss
-from repro_torch.timing import event_ms
+from repro_torch.timing import event_ms, graph_ms, import_tree, lm_request_ms
 
 SHAPE = dict(B=4, S=2048, H=48, P=64, G=1, N=128, chunk=256)
 
@@ -44,6 +60,18 @@ def _build(spec: str, tag: str):
                              Path(path))
     fn = lib.ssd_scan_wgmma_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _build_f32(flags: str, tag: str):
+    """The f32 route's C entry point built from this tree's source with
+    ``flags`` (comma-separated nvcc flags)."""
+    lib = build.load_variant("ssd_scan_tf32", f"profile_ssd_f32_{tag}",
+                             tuple(f for f in flags.split(",") if f))
+    fn = lib.ssd_scan_tf32_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -81,27 +109,133 @@ class Runner:
         return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="*", default=["package"])
-    ap.add_argument("--reps", type=int, default=50)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_ssd needs a CUDA device")
+class F32Runner:
+    """Calls the f32 route's C entry point with one plan on fixed f32 inputs,
+    with its own scratch (this tree only)."""
+
+    def __init__(self, x, dt, A, Bm, Cm, chunk, plan, entry):
+        self.entry, self.args, self.chunk = entry, (x, dt, A, Bm, Cm), chunk
+        B, S, H, P = x.shape
+        self.dims = (B, S, H, P, Bm.shape[2], Bm.shape[3])
+        self.plan = tss.tf32_plan_args(plan)
+        self.scratch = tss.tf32_scratch(B, S, H, P, *Bm.shape[2:], chunk,
+                                        x.device)
+        self.y = torch.empty_like(x)
+
+    def __call__(self, phases: int = tss.TF32_ALL_PHASES) -> torch.Tensor:
+        x, dt, A, Bm, Cm = self.args
+        rc = self.entry(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                        Bm.data_ptr(), Cm.data_ptr(), self.y.data_ptr(),
+                        *(t.data_ptr() for t in self.scratch), *self.dims,
+                        self.chunk, *self.plan, phases,
+                        torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "ssd_scan_tf32")
+        return self.y
+
+    def phase_ms(self, reps: int) -> dict[str, float]:
+        """Device ms of the whole call and of each launch alone (after a
+        full call, so each reads what the launch before it wrote)."""
+        self()
+        out = {"all": graph_ms(self, reps)}
+        for name, mask in tss.TF32_PHASES.items():
+            out[name] = graph_ms(lambda m=mask: self(m), reps)
+        return out
+
+
+def _inputs(dtype):
     dev = torch.device("cuda")
-    B, S, H, P, G, N, chunk = (SHAPE[k] for k in ("B", "S", "H", "P", "G",
-                                                   "N", "chunk"))
+    B, S, H, P, G, N = (SHAPE[k] for k in ("B", "S", "H", "P", "G", "N"))
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    x = randn((B, S, H, P), torch.bfloat16, 0.5)
+    x = randn((B, S, H, P), dtype, 0.5)
     dt = F.softplus(randn((B, S, H)))
     A = -torch.exp(torch.rand((H,), generator=gen, device=dev))
-    Bm = randn((B, S, G, N), torch.bfloat16, 0.3)
-    Cm = randn((B, S, G, N), torch.bfloat16, 0.3)
+    Bm = randn((B, S, G, N), dtype, 0.3)
+    Cm = randn((B, S, G, N), dtype, 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def f32_main(args) -> int:
+    if args.src:
+        import_tree(args.src)
+    # this tree's kernels or, after import_tree, the other tree's
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as tss
+    chunk = SHAPE["chunk"]
+    x, dt, A, Bm, Cm = _inputs(torch.float32)
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+
+    def call():
+        return tss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+    print(json.dumps({
+        "kernel": "ssd_scan_f32", "src": args.src or "package",
+        "shape": SHAPE, "device": torch.cuda.get_device_name(0),
+        "max_abs_err": float((call() - want).abs().max()),
+        "event_ms": event_ms(call, args.reps),
+        "device_ms": graph_ms(call, args.reps)}), flush=True)
+    if not args.src:
+        P, N = SHAPE["P"], SHAPE["N"]
+        plans = [tss.tf32_plan(P, N, chunk)] + [
+            dict(zip(("rows", "keys", "keys1"), map(int, p.split(","))))
+            for p in args.plan]
+        entries = [tss.tf32_entry()] * len(plans)
+        for i, flags in enumerate(args.variant):
+            plans.append(plans[0])
+            entries.append(_build_f32(flags, str(i)))
+        runners = [F32Runner(x, dt, A, Bm, Cm, chunk, p, e)
+                   for p, e in zip(plans, entries)]
+        builds = ["package"] * (len(plans) - len(args.variant)) + args.variant
+        rows = [{"plan": p, "build": bld,
+                 "max_abs_err": float((r() - want).abs().max()),
+                 "device_ms": []} for p, bld, r in zip(plans, builds, runners)]
+        order = list(range(len(runners)))
+        for i in order + order[::-1]:
+            rows[i]["device_ms"].append(runners[i].phase_ms(args.reps))
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        del runners
+    del x, dt, A, Bm, Cm, want
+    torch.cuda.empty_cache()
+    if args.request:
+        print(json.dumps({"request": "mamba2-780m f32 4x2048",
+                          "src": args.src or "package",
+                          "device": torch.cuda.get_device_name(0),
+                          "ms": lm_request_ms("mamba2-780m",
+                                              "use_ssm_kernel")}),
+              flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sources", nargs="*", default=["package"])
+    ap.add_argument("--reps", type=int, default=None)
+    ap.add_argument("--f32", action="store_true",
+                    help="time the f32 route (see the module docstring)")
+    ap.add_argument("--src", help="with --f32: source tree whose f32 route "
+                                  "to time (default: this one)")
+    ap.add_argument("--plan", action="append", default=[],
+                    help="with --f32: ROWS,KEYS,KEYS1 of another plan")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="with --f32: nvcc flags of a build of this tree's "
+                         "f32 source, timed with the wrapper's plan")
+    ap.add_argument("--request", action="store_true",
+                    help="with --f32: time f32 mamba2-780m requests too")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_ssd needs a CUDA device")
+    if args.f32:
+        args.reps = args.reps or 30
+        return f32_main(args)
+    args.reps = args.reps or 50
+    B, S, H, P, G, N, chunk = (SHAPE[k] for k in ("B", "S", "H", "P", "G",
+                                                   "N", "chunk"))
+    x, dt, A, Bm, Cm = _inputs(torch.bfloat16)
     truth = ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float())
     runners = [Runner(tss.wgmma_entry() if spec == "package"
                       else _build(spec, str(i)), x, dt, A, Bm, Cm, chunk)

@@ -137,6 +137,88 @@ def test_ssd_kernel_full_state_width(cuda):
                                rtol=1e-4)
 
 
+# f32 cases of the split-TF32 kernel (B, S, H, P, G, N, chunk): chunks 16,
+# 32, 64 and 256, P 16 and 128, N 4, 12 and 20 (not multiples of 8, zero-
+# padded to 8 in shared memory), G 1 and 2, S not a multiple of 64 (chunk
+# 48, and chunk 40 whose last 16-row tile is half padding), a 512-step
+# chunk (four 128-row blocks), and N 340 at P 16 and N 176 at P 128, the
+# widest states the CUDA-core kernel took, where tf32_plan falls back to
+# smaller tiles or one ring stage
+_SSD_TF32 = [(2, 256, 4, 16, 1, 4, 16), (1, 256, 4, 128, 2, 12, 32),
+             (2, 192, 2, 32, 2, 20, 64), (1, 512, 4, 64, 1, 128, 256),
+             (1, 240, 4, 16, 2, 16, 48), (1, 120, 2, 32, 1, 20, 40),
+             (1, 1024, 2, 64, 1, 16, 512), (1, 256, 2, 16, 1, 340, 64),
+             (1, 256, 2, 128, 1, 176, 128), (2, 512, 8, 128, 2, 64, 256)]
+
+
+@pytest.mark.parametrize("case", _SSD_TF32,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_tf32_matches_plain(cuda, case):
+    """The split-TF32 f32 route at 1e-4 + 1e-4 |plain|, one launch counted
+    on the f32 route."""
+    B, S, H, P, G, N, chunk = case
+    arrs = [a.to(cuda) for a in _ssd(B, S, H, P, G, N, S + N + P,
+                                      torch.float32)]
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*arrs, chunk=chunk)
+    assert ops.ssd_route_counts() == {"wgmma": 0, "f32": 1}
+    want = ref.ssd_scan_ref(*arrs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == arrs[0].shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# f32 cases of the split-TF32 flash kernel (B, S, T, H, K, hd, causal,
+# window): hd 32 and 128, a window that is not a multiple of the 64-key
+# tile, unmasked, T != S (causal and not), and H / K = 8
+_FLASH_TF32 = [(2, 192, 192, 4, 2, 32, True, 0),
+               (1, 256, 256, 4, 1, 128, True, 0),
+               (1, 320, 320, 4, 2, 64, True, 100),
+               (1, 192, 192, 4, 4, 128, False, 0),
+               (2, 128, 320, 4, 2, 64, False, 0),
+               (1, 320, 128, 4, 2, 32, True, 0),
+               (1, 256, 256, 16, 2, 64, True, 0),
+               (1, 2048, 2048, 8, 1, 64, True, 0)]
+
+
+@pytest.mark.parametrize("case", _FLASH_TF32,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_tf32_matches_plain(cuda, case):
+    """The split-TF32 f32 route at 2e-5, one launch counted on the f32
+    route."""
+    B, S, T, H, K, hd, causal, window = case
+    q, k, v = (_normal(s, 20 + i).to(cuda) for i, s in enumerate(
+        [(B, S, H, hd), (B, T, K, hd), (B, T, K, hd)]))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, bq=64,
+                              bkv=64)
+    assert ops.flash_route_counts() == {"wgmma": 0, "f32": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_f32_routes_copy_unaligned_bases(cuda):
+    """f32 tensors whose base is not 16-byte aligned still run (the wrapper
+    copies them for cp.async) and agree with the plain versions."""
+    x, dt, A, Bm, Cm = (a.to(cuda) for a in _ssd(1, 128, 2, 32, 1, 16, 7,
+                                                 torch.float32))
+    flat = torch.zeros(1 + x.numel(), device=cuda)
+    xs = flat[1:].view(x.shape)          # base 4 bytes past alignment
+    xs.copy_(x)
+    torch.testing.assert_close(ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=32),
+                               ref.ssd_scan_ref(x, dt, A, Bm, Cm),
+                               atol=1e-4, rtol=1e-4)
+    q = _normal((1, 128, 2, 32), 8).to(cuda)
+    flat = torch.zeros(1 + q.numel(), device=cuda)
+    qs = flat[1:].view(q.shape)
+    qs.copy_(q)
+    torch.testing.assert_close(ops.flash_attention(qs, q, q),
+                               ref.flash_attention_ref(q, q, q), atol=2e-5,
+                               rtol=0)
+
+
 def _dist(got, want):
     got, want = got.double(), want.double()
     return (float(torch.linalg.vector_norm(got - want)

@@ -152,13 +152,13 @@ def test_window_one_returns_each_rows_value():
 
 
 def test_dtype_routing():
-    """bf16 takes the wgmma kernel, f32 the CUDA-core kernel, anything else
+    """bf16 takes the wgmma kernel, f32 the split-TF32 kernel, anything else
     is refused; both sources are built by build.py."""
     assert tflash.route(torch.bfloat16) == ("wgmma", "flash_attention_wgmma")
-    assert tflash.route(torch.float32) == ("f32", "flash_attention")
+    assert tflash.route(torch.float32) == ("f32", "flash_attention_tf32")
     with pytest.raises(ValueError, match="f32 or bf16"):
         tflash.route(torch.float16)
-    assert {"flash_attention", "flash_attention_wgmma"} <= set(
+    assert {"flash_attention_tf32", "flash_attention_wgmma"} <= set(
         build.sources())
     # the source and the shared Hopper header it includes
     src = (build.CSRC / "flash_attention_wgmma.cu").read_text()
@@ -167,7 +167,8 @@ def test_dtype_routing():
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
                   "setmaxnreg"):
         assert instr in src
-    assert "bfloat16" not in (build.CSRC / "flash_attention.cu").read_text()
+    assert "bfloat16" not in (build.CSRC /
+                              "flash_attention_tf32.cu").read_text()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

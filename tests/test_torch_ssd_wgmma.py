@@ -183,13 +183,13 @@ def test_emulation_mask_precedes_the_exponential():
 
 
 def test_dtype_routing():
-    """bf16 takes the wgmma kernel, f32 the CUDA-core kernel, anything else
+    """bf16 takes the wgmma kernel, f32 the split-TF32 kernel, anything else
     is refused; both sources and the shared header are in csrc/."""
     assert tssd.route(torch.bfloat16) == ("wgmma", "ssd_scan_wgmma")
-    assert tssd.route(torch.float32) == ("f32", "ssd_scan")
+    assert tssd.route(torch.float32) == ("f32", "ssd_scan_tf32")
     with pytest.raises(ValueError, match="f32 or bf16"):
         tssd.route(torch.float16)
-    assert {"ssd_scan", "ssd_scan_wgmma"} <= set(build.sources())
+    assert {"ssd_scan_tf32", "ssd_scan_wgmma"} <= set(build.sources())
     src = (build.CSRC / "ssd_scan_wgmma.cu").read_text()
     for needle in ('#include "hopper.cuh"', "wgmma_ss_n64<0, 0>",
                    "wgmma_ss_n64<1, 1>", "wgmma_rs_n64", "tma_load",
@@ -201,7 +201,7 @@ def test_dtype_routing():
         assert instr in header
     assert '#include "hopper.cuh"' in (
         build.CSRC / "flash_attention_wgmma.cu").read_text()
-    assert "bfloat16" not in (build.CSRC / "ssd_scan.cu").read_text()
+    assert "bfloat16" not in (build.CSRC / "ssd_scan_tf32.cu").read_text()
 
 
 @pytest.mark.parametrize("S,P,N,chunk,what", [
