@@ -401,6 +401,19 @@ def _lm_kernel_phase(torch, dev):
                 raise AssertionError(f"ssd f32 chunk={chunk} G={G}: "
                                      f"{err} beyond 1e-4 + 1e-4 |plain|")
             info["ssd_f32_worst"] = max(info["ssd_f32_worst"], err)
+    # the wrapper plans the f32 route with the kernel's own shared-memory
+    # sums and the device's limit
+    limit = tss.smem_limit(dev)
+    for P, N, chunk in ((32, 16, 16), (32, 16, 32), (32, 16, 64),
+                        (64, 128, 256), (16, 340, 64), (128, 176, 128)):
+        plan = tss.tf32_plan_args(tss.tf32_plan(P, N, chunk, limit))
+        sums = tss.device_smem(P, N, chunk, *plan, dev)
+        if sums != (*tss.tf32_smem(P, N, chunk, *plan), limit):
+            raise AssertionError(f"ssd f32 shared memory {(P, N, chunk)} "
+                                 f"plan {plan}: kernel {sums}, wrapper "
+                                 f"{tss.tf32_smem(P, N, chunk, *plan)} "
+                                 f"within {limit}")
+    info["ssd_f32_smem_limit"] = limit
 
     # full width: tinyllama-1.1b attention, mamba2-780m SSD, bf16
     B = LM_BATCH
@@ -502,10 +515,10 @@ def _lm_kernel_phase(torch, dev):
             info["ssd_f32_full_width_err"] = err
             info["ssd_f32_full_width_over_tol"] = over
             # the f32 route's four launches timed apart, with their CTAs
-            ctas = tss.tf32_ctas(B, S, Hs, P, G, N, chunk)
-            phase_ms = F32Runner(xd, dt, A, Bd, Cd, chunk,
-                                 tss.tf32_plan(P, N, chunk),
-                                 tss.tf32_entry()).phase_ms(30)
+            runner = F32Runner(xd, dt, A, Bd, Cd, chunk)
+            ctas = tss.tf32_ctas(B, S, Hs, P, G, N, chunk, runner.plan[0])
+            phase_ms = runner.phase_ms(30)
+            del runner
             info["ssd_f32_phases"] = {
                 name: {"ctas": ctas[name], "device_ms": phase_ms[name]}
                 for name in ctas}

@@ -51,9 +51,7 @@
 // CTA reads from L2), a raw cp.async stage split by the CTA between two
 // barriers, q held as split pairs in shared memory or in registers, the
 // three products of a split in three accumulator sets, one CTA to an SM,
-// 64-query CTAs, 16- and 64-key tiles.  FLASH_TF32_ROWS, FLASH_TF32_KEYS
-// and FLASH_TF32_MIN_BLOCKS set the tile sizes and the launch bound (for
-// timing others with repro_torch.profile_flash --variant).
+// 64-query CTAs, 16- and 64-key tiles.
 
 #include "tf32_mma.cuh"
 
@@ -61,26 +59,18 @@ namespace {
 
 using namespace tf32;
 
-#ifndef FLASH_TF32_ROWS
-#define FLASH_TF32_ROWS 128
-#endif
-#ifndef FLASH_TF32_KEYS
-#define FLASH_TF32_KEYS 32
-#endif
-constexpr int kRows = FLASH_TF32_ROWS;   // query rows per CTA
+constexpr int kRows = 128;               // query rows per CTA
+constexpr int kKeysPerTile = 32;         // keys per kv tile (hd <= 64)
+constexpr int kMinBlocks = 2;            // CTAs per SM (launch bound)
 constexpr int kWarps = kRows / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kMaskValue = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
-#ifndef FLASH_TF32_MIN_BLOCKS
-#define FLASH_TF32_MIN_BLOCKS 2
-#endif
 
 template <int HD>
 struct Tile {
   // keys per kv tile (half as many at hd 128)
-  static constexpr int kKeys = HD == 128 ? FLASH_TF32_KEYS / 2
-                                         : FLASH_TF32_KEYS;
+  static constexpr int kKeys = HD == 128 ? kKeysPerTile / 2 : kKeysPerTile;
   static constexpr int kLdQ = HD + 4;      // q raw rows (floats)
   static constexpr int kLdK = HD + 4;      // k pair rows
   static constexpr int kLdV = HD + 2;      // v pair rows
@@ -109,7 +99,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, FLASH_TF32_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_tf32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out, int B,
            int S, int T_len, int H, int K, float scale_log2, int causal,

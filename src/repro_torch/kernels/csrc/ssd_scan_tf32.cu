@@ -43,9 +43,9 @@
 // pairs in shared memory (split_tile); one that a warp owns (C, B o w, G')
 // is split in registers as its fragment is loaded, over eight n-tiles.
 // Rows are padded so that every fragment load hits distinct banks.  The
-// host picks the chunk-scan CTA rows and key-tile rows and the chunk-state
-// key-tile rows (ssd_scan.py::tf32_plan); this file checks them against
-// shared memory.
+// host picks the chunk-scan CTA rows and the chunk-state key-tile rows
+// (ssd_scan.py::tf32_plan, from the sums that ssd_scan_tf32_smem reports);
+// this file checks them against the device's shared memory.
 //   Phase 0, one CTA of four warps per (b, chunk, group, 64 x 64 block at
 //   or left of the diagonal): G = C B^T into f32 scratch.
 //   Phase 1, one CTA of eight warps per (b, h, chunk, 128 state rows): the
@@ -56,11 +56,12 @@
 //   carry over the chunks, elementwise, S_before written over S_c in place
 //   (each element's chunk states are read before they are overwritten).
 //   Phase 3, one CTA per (b, h, chunk, block of up to 128 rows), a warp per
-//   16 rows, through a two-stage ring of tiles: first S_before in tiles of
-//   its N rows (acc = C S_before, then rows scaled by exp(cum_i)), then the
-//   key tiles at or left of the block's rows (acc += G' x, G' = G
-//   exp(cum_i - cum_j) dt_j for j <= i, 0 elsewhere, no exponential of a
-//   positive difference, formed from the scores as they are loaded).  A
+//   16 rows, through a two-stage ring of 16-row tiles: first S_before in
+//   tiles of its N rows (acc = C S_before, then rows scaled by
+//   exp(cum_i)), then the key tiles at or left of the block's rows
+//   (acc += G' x, G' = G exp(cum_i - cum_j) dt_j for j <= i, 0 elsewhere,
+//   no exponential of a positive difference, formed from the scores as
+//   they are loaded).  A
 //   warp skips the key n-tiles right of its rows.  y is stored from
 //   registers.  Blocks of one chunk are adjacent in launch order, the later
 //   (longer) block first.
@@ -78,9 +79,9 @@ constexpr int kStateRows = 16 * kStateThreads / 32;   // 128 state rows
 constexpr int kLdB1 = kStateRows + 8;       // phase 1 raw B rows (floats)
 constexpr int kPassThreads = 256;           // phase 2, 4 elements each
 constexpr int kMaxRows = 128;               // phase 3 rows per CTA
-constexpr int kMaxKeys = 64;                // key-tile rows
+constexpr int kScanKeys = 16;               // phase 3 key-tile rows
+constexpr int kSpan = 64;                   // dt / cum arrays: chunk to 64
 constexpr int kStages = 2;
-constexpr int kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int round_up(int v, int m) {
@@ -93,9 +94,9 @@ __host__ __device__ constexpr int score_side(int chunk) {
 }
 
 // Floats of the dt / cum arrays (and their segment totals) for a chunk:
-// every key tile of 16, 32 or 64 rows ends within round_up(chunk, 64).
+// every key tile of 16 or 32 rows ends within round_up(chunk, 64).
 __host__ __device__ constexpr int array_floats(int chunk) {
-  return 2 * round_up(chunk, kMaxKeys) + round_up(chunk, kMaxKeys) / 32;
+  return 2 * round_up(chunk, kSpan) + round_up(chunk, kSpan) / 32;
 }
 
 // phase 0: raw C and B rows of 64-row blocks, rows of N (rounded up to 8)
@@ -111,13 +112,13 @@ __host__ __device__ constexpr int state_smem(int P, int chunk, int keys) {
 }
 
 // phase 3: raw C rows (N rounded up to the key tile, + 4 floats), a ring of
-// (score rows of keys + 4 floats, raw x or S_before rows), the x or
+// (score rows of kScanKeys + 4 floats, raw x or S_before rows), the x or
 // S_before tile split into pairs (rows of P + 4)
 __host__ __device__ constexpr int scan_smem(int P, int N, int chunk,
-                                            int rows, int keys) {
-  return 4 * (rows * (round_up(N, keys) + 4) +
-              kStages * (rows * (keys + 4) + keys * P)) +
-         8 * keys * (P + 4) + 4 * array_floats(chunk);
+                                            int rows) {
+  return 4 * (rows * (round_up(N, kScanKeys) + 4) +
+              kStages * (rows * (kScanKeys + 4) + kScanKeys * P)) +
+         8 * kScanKeys * (P + 4) + 4 * array_floats(chunk);
 }
 
 // dts[j] = dt[b, c0 + j, h] (0 past the chunk) and cum2[j] = log2(e) *
@@ -128,7 +129,7 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dt,
                                              int H, float a, int chunk,
                                              float* dts, float* cum2,
                                              float* part) {
-  const int len = round_up(chunk, kMaxKeys);
+  const int len = round_up(chunk, kSpan);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   for (int j = tid; j < len; j += blockDim.x)
@@ -273,8 +274,8 @@ ssd_state_tf32(const float* __restrict__ x, const float* __restrict__ dt,
   const int stage = keys * (kLdB1 + P);
   float2* xsp = reinterpret_cast<float2*>(ring + kStages * stage);
   float* w = reinterpret_cast<float*>(xsp + keys * LDX);   // dts, then w
-  float* cum2 = w + round_up(chunk, kMaxKeys);
-  float* part = cum2 + round_up(chunk, kMaxKeys);
+  float* cum2 = w + round_up(chunk, kSpan);
+  float* part = cum2 + round_up(chunk, kSpan);
 
   const float* Bsrc = Bm + (row0 * G + g) * N + n0;
   const float* xsrc = x + (row0 * H + h) * P;
@@ -293,7 +294,7 @@ ssd_state_tf32(const float* __restrict__ x, const float* __restrict__ dt,
 
   chunk_cumsum(dt + row0 * H + h, H, A[h], chunk, w, cum2, part);
   const float last = cum2[chunk - 1];
-  for (int j = threadIdx.x; j < round_up(chunk, kMaxKeys);
+  for (int j = threadIdx.x; j < round_up(chunk, kSpan);
        j += kStateThreads)
     w[j] = w[j] * exp2_approx(last - cum2[j]);
   if (mb == 0 && threadIdx.x == 0) decay[bh * nc + c] = exp2_approx(last);
@@ -396,12 +397,12 @@ ssd_scan_chunk_tf32(const float* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ Cm,
                     const float* __restrict__ scores,
                     const float* __restrict__ before, float* __restrict__ y,
-                    int S, int H, int G, int N, int chunk, int rows,
-                    int keys) {
+                    int S, int H, int G, int N, int chunk, int rows) {
+  constexpr int keys = kScanKeys;
   constexpr int LDX = P + 4;                   // split x / S_before (pairs)
+  constexpr int LDG = keys + 4;                // score rows (floats)
   const int NK = round_up(N, keys);            // S_before rows, in tiles
   const int LDC = NK + 4;                      // raw C rows (floats)
-  const int LDG = keys + 4;                    // score rows (floats)
   const int L = score_side(chunk);
   const int nc = S / chunk;
   const int c16 = round_up(chunk, 16);
@@ -428,8 +429,8 @@ ssd_scan_chunk_tf32(const float* __restrict__ x, const float* __restrict__ dt,
   const int stage = rows * LDG + keys * P;                // floats
   float2* xsp = reinterpret_cast<float2*>(ring + kStages * stage);
   float* dts = reinterpret_cast<float*>(xsp + keys * LDX);
-  float* cum2 = dts + round_up(chunk, kMaxKeys);
-  float* part = cum2 + round_up(chunk, kMaxKeys);
+  float* cum2 = dts + round_up(chunk, kSpan);
+  float* part = cum2 + round_up(chunk, kSpan);
 
   const float* sc_src = scores +
                         ((static_cast<long long>(b) * nc + c) * G + g) * L * L +
@@ -548,17 +549,24 @@ ssd_scan_chunk_tf32(const float* __restrict__ x, const float* __restrict__ dt,
 // ---- host side -------------------------------------------------------
 
 struct Plan {
-  int rows, keys;             // phase 3
-  int keys1;                  // phase 1
+  int rows;                   // phase 3 rows per CTA
+  int keys1;                  // phase 1 key-tile rows
 };
 
-bool plan_ok(const Plan& p, int P, int N, int chunk) {
-  auto keys_ok = [](int k) { return k == 16 || k == 32 || k == 64; };
+// The dynamic shared memory a block may take on the current device.
+cudaError_t smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(bytes,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+bool plan_ok(const Plan& p, int P, int N, int chunk, int limit) {
   return p.rows >= 16 && p.rows <= kMaxRows && p.rows % 16 == 0 &&
-         keys_ok(p.keys) && keys_ok(p.keys1) &&
-         score_smem(N) <= kMaxSmem &&
-         state_smem(P, chunk, p.keys1) <= kMaxSmem &&
-         scan_smem(P, N, chunk, p.rows, p.keys) <= kMaxSmem;
+         (p.keys1 == 16 || p.keys1 == 32) && score_smem(N) <= limit &&
+         state_smem(P, chunk, p.keys1) <= limit &&
+         scan_smem(P, N, chunk, p.rows) <= limit;
 }
 
 template <int P>
@@ -604,7 +612,7 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (phases & 4) {
-    const int smem = scan_smem(P, N, chunk, plan.rows, plan.keys);
+    const int smem = scan_smem(P, N, chunk, plan.rows);
     err = cudaFuncSetAttribute(ssd_scan_chunk_tf32<P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
@@ -613,8 +621,7 @@ int launch(const float* x, const float* dt, const float* A, const float* Bm,
                            ((round_up(chunk, 16) + plan.rows - 1) / plan.rows);
     ssd_scan_chunk_tf32<P><<<static_cast<unsigned>(grid), 2 * plan.rows,
                              smem, stream>>>(
-        x, dt, A, Cm, scores, states, y, S, H, G, N, chunk, plan.rows,
-        plan.keys);
+        x, dt, A, Cm, scores, states, y, S, H, G, N, chunk, plan.rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -631,20 +638,23 @@ extern "C" {
 // states before each chunk in place), decay (B*H, S/chunk) and scores
 // (B, S/chunk, G, L, L), L = chunk rounded up to 64.  P in {16, 32, 64,
 // 128}, N % 4 == 0, H % G == 0, S % chunk == 0; the plan (phase 3 rows per
-// CTA and key-tile rows; phase 1 key-tile rows) must fit in shared memory.
-// ``phases`` is a mask of the launches to run: 8 chunk scores, 1 chunk
-// states, 2 state passing, 4 chunk scan (15 = the whole scan).  Returns 0
-// or a CUDA error code.
+// CTA, a multiple of 16 up to 128; phase 1 key-tile rows, 16 or 32) must
+// fit in the current device's shared memory.  ``phases`` is a mask of the
+// launches to run: 8 chunk scores, 1 chunk states, 2 state passing, 4
+// chunk scan (15 = the whole scan).  Returns 0 or a CUDA error code.
 int ssd_scan_tf32_fwd(const float* x, const float* dt, const float* A,
                       const float* Bm, const float* Cm, float* y,
                       float* states, float* decay, float* scores, int B,
                       int S, int H, int P, int G, int N, int chunk, int rows,
-                      int keys, int keys1, int phases, cudaStream_t stream) {
-  const Plan plan{rows, keys, keys1};
+                      int keys1, int phases, cudaStream_t stream) {
+  const Plan plan{rows, keys1};
   const int nb = score_side(chunk) / kScoreTile;
+  int limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || N <= 0 || chunk <= 0 ||
       H % G != 0 || N % 4 != 0 || S % chunk != 0 ||
-      !plan_ok(plan, P, N, chunk) ||
+      !plan_ok(plan, P, N, chunk, limit) ||
       static_cast<long long>(B) * (S / chunk) *
               (static_cast<long long>(H) *
                    (round_up(chunk, 16) / 16 +
@@ -669,6 +679,18 @@ int ssd_scan_tf32_fwd(const float* x, const float* dt, const float* A,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The shared-memory bytes of the chunk-scores, chunk-state and chunk-scan
+// launches for a plan into out[0..2], and the current device's limit for a
+// block into out[3] (what ssd_scan.py::tf32_plan is held to).  Returns 0 or
+// a CUDA error code.
+int ssd_scan_tf32_smem(int P, int N, int chunk, int rows, int keys1,
+                       int* out) {
+  out[0] = score_smem(N);
+  out[1] = state_smem(P, chunk, keys1);
+  out[2] = scan_smem(P, N, chunk, rows);
+  return static_cast<int>(smem_limit(&out[3]));
 }
 
 }  // extern "C"

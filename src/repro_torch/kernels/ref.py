@@ -185,8 +185,81 @@ def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``ssd_scan_tf32.cu``): each operand split into TF32 hi + lo and three
     TF32 products (lo.hi, hi.lo, hi.hi; lo.lo dropped) accumulated in f32,
     the small terms first.  The product of two TF32 values is exact in f32.
-    A plain emulation for the tests; no path of the port calls it."""
+    A plain emulation for the tests and the profilers; no path of the port
+    calls it."""
     a_hi, a_lo = tf32_split(a)
     b_hi, b_lo = tf32_split(b)
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
+
+_LOG2E = 1.4426950408889634
+_MASK = -2.0e38
+
+
+def flash_attention_tf32_emulation(q, k, v, *, causal, window=0,
+                                   scale=None):
+    """Attention as the f32 kernel computes it: q k^T and p v split TF32,
+    scores in units of log2 e, the finite -2e38 mask, p zeroed where masked,
+    out = acc / max(l, 1e-30).  Dense rows: the kernel's online softmax
+    over tiles differs by rescalings exact to f32 rounding, and its
+    exponentials are ex2.approx.  For the tests and the profilers; no path
+    of the port calls it."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        _LOG2E, dtype=torch.float32)
+    kh = k.repeat_interleave(H // K, dim=2).permute(0, 2, 3, 1)  # B,H,hd,T
+    vh = v.repeat_interleave(H // K, dim=2).permute(0, 2, 1, 3)  # B,H,T,hd
+    s = tf32_split_matmul(q.permute(0, 2, 1, 3), kh) * scale_log2
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(T, device=q.device)[None, :]
+    live = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= kj <= qi
+    if window:
+        live &= kj > qi - window
+    s = torch.where(live, s, torch.full_like(s, _MASK))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp2(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = tf32_split_matmul(p, vh) / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3)
+
+
+def ssd_scan_tf32_emulation(x, dt, A, Bm, Cm, chunk):
+    """The chunked SSD scan as the f32 kernel computes it: per-group scores
+    G = C B^T, chunk states (B o w)^T x, the f32 state carry, y = e^cum
+    (C S_before) + G' x with G' = G e^(cum_i - cum_j) dt_j (j <= i), every
+    product split TF32 and cum in units of log2 e; exact exponentials
+    where the kernel's are ex2.approx.  For the tests and the profilers;
+    no path of the port calls it."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc, rep = S // chunk, H // G
+    xc = x.reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # b,c,h,l,p
+    dtc = dt.reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)      # b,c,h,l
+    Bc = Bm.reshape(Bsz, nc, chunk, G, N).permute(0, 1, 3, 2, 4)  # b,c,g,l,n
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).permute(0, 1, 3, 2, 4)
+    cum2 = torch.cumsum(dtc * A[None, None, :, None], dim=-1) * torch.tensor(
+        _LOG2E, dtype=torch.float32)
+    scores = tf32_split_matmul(Cc, Bc.transpose(-1, -2))     # b,c,g,l,l
+    scores = scores.repeat_interleave(rep, dim=2)
+    Bh = Bc.repeat_interleave(rep, dim=2)
+    Ch = Cc.repeat_interleave(rep, dim=2)
+    w = dtc * torch.exp2(cum2[..., -1:] - cum2)
+    states = tf32_split_matmul((Bh * w[..., None]).transpose(-1, -2), xc)
+    decay = torch.exp2(cum2[..., -1])                            # b,c,h
+    before = torch.zeros_like(states)
+    carry = torch.zeros_like(states[:, 0])
+    for c in range(nc):
+        before[:, c] = carry
+        carry = carry * decay[:, c, :, None, None] + states[:, c]
+    y = tf32_split_matmul(Ch, before) * torch.exp2(cum2)[..., None]
+    diff = cum2[..., :, None] - cum2[..., None, :]
+    i = torch.arange(chunk, device=x.device)
+    diff = torch.where(i[None, :] <= i[:, None], diff,
+                       torch.full_like(diff, float("-inf")))
+    gp = scores * torch.exp2(diff) * dtc[..., None, :]
+    y = y + tf32_split_matmul(gp, xc)
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P)

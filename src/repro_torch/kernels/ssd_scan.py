@@ -13,9 +13,9 @@ several launches behind one call:
 * f32 -> ``csrc/ssd_scan_tf32.cu`` (mma.sync with split-TF32 operands,
   near-f32 products; C B^T once per group, then the same three phases;
   P in {16, 32, 64, 128}, N a multiple of 4, any chunk that divides S,
-  within shared memory: :func:`tf32_plan` picks the CTA rows and key-tile
-  rows, or raises).  A base that is not 16-byte aligned is copied first
-  (cp.async reads 16-byte words).
+  within the device's shared memory: :func:`tf32_plan` picks the chunk-scan
+  CTA rows and the chunk-state key-tile rows, or raises).  A base that is
+  not 16-byte aligned is copied first (cp.async reads 16-byte words).
 
 If the build fails or a launch is refused the wrapper raises; a bf16
 tensor never reaches the f32 kernel.  ``launches`` counts the calls of both
@@ -35,12 +35,11 @@ from repro_torch.kernels import build
 ROUTES = {torch.bfloat16: ("wgmma", "ssd_scan_wgmma", "ssd_scan_wgmma_fwd"),
           torch.float32: ("f32", "ssd_scan_tf32", "ssd_scan_tf32_fwd")}
 _F32_HEAD_DIMS = (16, 32, 64, 128)
-MAX_SMEM = 232448                 # shared memory a block may use (H100)
-# f32 route plans, tried in order: (phase-3 rows per CTA, key-tile rows)
-# and phase-1 key-tile rows
-# (the fastest first: PERF.md, profile_ssd --f32 --plan)
-_TF32_SCAN_PLANS = ((128, 16), (64, 16), (32, 16), (16, 16))
+# f32 route plans, tried in order, the fastest first (PERF.md): phase-3
+# rows per CTA and phase-1 key-tile rows
+_TF32_SCAN_ROWS = (128, 64, 32, 16)
 _TF32_STATE_KEYS = (32, 16)
+_TF32_SCAN_KEYS = 16              # phase-3 key-tile rows (kScanKeys)
 _WGMMA_HEAD_DIMS = (32, 64, 128)
 _WGMMA_ROWS = 128                 # rows of a chunk-scan CTA (phase 3)
 # both routes' launches as the C entry points' mask: chunk states, state
@@ -64,18 +63,29 @@ def route(dtype: torch.dtype) -> tuple[str, str]:
     return name, source
 
 
+def bind(lib, dtype: torch.dtype):
+    """Set the ctypes signatures of the C entry points of ``dtype``'s route
+    on ``lib`` (the f32 route's shared-memory report too); returns the
+    forward entry point."""
+    fn = getattr(lib, ROUTES[dtype][2])
+    if dtype == torch.float32:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+            ctypes.c_void_p]
+        lib.ssd_scan_tf32_smem.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_tf32_smem.restype = ctypes.c_int
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _lib(dtype: torch.dtype):
-    _, source, entry = ROUTES[dtype]
-    lib = build.load(source)
-    fn = getattr(lib, entry)
+    lib = build.load(ROUTES[dtype][1])
+    fn = getattr(lib, ROUTES[dtype][2])
     if fn.argtypes is None:
-        if dtype == torch.float32:
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
-                ctypes.c_void_p]
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        bind(lib, dtype)
     return lib, fn
 
 
@@ -99,58 +109,87 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def tf32_smem(P: int, N: int, chunk: int, rows: int, keys: int,
-              keys1: int) -> tuple[int, int]:
-    """Shared-memory bytes of the f32 route's chunk-state and chunk-scan
-    launches for a plan, the sums ``csrc/ssd_scan_tf32.cu`` reckons
-    (``state_smem``, ``scan_smem``): the chunk states a two-stage ring of
-    raw key tiles (B's 128 columns in rows of 136 floats, x) and x split
-    into pairs (rows of P + 4); the chunk scan raw C rows (round_up(N,
-    keys) + 4 floats), a two-stage ring of (score rows of keys + 4 floats,
-    raw x or S_before rows) and that tile split into pairs (rows of P + 4);
-    both the dt / cum arrays with their 32-step segment totals.  (The
-    scores launch takes 2 * 64 * (round_up(N, 8) + 4) floats.)"""
+def tf32_smem(P: int, N: int, chunk: int, rows: int,
+              keys1: int) -> tuple[int, int, int]:
+    """Shared-memory bytes of the f32 route's chunk-scores, chunk-state and
+    chunk-scan launches for a plan, the sums of ``csrc/ssd_scan_tf32.cu``
+    (``score_smem``, ``state_smem``, ``scan_smem``; :func:`device_smem`
+    reads the kernel's own): the scores raw C and B rows of 64-row blocks
+    (round_up(N, 8) + 4 floats); the chunk states a two-stage ring of raw
+    key tiles (B's 128 columns in rows of 136 floats, x) and x split into
+    pairs (rows of P + 4); the chunk scan raw C rows (round_up(N, 16) + 4
+    floats), a two-stage ring of (score rows of 16 + 4 floats, raw x or
+    S_before rows) and that tile split into pairs; both the dt / cum arrays
+    with their 32-step segment totals."""
+    keys = _TF32_SCAN_KEYS
     span = _round_up(chunk, 64)
     arrays = 4 * (2 * span + span // 32)
+    scores = 4 * 2 * 64 * (_round_up(N, 8) + 4)
     state = 4 * 2 * keys1 * (136 + P) + 8 * keys1 * (P + 4) + arrays
     scan = (4 * (rows * (_round_up(N, keys) + 4)
                  + 2 * (rows * (keys + 4) + keys * P))
             + 8 * keys * (P + 4) + arrays)
-    return state, scan
+    return scores, state, scan
 
 
-def tf32_plan(P: int, N: int, chunk: int) -> dict[str, int]:
-    """The f32 route's launch plan: the first phase-3 plan (rows per CTA,
-    at most round_up(chunk, 16); key-tile rows, 16, 32 or 64 and no more
-    than the chunk needs) and phase-1 key-tile rows whose shared memory
-    fits, or ValueError."""
+def device_smem(P: int, N: int, chunk: int, rows: int, keys1: int,
+                device: torch.device) -> tuple[int, int, int, int]:
+    """What the f32 kernel reckons for a plan on ``device`` (a CUDA
+    device): its three launches' shared-memory bytes, as
+    :func:`tf32_smem`, and the bytes a block may take there."""
+    lib, _ = _lib(torch.float32)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        build.check(lib.ssd_scan_tf32_smem(P, N, chunk, rows, keys1, out),
+                    "ssd_scan_tf32_smem")
+    return tuple(out)
+
+
+_smem_limits: dict[int, int] = {}
+
+
+def smem_limit(device: torch.device) -> int:
+    """The shared memory a block may take on ``device``, as the f32 kernel
+    reads it (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _smem_limits:
+        _smem_limits[index] = device_smem(16, 4, 16, 16, 16,
+                                          torch.device("cuda", index))[3]
+    return _smem_limits[index]
+
+
+def tf32_plan(P: int, N: int, chunk: int, limit: int) -> dict[str, int]:
+    """The f32 route's launch plan: the first phase-1 key-tile rows (32,
+    else 16; 16 for a chunk of 16 rows or fewer) and phase-3 rows per CTA
+    (128, 64, 32 or 16, at most the chunk rounded up to 16) whose shared
+    memory is within ``limit`` bytes, or ValueError."""
     c16 = _round_up(chunk, 16)
-    cap = 16 if c16 <= 16 else 32 if c16 <= 32 else 64   # key-tile rows
-    if 4 * 2 * 64 * (_round_up(N, 8) + 4) > MAX_SMEM:
-        raise ValueError(f"ssd_scan (f32): N={N} needs more than the 227 KB "
-                         f"of shared memory a block may use")
-    for keys1 in _TF32_STATE_KEYS:
-        keys1 = min(keys1, cap)
-        if tf32_smem(P, N, chunk, 16, 16, keys1)[0] <= MAX_SMEM:
+
+    def too_big(what):
+        return ValueError(f"ssd_scan (f32): {what} need more than the "
+                          f"{limit} bytes of shared memory a block may use")
+
+    if tf32_smem(P, N, chunk, 16, 16)[0] > limit:
+        raise too_big(f"N={N}")
+    for keys1 in _TF32_STATE_KEYS if c16 > 16 else (16,):
+        if tf32_smem(P, N, chunk, 16, keys1)[1] <= limit:
             break
     else:
-        raise ValueError(f"ssd_scan (f32): chunk={chunk} needs more than "
-                         f"the 227 KB of shared memory a block may use")
-    for rows, keys in _TF32_SCAN_PLANS:
-        rows, keys = min(rows, c16), min(keys, cap)
-        if tf32_smem(P, N, chunk, rows, keys, keys1)[1] <= MAX_SMEM:
-            return {"rows": rows, "keys": keys, "keys1": keys1}
-    raise ValueError(f"ssd_scan (f32): P={P}, N={N}, chunk={chunk} need "
-                     f"more than the 227 KB of shared memory a block may "
-                     f"use")
+        raise too_big(f"P={P}, chunk={chunk}")
+    for rows in _TF32_SCAN_ROWS:
+        rows = min(rows, c16)
+        if tf32_smem(P, N, chunk, rows, keys1)[2] <= limit:
+            return {"rows": rows, "keys1": keys1}
+    raise too_big(f"P={P}, N={N}, chunk={chunk}")
 
 
 def tf32_ctas(B: int, S: int, H: int, P: int, G: int, N: int,
-              chunk: int) -> dict[str, int]:
-    """CTAs of the f32 route's four launches (the scores' blocks right of
-    the diagonal exit at once)."""
+              chunk: int, rows: int) -> dict[str, int]:
+    """CTAs of the f32 route's four launches with ``rows`` chunk-scan rows
+    per CTA (the scores' blocks right of the diagonal exit at once)."""
     nc = S // chunk
-    rows = tf32_plan(P, N, chunk)["rows"]
     nb = -(-chunk // 64)
     return {"chunk_scores": B * nc * G * nb * nb,
             "chunk_state": B * H * nc * -(-N // 128),
@@ -198,7 +237,6 @@ def _check(x, dt, A, Bm, Cm, chunk):
         if S % chunk:
             raise ValueError(f"ssd_scan: S={S} must be a multiple of "
                              f"chunk={chunk}")
-        tf32_plan(P, N, chunk)
     return name
 
 
@@ -219,7 +257,7 @@ def _run(name, x, dt, A, Bm, Cm, chunk):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if name == "f32":
-            plan = tf32_plan(P, N, chunk)
+            plan = tf32_plan(P, N, chunk, smem_limit(x.device))
             scratch = tf32_scratch(Bsz, S, H, P, G, N, chunk, x.device)
             rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                     Cm.data_ptr(), y.data_ptr(),
@@ -264,7 +302,7 @@ def tf32_scratch(Bsz, S, H, P, G, N, chunk, device):
 
 def tf32_plan_args(plan: dict[str, int]) -> tuple[int, ...]:
     """A plan as the C entry point's arguments, in order."""
-    return tuple(plan[k] for k in ("rows", "keys", "keys1"))
+    return plan["rows"], plan["keys1"]
 
 
 def tf32_entry():

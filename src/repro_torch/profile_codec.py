@@ -41,7 +41,8 @@ import json
 
 import torch
 
-from repro_torch.timing import event_ms, graph_ms, import_tree
+from repro_torch.profile_common import import_tree
+from repro_torch.timing import event_ms, graph_ms
 
 MAIN_ROWS, MAIN_N, FRAC, SEED = 8, 267009, 0.1, 123
 STAMP_FLAGS = ("-DROW_CLUSTER_STAMPS",)

@@ -1,7 +1,7 @@
-"""Device time of the f32 flash-attention route on the GPU, and A/B of builds.
+"""Device time of the f32 flash-attention route on the GPU.
 
     PYTHONPATH=src python -m repro_torch.profile_flash [--src OTHER/src]
-        [--variant FLAGS ...] [--request] [--reps 30]
+        [--request] [--reps 30]
 
 Runs the f32 route of flash attention through its public wrapper
 (``flash_attention.flash_attention``) at tinyllama-1.1b's full shape (q
@@ -15,56 +15,35 @@ timed in turns on one card, each in its own process.  Prints one JSON line:
   of ``--reps`` after warm-up);
 * ``device_ms``: ``--reps`` calls captured in one CUDA graph, the replay
   timed with events and divided by ``--reps``;
-* ``max_abs_err``: against the plain version (``ref.flash_attention_ref``).
+* ``max_abs_err``: against the plain version (``ref.flash_attention_ref``);
+* ``emulated_err`` (this tree only): the max |diff| of the split-TF32
+  emulation (``ref.flash_attention_tf32_emulation``, exact exponentials,
+  dense softmax) on the same inputs, its sums in f32 and on the tensor
+  cores (``profile_common.emulated_err``).
 
-Each ``--variant [PATH:]FLAGS`` (comma-separated nvcc flags such as
-``-DFLASH_TF32_ROWS=64``) builds this tree's ``csrc/flash_attention_tf32.cu``
-(or the copy at PATH, beside a copy of ``csrc/tf32_mma.cuh``) with them
-(``build.load_variant``) and prints a line for it too, the
-variants timed in turns (A, B, ..., B, A).  ``--request`` adds the host ms
-of three tinyllama-1.1b scoring requests of 4 x 2048 tokens with f32
-weights and the kernel on (``timing.lm_request_ms``).  Needs a CUDA device
-and nvcc.
+``--request`` adds the host ms of three tinyllama-1.1b scoring requests of
+4 x 2048 tokens with f32 weights and the kernel on
+(``profile_common.lm_request_ms``).  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
 
-from repro_torch.timing import event_ms, graph_ms, import_tree, lm_request_ms
+from repro_torch.profile_common import (emulated_err, import_tree,
+                                       lm_request_ms)
+from repro_torch.timing import event_ms, graph_ms
 
 SHAPE = dict(B=4, S=2048, H=32, K=4, hd=64)
-
-
-def _variant(spec: str, tag: str):
-    """The C entry point of a build of the f32 flash source: ``spec`` is
-    ``[path]:flags`` (a copy of ``csrc/flash_attention_tf32.cu`` beside a
-    copy of ``csrc/tf32_mma.cuh``, this tree's by default; comma-separated
-    nvcc flags)."""
-    from pathlib import Path
-
-    from repro_torch.kernels import build
-    path, _, flags = spec.rpartition(":") if ":" in spec else ("", "", spec)
-    lib = build.load_variant("flash_attention_tf32", f"profile_flash_{tag}",
-                             tuple(f for f in flags.split(",") if f),
-                             Path(path) if path else None)
-    fn = lib.flash_attention_tf32_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", help="source tree whose kernels to time "
                                   "(default: this one)")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="nvcc flags of a build of this tree's kernel")
     ap.add_argument("--request", action="store_true")
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args(argv)
@@ -72,7 +51,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_flash needs a CUDA device")
     if args.src:
         import_tree(args.src)
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import flash_attention as tfl
 
     dev = torch.device("cuda")
@@ -82,36 +61,20 @@ def main(argv=None) -> int:
     k = torch.randn((B, S, K, hd), generator=gen, device=dev)
     v = torch.randn((B, S, K, hd), generator=gen, device=dev)
     want = ref.flash_attention_ref(q, k, v, causal=True)
-    scale = hd ** -0.5
 
-    def direct(fn):
-        out = torch.empty_like(q)
+    def call():
+        return tfl.flash_attention(q, k, v, causal=True)
 
-        def call():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, S, H, K, hd, scale, 1, 0,
-                    torch.cuda.current_stream().cuda_stream)
-            build.check(rc, "flash_attention_tf32 variant")
-            return out
-        return call
-
-    runs = [("package" if not args.src else args.src,
-             lambda: tfl.flash_attention(q, k, v, causal=True))]
-    runs += [(flags, direct(_variant(flags, str(i))))
-             for i, flags in enumerate(args.variant)]
-    rows = []
-    for name, fn in runs:
-        err = float((fn() - want).abs().max())
-        rows.append({"kernel": "flash_attention_f32", "src": args.src
-                     or "package", "build": name, "shape": SHAPE,
-                     "device": torch.cuda.get_device_name(0),
-                     "max_abs_err": err, "event_ms": [], "device_ms": []})
-    order = list(range(len(runs)))
-    for i in order + order[::-1]:
-        rows[i]["event_ms"].append(event_ms(runs[i][1], args.reps))
-        rows[i]["device_ms"].append(graph_ms(runs[i][1], args.reps))
-    for row in rows:
-        print(json.dumps(row), flush=True)
+    row = {"kernel": "flash_attention_f32", "src": args.src or "package",
+           "shape": SHAPE, "device": torch.cuda.get_device_name(0),
+           "max_abs_err": float((call() - want).abs().max()),
+           "event_ms": event_ms(call, args.reps),
+           "device_ms": graph_ms(call, args.reps)}
+    if not args.src:
+        row["emulated_err"] = emulated_err(
+            lambda: ref.flash_attention_tf32_emulation(q, k, v, causal=True),
+            want)
+    print(json.dumps(row), flush=True)
     del q, k, v, want
     torch.cuda.empty_cache()
     if args.request:

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.profile_ssd [SOURCE[:FLAGS] ...]
         [--reps 50]
     PYTHONPATH=src python -m repro_torch.profile_ssd --f32 [--src OTHER/src]
-        [--plan ROWS,KEYS,KEYS1 ...] [--request] [--reps 30]
+        [--request] [--reps 30]
 
 Both run at mamba2-780m's full shape (B 4, S 2048, H 48, P 64, G 1, N 128,
 chunk 256; inputs from a seed on the card).
@@ -26,12 +26,14 @@ ms (``--reps`` calls captured in one CUDA graph).  ``--src`` times another
 source tree's f32 route instead (for example the parent commit unpacked
 with ``git archive``; its ``repro_torch`` is imported in place of this
 one), so two versions can be timed in turns on one card, each in its own
-process.  In this tree it also prints the device ms of each of the three
-launches for the wrapper's plan (``ssd_scan.tf32_plan``) and for each
-``--plan`` (phase-3 rows per CTA, key-tile rows, phase-1 key-tile rows),
-the plans timed in turns.  ``--request`` adds the host ms of three
-mamba2-780m scoring requests of 4 x 2048 tokens with f32 weights and the
-kernel on.  Needs a CUDA device and nvcc.
+process.  In this tree it also prints the device ms of each of the four
+launches for the wrapper's plan (``ssd_scan.tf32_plan``) and the max
+|diff| of the split-TF32 emulation (``ref.ssd_scan_tf32_emulation``, exact
+exponentials) on the same inputs, its sums in f32 and on the tensor cores
+(``allow_tf32``: products of TF32 values are exact, so only the sums
+differ).  ``--request`` adds the host ms of three mamba2-780m scoring
+requests of 4 x 2048 tokens with f32 weights and the kernel on.  Needs a
+CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ssd_scan as tss
-from repro_torch.timing import event_ms, graph_ms, import_tree, lm_request_ms
+from repro_torch.profile_common import (emulated_err, import_tree,
+                                       lm_request_ms)
+from repro_torch.timing import event_ms, graph_ms
 
 SHAPE = dict(B=4, S=2048, H=48, P=64, G=1, N=128, chunk=256)
 
@@ -60,18 +64,6 @@ def _build(spec: str, tag: str):
                              Path(path))
     fn = lib.ssd_scan_wgmma_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _build_f32(flags: str, tag: str):
-    """The f32 route's C entry point built from this tree's source with
-    ``flags`` (comma-separated nvcc flags)."""
-    lib = build.load_variant("ssd_scan_tf32", f"profile_ssd_f32_{tag}",
-                             tuple(f for f in flags.split(",") if f))
-    fn = lib.ssd_scan_tf32_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -110,14 +102,16 @@ class Runner:
 
 
 class F32Runner:
-    """Calls the f32 route's C entry point with one plan on fixed f32 inputs,
-    with its own scratch (this tree only)."""
+    """Calls the f32 route's C entry point with the wrapper's plan on fixed
+    f32 inputs, with its own scratch (this tree only)."""
 
-    def __init__(self, x, dt, A, Bm, Cm, chunk, plan, entry):
-        self.entry, self.args, self.chunk = entry, (x, dt, A, Bm, Cm), chunk
+    def __init__(self, x, dt, A, Bm, Cm, chunk):
+        self.entry, self.args, self.chunk = tss.tf32_entry(), (x, dt, A, Bm,
+                                                               Cm), chunk
         B, S, H, P = x.shape
         self.dims = (B, S, H, P, Bm.shape[2], Bm.shape[3])
-        self.plan = tss.tf32_plan_args(plan)
+        self.plan = tss.tf32_plan_args(tss.tf32_plan(
+            P, Bm.shape[3], chunk, tss.smem_limit(x.device)))
         self.scratch = tss.tf32_scratch(B, S, H, P, *Bm.shape[2:], chunk,
                                         x.device)
         self.y = torch.empty_like(x)
@@ -179,26 +173,13 @@ def f32_main(args) -> int:
         "event_ms": event_ms(call, args.reps),
         "device_ms": graph_ms(call, args.reps)}), flush=True)
     if not args.src:
-        P, N = SHAPE["P"], SHAPE["N"]
-        plans = [tss.tf32_plan(P, N, chunk)] + [
-            dict(zip(("rows", "keys", "keys1"), map(int, p.split(","))))
-            for p in args.plan]
-        entries = [tss.tf32_entry()] * len(plans)
-        for i, flags in enumerate(args.variant):
-            plans.append(plans[0])
-            entries.append(_build_f32(flags, str(i)))
-        runners = [F32Runner(x, dt, A, Bm, Cm, chunk, p, e)
-                   for p, e in zip(plans, entries)]
-        builds = ["package"] * (len(plans) - len(args.variant)) + args.variant
-        rows = [{"plan": p, "build": bld,
-                 "max_abs_err": float((r() - want).abs().max()),
-                 "device_ms": []} for p, bld, r in zip(plans, builds, runners)]
-        order = list(range(len(runners)))
-        for i in order + order[::-1]:
-            rows[i]["device_ms"].append(runners[i].phase_ms(args.reps))
-        for row in rows:
-            print(json.dumps(row), flush=True)
-        del runners
+        runner = F32Runner(x, dt, A, Bm, Cm, chunk)
+        print(json.dumps({
+            "plan": runner.plan, "device_ms": runner.phase_ms(args.reps),
+            "emulated_err": emulated_err(
+                lambda: ref.ssd_scan_tf32_emulation(x, dt, A, Bm, Cm, chunk),
+                want)}), flush=True)
+        del runner
     del x, dt, A, Bm, Cm, want
     torch.cuda.empty_cache()
     if args.request:
@@ -219,11 +200,6 @@ def main(argv=None) -> int:
                     help="time the f32 route (see the module docstring)")
     ap.add_argument("--src", help="with --f32: source tree whose f32 route "
                                   "to time (default: this one)")
-    ap.add_argument("--plan", action="append", default=[],
-                    help="with --f32: ROWS,KEYS,KEYS1 of another plan")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="with --f32: nvcc flags of a build of this tree's "
-                         "f32 source, timed with the wrapper's plan")
     ap.add_argument("--request", action="store_true",
                     help="with --f32: time f32 mamba2-780m requests too")
     args = ap.parse_args(argv)

@@ -6,17 +6,12 @@ least time the card could take for a kernel's work.
 call, the host's enqueue included.  ``graph_ms`` is the device's own time:
 calls captured in one CUDA graph, the replay timed with events.
 ``bound_ms`` and ``f32_bounds`` reckon a kernel's bound from its bytes and
-operations at the H100 SXM's published rates; ``import_tree`` lets a
-profiler time another source tree's kernels; ``lm_request_ms`` times a
-scoring request of an LM config through ``loss_fn``.
+operations at the H100 SXM's published rates.
 """
 
 from __future__ import annotations
 
 import statistics
-import sys
-import time
-from pathlib import Path
 
 import torch
 
@@ -46,47 +41,6 @@ def f32_bounds(nbytes: float, ops: float) -> dict:
     low = min(tf32, cores)
     return {"bound_ms": low[0], "bound_by": low[1],
             "split_tf32_bound_ms": tf32[0], "cuda_core_bound_ms": cores[0]}
-
-
-def import_tree(src: str) -> None:
-    """Import ``repro_torch`` from the source tree ``src`` (for example the
-    parent commit unpacked with ``git archive``) from now on."""
-    for name in [m for m in sys.modules
-                 if m == "repro_torch" or m.startswith("repro_torch.")]:
-        del sys.modules[name]
-    sys.path.insert(0, str(Path(src).resolve()))
-
-
-def lm_request_ms(arch: str, flag: str, *, batch: int = 4, seq: int = 2048,
-                  dtype: str = "float32", reps: int = 3, seed: int = 0):
-    """Host ms of ``reps`` scoring requests (``loss_fn`` with the kernel flag
-    ``flag`` on, ending in a device sync) of ``arch`` at full width with its
-    weights in ``dtype``, after one warm-up request; random weights from
-    ``seed`` on the card.  Imports the ``repro_torch`` in use."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs.base import get_config
-    from repro_torch.models import model as M
-    cfg = dataclasses.replace(get_config(arch), param_dtype=dtype,
-                              compute_dtype=dtype)
-    params = M.init_params(cfg, seed, device=torch.device("cuda"))
-    rng = np.random.default_rng(seed)
-    batch_ = {key: torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, seq))).cuda()
-        for key in ("tokens", "targets")}
-    out = []
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, metrics = M.loss_fn(params, batch_, cfg, **{flag: True})
-        float(metrics["ce"])
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t) * 1e3)
-    del params
-    torch.cuda.empty_cache()
-    return out[1:]
 
 
 def event_ms(fn, reps: int = 30, warm: int = 5) -> float:

@@ -143,7 +143,7 @@ def test_ssd_kernel_full_state_width(cuda):
 # 48, and chunk 40 whose last 16-row tile is half padding), a 512-step
 # chunk (four 128-row blocks), and N 340 at P 16 and N 176 at P 128, the
 # widest states the CUDA-core kernel took, where tf32_plan falls back to
-# smaller tiles or one ring stage
+# smaller CTAs or key tiles
 _SSD_TF32 = [(2, 256, 4, 16, 1, 4, 16), (1, 256, 4, 128, 2, 12, 32),
              (2, 192, 2, 32, 2, 20, 64), (1, 512, 4, 64, 1, 128, 256),
              (1, 240, 4, 16, 2, 16, 48), (1, 120, 2, 32, 1, 20, 40),
@@ -166,6 +166,20 @@ def test_ssd_tf32_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == arrs[0].shape
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("P", [16, 32, 64, 128])
+def test_ssd_tf32_smem_sums_are_the_kernels(cuda, P):
+    """tf32_plan's shared-memory sums are the kernel's own for every plan
+    and shape it may meet, and the limit it plans within is the device's."""
+    limit = tssd.smem_limit(cuda)
+    for N in (4, 12, 20, 128, 176, 340):
+        for chunk in (16, 32, 40, 48, 64, 256, 512):
+            for rows in (16, 32, 48, 64, 128):
+                for keys1 in (16, 32):
+                    assert tssd.device_smem(P, N, chunk, rows, keys1,
+                                            cuda) == (
+                        *tssd.tf32_smem(P, N, chunk, rows, keys1), limit)
 
 
 # f32 cases of the split-TF32 flash kernel (B, S, T, H, K, hd, causal,

@@ -1,10 +1,13 @@
-"""The split-TF32 arithmetic of the f32 kernels (``csrc/flash_attention_tf32.cu``,
-``csrc/ssd_scan_tf32.cu``) on the CPU, before any card sees it.
+"""The split-TF32 arithmetic of the f32 kernels
+(``csrc/flash_attention_tf32.cu``, ``csrc/ssd_scan_tf32.cu``) on the CPU,
+before any card sees it.
 
 ``kernels/ref.py::tf32_split_matmul`` emulates a split-TF32 product: each
 operand rounded to hi = tf32(a) and lo = tf32(a - hi) (Veltkamp's split, as
 the kernels round) and three TF32 products accumulated in f32.  Attention
-and the chunked SSD scan computed with it, in the kernels' order of work
+and the chunked SSD scan computed with it
+(``ref.flash_attention_tf32_emulation``, ``ref.ssd_scan_tf32_emulation``,
+which the profilers also run on the card), in the kernels' order of work
 (scores in units of log2 e; the SSD's per-group scores C B^T, chunk states,
 f32 state carry, then C S_before and G' x), are held to the f32 plain
 versions (``ref.flash_attention_ref``, ``ref.ssd_scan_ref``) at the f32
@@ -14,8 +17,6 @@ functions, tested here too.  The kernels themselves are held to the plain
 versions on the card (``tests/test_torch_cuda_lm.py``, ``chip_smoke.py``).
 """
 
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -23,9 +24,6 @@ import torch
 from repro_torch import timing
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as tssd
-
-LOG2E = 1.4426950408889634
-MASK = -2.0e38
 
 
 def _normal(shape, seed, scale=1.0):
@@ -86,34 +84,6 @@ def test_one_tf32_product_would_not_hold_the_contracts():
     assert float((hi_only.double() - exact).abs().max()) > 1e-3
 
 
-def flash_tf32_emulation(q, k, v, *, causal, window, scale=None):
-    """Attention as the f32 kernel computes it: q k^T and p v split TF32,
-    scores in units of log2 e, the finite -2e38 mask, p zeroed where masked,
-    out = acc / max(l, 1e-30).  Dense rows: the kernel's online softmax
-    over tiles differs by rescalings exact to f32 rounding."""
-    B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
-        LOG2E, dtype=torch.float32)
-    kh = k.repeat_interleave(H // K, dim=2).permute(0, 2, 3, 1)  # B,H,hd,T
-    vh = v.repeat_interleave(H // K, dim=2).permute(0, 2, 1, 3)  # B,H,T,hd
-    s = ref.tf32_split_matmul(q.permute(0, 2, 1, 3), kh) * scale_log2
-    qi = torch.arange(S)[:, None]
-    kj = torch.arange(T)[None, :]
-    live = torch.ones((S, T), dtype=torch.bool)
-    if causal:
-        live &= kj <= qi
-    if window:
-        live &= kj > qi - window
-    s = torch.where(live, s, torch.full_like(s, MASK))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(live, torch.exp2(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    out = ref.tf32_split_matmul(p, vh) / torch.clamp(l, min=1e-30)
-    return out.permute(0, 2, 1, 3)
-
-
 # (B, S, T, H, K, hd, causal, window): the f32 cases chip_smoke.py and
 # tests/test_kernels.py check, then the card tests' split-TF32 cases (hd 32
 # and 128, a window off the 32-key tile, unmasked, T != S, H / K = 8, a
@@ -135,45 +105,10 @@ def test_split_tf32_attention_holds_the_f32_contract(case):
     B, S, T, H, K, hd, causal, window = case
     q, k, v = (_normal(s, 30 + i) for i, s in enumerate(
         [(B, S, H, hd), (B, T, K, hd), (B, T, K, hd)]))
-    got = flash_tf32_emulation(q, k, v, causal=causal, window=window)
+    got = ref.flash_attention_tf32_emulation(q, k, v, causal=causal,
+                                             window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
-
-
-def ssd_tf32_emulation(x, dt, A, Bm, Cm, chunk):
-    """The chunked SSD scan as the f32 kernel computes it: per-group scores
-    G = C B^T, chunk states (B o w)^T x, the f32 state carry, y = e^cum
-    (C S_before) + G' x with G' = G e^(cum_i - cum_j) dt_j (j <= i), every
-    product split TF32 and cum in units of log2 e."""
-    Bsz, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    nc, rep = S // chunk, H // G
-    xc = x.reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # b,c,h,l,p
-    dtc = dt.reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)      # b,c,h,l
-    Bc = Bm.reshape(Bsz, nc, chunk, G, N).permute(0, 1, 3, 2, 4)  # b,c,g,l,n
-    Cc = Cm.reshape(Bsz, nc, chunk, G, N).permute(0, 1, 3, 2, 4)
-    cum2 = torch.cumsum(dtc * A[None, None, :, None], dim=-1) * torch.tensor(
-        LOG2E, dtype=torch.float32)
-    scores = ref.tf32_split_matmul(Cc, Bc.transpose(-1, -2))     # b,c,g,l,l
-    scores = scores.repeat_interleave(rep, dim=2)
-    Bh = Bc.repeat_interleave(rep, dim=2)
-    Ch = Cc.repeat_interleave(rep, dim=2)
-    w = dtc * torch.exp2(cum2[..., -1:] - cum2)
-    states = ref.tf32_split_matmul((Bh * w[..., None]).transpose(-1, -2), xc)
-    decay = torch.exp2(cum2[..., -1])                            # b,c,h
-    before = torch.zeros_like(states)
-    carry = torch.zeros_like(states[:, 0])
-    for c in range(nc):
-        before[:, c] = carry
-        carry = carry * decay[:, c, :, None, None] + states[:, c]
-    y = ref.tf32_split_matmul(Ch, before) * torch.exp2(cum2)[..., None]
-    diff = cum2[..., :, None] - cum2[..., None, :]
-    i = torch.arange(chunk)
-    diff = torch.where(i[None, :] <= i[:, None], diff,
-                       torch.full_like(diff, float("-inf")))
-    gp = scores * torch.exp2(diff) * dtc[..., None, :]
-    y = y + ref.tf32_split_matmul(gp, xc)
-    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P)
 
 
 def _ssd(B, S, H, P, G, N, seed):
@@ -206,7 +141,7 @@ _SSD = [(2, 128, 4, 32, g, 16, c) for c in (16, 32, 64) for g in (1, 2)] + [
 def test_split_tf32_ssd_holds_the_f32_contract(case):
     B, S, H, P, G, N, chunk = case
     arrs = _ssd(B, S, H, P, G, N, S + N + P + G)
-    got = ssd_tf32_emulation(*arrs, chunk)
+    got = ref.ssd_scan_tf32_emulation(*arrs, chunk)
     want = ref.ssd_scan_ref(*arrs)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
@@ -218,6 +153,11 @@ def _cuda_core_smem(P, N, chunk):
     return 4 * floats
 
 
+# the shared memory a block may take on an H100 (sharedMemPerBlockOptin);
+# the wrapper reads the device's own (ssd_scan.smem_limit)
+H100_SMEM = 232448
+
+
 @pytest.mark.parametrize("P", [16, 32, 64, 128])
 def test_plan_takes_every_shape_the_cuda_core_kernel_took(P):
     """No f32 shape that the old kernel ran may start to raise: for every
@@ -226,31 +166,46 @@ def test_plan_takes_every_shape_the_cuda_core_kernel_took(P):
     for N in range(4, 420, 4):
         for chunk in (16, 32, 40, 48, 64, 96, 128, 256, 512, 1024, 2048,
                       8192, 16384):
-            if _cuda_core_smem(P, N, chunk) > tssd.MAX_SMEM:
+            if _cuda_core_smem(P, N, chunk) > H100_SMEM:
                 continue
-            plan = tssd.tf32_plan(P, N, chunk)
+            plan = tssd.tf32_plan(P, N, chunk, H100_SMEM)
             assert plan["rows"] % 16 == 0 and 16 <= plan["rows"] <= 128
-            assert plan["keys"] in (16, 32, 64)
-            assert plan["keys1"] in (16, 32, 64)
+            assert plan["keys1"] in (16, 32)
             assert max(tssd.tf32_smem(P, N, chunk,
                                       *tssd.tf32_plan_args(plan))) \
-                <= tssd.MAX_SMEM
+                <= H100_SMEM
 
 
 def test_plan_at_full_width_and_small_chunks():
     """mamba2-780m's head takes the fastest measured plan (PERF.md);
     small chunks shrink the CTA and the key tiles to the chunk."""
-    assert tssd.tf32_plan(64, 128, 256) == {"rows": 128, "keys": 16,
-                                            "keys1": 32}
-    assert tssd.tf32_plan(32, 16, 16) == {"rows": 16, "keys": 16,
-                                          "keys1": 16}
-    assert tssd.tf32_plan(32, 16, 40)["rows"] == 48
+    assert tssd.tf32_plan(64, 128, 256, H100_SMEM) == {"rows": 128,
+                                                       "keys1": 32}
+    assert tssd.tf32_plan(32, 16, 16, H100_SMEM) == {"rows": 16,
+                                                     "keys1": 16}
+    assert tssd.tf32_plan(32, 16, 40, H100_SMEM)["rows"] == 48
     with pytest.raises(ValueError, match="N=1024"):
-        tssd.tf32_plan(64, 1024, 256)
+        tssd.tf32_plan(64, 1024, 256, H100_SMEM)
+
+
+@pytest.mark.parametrize("limit", [H100_SMEM, 166912, 101376])
+def test_plan_is_the_largest_that_fits_the_device(limit):
+    """The plan follows the device's limit (an H100's, an A100's, 99 KB):
+    it fits, and the next larger CTA of the chunk scan would not."""
+    for P, N, chunk in ((64, 128, 256), (128, 176, 128), (128, 128, 256),
+                        (32, 64, 512), (16, 16, 32)):
+        plan = tssd.tf32_plan(P, N, chunk, limit)
+        scores, state, scan = tssd.tf32_smem(P, N, chunk,
+                                             *tssd.tf32_plan_args(plan))
+        assert max(scores, state, scan) <= limit
+        if plan["rows"] < min(128, chunk):
+            bigger = tssd.tf32_smem(P, N, chunk, 2 * plan["rows"],
+                                    plan["keys1"])[2]
+            assert bigger > limit
 
 
 def test_f32_route_ctas_at_full_width():
-    assert tssd.tf32_ctas(4, 2048, 48, 64, 1, 128, 256) == {
+    assert tssd.tf32_ctas(4, 2048, 48, 64, 1, 128, 256, 128) == {
         "chunk_scores": 4 * 8 * 1 * 4 * 4, "chunk_state": 1536,
         "state_passing": 1536, "chunk_scan": 3072}
 

@@ -32,6 +32,7 @@ from repro_torch import profile_codec
 from repro_torch.kernels import build
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels import topk_select as ttopk
 
 CLUSTER = 8           # CTAs per row, ``row_cluster::kCluster``
@@ -197,16 +198,33 @@ def _c_params(src, entry):
     return len(params.split(","))
 
 
+def _bind_ssd(dtype, entry):
+    """The SSD wrapper's binding of ``dtype``'s route, returning ``entry``
+    (the f32 route binds its shared-memory report beside its forward)."""
+    def bind(lib):
+        fwd = tssd.bind(lib, dtype)
+        return fwd if entry.endswith("_fwd") else getattr(lib, entry)
+    return bind
+
+
 @pytest.mark.parametrize("src,entry,bind,index", [
     ("topk_select", "topk_mask_rows", ttopk.bind, None),
     ("quantize", "quantize_rows", tquant.bind, 0),
-    ("quantize", "dequantize_rows", tquant.bind, 1)])
+    ("quantize", "dequantize_rows", tquant.bind, 1),
+    ("ssd_scan_tf32", "ssd_scan_tf32_fwd",
+     _bind_ssd(torch.float32, "ssd_scan_tf32_fwd"), None),
+    ("ssd_scan_tf32", "ssd_scan_tf32_smem",
+     _bind_ssd(torch.float32, "ssd_scan_tf32_smem"), None),
+    ("ssd_scan_wgmma", "ssd_scan_wgmma_fwd",
+     _bind_ssd(torch.bfloat16, "ssd_scan_wgmma_fwd"), None)])
 def test_bindings_match_the_c_signatures(src, entry, bind, index):
     """Each wrapper's ctypes ``argtypes`` has one entry per parameter of
     its C entry point (a missing one would cut a 64-bit pointer)."""
     lib = SimpleNamespace(**{
         e: SimpleNamespace(argtypes=None, restype=None)
-        for e in ("topk_mask_rows", "quantize_rows", "dequantize_rows")})
+        for e in ("topk_mask_rows", "quantize_rows", "dequantize_rows",
+                  "ssd_scan_tf32_fwd", "ssd_scan_tf32_smem",
+                  "ssd_scan_wgmma_fwd")})
     fns = bind(lib)
     fn = fns if index is None else fns[index]
     assert fn is getattr(lib, entry)
