@@ -38,7 +38,8 @@ it goes wrong:
    split-TF32 and CUDA-core bounds, both printed);
 4. federation path — ``FederationSession`` approach-1 federation at the
    paper's full MLP width (8 users, Dirichlet-split 28x28 digit-like data,
-   batch 64, fused engine, 16 rounds per chunk): 64 rounds with codec
+   batch 64, fused engine, 16 rounds per chunk, each chunk one CUDA graph
+   replay; every session of phases 4-7 runs on graphs): 64 rounds with codec
    ``none``, then 32 rounds each of ``topk_int8`` with deterministic and
    stochastic rounding.  Launch counts are zeroed before each run and must
    show one launch of each kernel per round where the run uses it; losses
@@ -61,7 +62,13 @@ it goes wrong:
    16 + 16 rounds each with 8 users, and approach 2 with a cohort of 4 of
    16 users; finite losses.  A small cohort session with error-fed int8
    uploads on the card and on the CPU must agree;
-7. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
+7. graphs against the eager chunk — each main-path run, the cohort U = 256
+   run on both engines and approaches 2, 3 and the baseline, 48 rounds from
+   one seed through the eager chunk and through the CUDA graphs the session
+   replays: carries and losses bitwise equal, the graph's steady ms per
+   round no higher, the peak device memory of each; windows of 5 + 6 rounds
+   equal to one of 11 under graphs;
+8. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
    and its cross-entropy) of tinyllama-1.1b with ``use_flash=True``, then
    of mamba2-780m with ``use_ssm_kernel=True``, at their full published
    width in bf16, random weights from seed 0 on the card, answering three
@@ -78,7 +85,7 @@ it goes wrong:
    the f32 route once per layer.  The reduced f32 configs from one seed on
    the card (kernels, f32 route) and on the CPU (plain versions) must agree
    at the reference's tolerances;
-8. the result: a ``kernels`` JSON line, the card line, and as the last
+9. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -1082,6 +1089,119 @@ def _approaches_phase(torch, dev) -> list:
     return lines
 
 
+GRAPH_ROUNDS = 48
+
+
+def _eager_twin(sess):
+    """``sess`` with its engine swapped for the eager chunk it captures."""
+    from repro_torch.core.engine import (make_eager_cohort_engine,
+                                         make_eager_engine)
+    drv, sp = sess._driver, sess.spec
+    if drv.mode == "cohort":
+        drv.eng = make_eager_cohort_engine(
+            sess.pair, sess.fcfg, sp.approach,
+            adaptive=sp.combine.adaptive_server_scale,
+            copy_carry=not drv.fused_store)
+    else:
+        drv.eng = make_eager_engine(sess.pair, sess.fcfg, sp.approach)
+    return sess
+
+
+def _graph_phase(torch, dev) -> list:
+    """Each main-path run, the cohort U = 256 run on both engines and
+    approaches 2, 3 and the baseline from one seed, through the eager chunk
+    (first) and through the graphs: the carries and losses must be equal
+    BITWISE and the graph no slower per round; the peak device memory each
+    run took.  Then, under graphs, windows of 5 + 6 rounds must equal one of
+    11 (chunks of 4: graphs of 4, 1, 2 and 3 rounds)."""
+    import numpy as np
+
+    from repro_torch.core.engine import carry_tensors
+
+    pair = _paper_pair()
+    main_data = _digits_dataset(MAIN_ROWS, 28, 400)
+    cohort_data = _digits_dataset(COHORT_US[0], 28, 400)
+    runs = [(f"approach1 codec={c} stochastic={sr}",
+             lambda dv, c=c, sr=sr: _session(pair, main_data, MAIN_ROWS, c, sr,
+                                             dv, eval_samples=0))
+            for c, sr in (("none", False), ("topk_int8", False),
+                          ("topk_int8", True))]
+    runs += [(f"cohort approach1 U={COHORT_US[0]} C={COHORT_C} topk_int8+EF "
+              f"{'fused_store' if fuse else 'plain'}",
+              lambda dv, fuse=fuse: _session(
+                  pair, cohort_data, COHORT_US[0], "topk_int8", False, dv,
+                  eval_samples=0, scheduler="uniform", cohort=COHORT_C,
+                  fuse=fuse, ef=True, combiner="staleness_max_abs"))
+             for fuse in (True, False)]
+    runs += [(f"{a} U={MAIN_ROWS} full",
+              lambda dv, a=a: _session(pair, main_data, MAIN_ROWS, "none",
+                                       False, dv, rpj=8, eval_samples=0,
+                                       approach=a))
+             for a in ("approach2", "approach3", "baseline")]
+    lines = []
+    for name, make in runs:
+        out = {}
+        for kind in ("eager", "graph"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sess = make(dev)
+            if kind == "eager":
+                _eager_twin(sess)
+            res = sess.run(GRAPH_ROUNDS)
+            out[kind] = (sess, res, (torch.cuda.max_memory_allocated()
+                                     - base) / 1e9)
+        (es, er, epeak), (gs, gr, gpeak) = out["eager"], out["graph"]
+        if not (np.array_equal(er.g_losses, gr.g_losses)
+                and np.array_equal(er.d_losses, gr.d_losses)):
+            raise AssertionError(f"{name}: graph losses != eager")
+        ec, gc = es._driver.state, gs._driver.state
+        if not (all(torch.equal(a, b) for a, b in zip(carry_tensors(ec),
+                                                       carry_tensors(gc)))
+                and torch.equal(ec.generator.get_state(),
+                                gc.generator.get_state())):
+            raise AssertionError(f"{name}: graph state != eager, bitwise")
+        if not np.all(np.isfinite(gr.g_losses)):
+            raise AssertionError(f"{name}: non-finite losses")
+        ems, gms = er.step_time_s * 1e3, gr.step_time_s * 1e3
+        if gms > ems:
+            raise AssertionError(f"{name}: graph {gms:.3f} ms per round is "
+                                 f"slower than eager {ems:.3f}")
+        lines.append({
+            "run": name, "rounds": GRAPH_ROUNDS,
+            "rounds_per_chunk": gs.spec.engine.rounds_per_jit,
+            "bitwise": True, "eager_ms_per_round": ems,
+            "graph_ms_per_round": gms, "speedup": ems / gms,
+            "eager_best_chunk_ms_per_round":
+                er.extra["min_step_time_s"] * 1e3,
+            "graph_best_chunk_ms_per_round":
+                gr.extra["min_step_time_s"] * 1e3,
+            "eager_first_chunk_s": er.extra["compile_s"],
+            "graph_first_chunk_s": gr.extra["compile_s"],
+            "eager_peak_gb": epeak, "graph_peak_gb": gpeak})
+        del out, es, gs, er, gr, ec, gc
+        torch.cuda.empty_cache()
+
+    whole = _session(pair, main_data, MAIN_ROWS, "topk_int8", True, dev,
+                     rpj=4, eval_samples=0)
+    parts = _session(pair, main_data, MAIN_ROWS, "topk_int8", True, dev,
+                     rpj=4, eval_samples=0)
+    w = whole.run(11)
+    p1 = parts.run(5).g_losses.copy()
+    p2 = parts.run(6).g_losses
+    if sorted(parts._driver.eng.graphs.graphs) != [1, 2, 4] or not (
+            np.array_equal(np.concatenate([p1, p2]), w.g_losses)
+            and all(torch.equal(a, b) for a, b in zip(
+                carry_tensors(whole._driver.state),
+                carry_tensors(parts._driver.state)))):
+        raise AssertionError("windows of 5 + 6 rounds != one of 11 under "
+                             "graphs")
+    lines.append({"run": "approach1 topk_int8 SR, windows 5 + 6 vs 11, "
+                         "chunks of 4", "bitwise": True,
+                  "graph_lengths": sorted(whole._driver.eng.graphs.graphs)})
+    return lines
+
+
 def _cohort_cpu_agreement(torch, dev) -> dict:
     """A small cohort session (U 6, C 3, topk_int8 with stochastic rounding
     and error feedback) from one seed on the card (kernels) and on the CPU
@@ -1197,6 +1317,12 @@ def main() -> int:
     worst = _cohort_cpu_agreement(torch, dev)
     print(f"[check] card vs CPU small cohort session, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
+
+    t0 = time.perf_counter()
+    for line in _graph_phase(torch, dev):
+        print("[graph] " + json.dumps(line), flush=True)
+    print(f"[graph] eager chunk vs CUDA graph bitwise; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     lm_recs, info = _lm_kernel_phase(torch, dev)

@@ -20,12 +20,16 @@ no parameter).
 
 The body updates D, G, the server D and every optimizer buffer IN PLACE,
 where the reference donates the state to its jitted step
-(``approaches.py:163-167``, ``engine.py:101``).  Noise (the latent
-batches and the stochastic-rounding seed) is drawn from the state's host
-``torch.Generator`` and moved to the device, so a run's draws do not
-depend on the device; the tests inject the reference's own draws
-instead (``z1``, ``z2``, ``seed``; approach 3 takes one pair per member,
-stacked ``(C, B, z_dim)``).
+(``approaches.py:163-167``, ``engine.py:101``).  A round's noise (the
+latent batches, the stochastic-rounding seed, the ``random`` selection's
+uniforms) is drawn from the state's host ``torch.Generator`` by the
+approach's registered noise function (``make_*_noise``), in the order
+the body consumes it, so a run's draws do not depend on the device.  The
+body takes any of them as keywords and draws only the rest: the CUDA-graph
+engines draw a chunk's noise before a replay and hand it in through
+device buffers, and the tests inject the reference's own draws (``z1``,
+``z2``, ``seed``; approach 3 takes one pair per member, stacked ``(C, B,
+z_dim)``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 from repro_torch.core import losses
 from repro_torch.core.federated import (codec_transport, make_flat_layout,
-                                        select_delta_flat)
+                                        random_uniforms, select_delta_flat)
 from repro_torch.core.spec import register_approach, resolve_combiner
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import adamw, apply_updates
@@ -52,6 +56,15 @@ class DistGANState:
     server_d: Any    # approach 1's server discriminator
     step: torch.Tensor
     generator: torch.Generator   # host generator for the round noise
+
+    def clone(self) -> "DistGANState":
+        """A deep copy (tensors and the host generator's position)."""
+        gen = torch.Generator()
+        gen.set_state(self.generator.get_state())
+        copy = lambda t: t.clone()
+        return DistGANState(*(tree_map(copy, getattr(self, f)) for f in
+                              ("g", "g_opt", "ds", "d_opts", "server_d")),
+                            self.step.clone(), gen)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +183,78 @@ def _copy_into(dst_tree, src_tree) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Round noise: each approach's host draws, in the order its body takes them
+# ---------------------------------------------------------------------------
+
+def _draw_seed(generator: torch.Generator) -> torch.Tensor:
+    """A stochastic-rounding seed in [0, 2**31 - 1) as a (1,) int32 tensor,
+    which the codec kernel reads on the device."""
+    value = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+    return torch.tensor([value], dtype=torch.int32)
+
+
+def make_approach1_noise(pair, fcfg: DistGANConfig):
+    """Approach 1 (and ``download_first``): ``z1``, ``z2`` (B, z_dim); then
+    ``seed`` iff a lossy codec rounds stochastically; then ``uniforms``
+    (C, N) iff the selection is ``random``."""
+    n = d_flat_layout(pair).n
+    stochastic = fcfg.codec != "none" and fcfg.codec_stochastic
+    uniform = fcfg.selection == "random"
+
+    def draw(gen, real_shape, z1=None, z2=None, seed=None, uniforms=None):
+        C, B = real_shape[0], real_shape[1]
+        out = {"z1": pair.sample_z(gen, B) if z1 is None else z1,
+               "z2": pair.sample_z(gen, B) if z2 is None else z2}
+        if stochastic:
+            out["seed"] = _draw_seed(gen) if seed is None else seed
+        if uniform:
+            out["uniforms"] = (random_uniforms((C, n), gen)
+                               if uniforms is None else uniforms)
+        return out
+
+    return draw
+
+
+def _latent_noise(batch_axis: int):
+    """``z1`` then ``z2`` (B, z_dim), B the real batch's ``batch_axis``."""
+
+    def factory(pair, fcfg: DistGANConfig):
+        def draw(gen, real_shape, z1=None, z2=None):
+            B = real_shape[batch_axis]
+            return {"z1": pair.sample_z(gen, B) if z1 is None else z1,
+                    "z2": pair.sample_z(gen, B) if z2 is None else z2}
+        return draw
+
+    return factory
+
+
+make_approach2_noise = _latent_noise(1)
+make_baseline_noise = _latent_noise(0)
+
+
+def make_approach3_noise(pair, fcfg: DistGANConfig):
+    """Approach 3: member by member, ``z1[j]`` then ``z2[j]`` (B, z_dim),
+    stacked (C, B, z_dim)."""
+
+    def draw(gen, real_shape, z1=None, z2=None):
+        if z1 is not None and z2 is not None:
+            return {"z1": z1, "z2": z2}
+        C, B = real_shape[0], real_shape[1]
+        za, zb = [], []
+        for j in range(C):
+            za.append(pair.sample_z(gen, B) if z1 is None else z1[j])
+            zb.append(pair.sample_z(gen, B) if z2 is None else z2[j])
+        return {"z1": torch.stack(za), "z2": torch.stack(zb)}
+
+    return draw
+
+
+def _on(dev, t):
+    """A drawn tensor on ``dev`` (an int seed passes through)."""
+    return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+
+# ---------------------------------------------------------------------------
 # Approach 1: selective-gradient federated server discriminator
 # ---------------------------------------------------------------------------
 
@@ -180,30 +265,27 @@ def make_approach1_body(pair, fcfg: DistGANConfig):
     layout = d_flat_layout(pair)
     lossy = fcfg.codec != "none"
     ef = lossy and fcfg.error_feedback
+    draw = make_approach1_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None,
-             residual=None, *, z1=None, z2=None, seed=None):
+             residual=None, *, z1=None, z2=None, seed=None, uniforms=None):
         """real: (C, B, ...) private batches of the participating users.
         ``ages`` (C,) feeds the staleness-aware combiners, ``weights`` (C,)
         scales each member's upload before the fold, ``residual`` (C, N)
         is each member's error-feedback row (passed iff the codec is
         lossy and error feedback is on; the body then returns
-        ``(state, metrics, new_residual)``).  ``z1``/``z2`` (B, z_dim) and
-        the int ``seed`` replace the generator's draws when given.
-        Metrics stay on the device."""
+        ``(state, metrics, new_residual)``).  ``z1``/``z2`` (B, z_dim),
+        ``seed`` (an int or a (1,) int32 tensor) and ``uniforms`` (C, N)
+        replace the generator's draws when given.  Metrics stay on the
+        device."""
         assert (residual is not None) == ef, \
             "residual rows are passed iff a lossy codec runs with " \
             "error feedback"
         dev = real.device
-        B, U = real.shape[1], real.shape[0]
-        gen = state.generator
-        if z1 is None:
-            z1 = pair.sample_z(gen, B)
-        if z2 is None:
-            z2 = pair.sample_z(gen, B)
-        if lossy and fcfg.codec_stochastic and seed is None:
-            seed = int(torch.randint(0, 2**31 - 1, (), generator=gen))
-        z1, z2 = z1.to(dev), z2.to(dev)
+        noise = {k: _on(dev, v) for k, v in draw(
+            state.generator, real.shape, z1=z1, z2=z2, seed=seed,
+            uniforms=uniforms).items()}
+        z1, z2 = noise["z1"], noise["z2"]
 
         with torch.no_grad():
             fake = pair.g_apply(state.g, z1)
@@ -220,12 +302,13 @@ def make_approach1_body(pair, fcfg: DistGANConfig):
                 # before selection
                 delta = delta + residual
             masked, kept = select_delta_flat(
-                delta, fcfg.selection, frac=fcfg.upload_frac, generator=gen,
+                delta, fcfg.selection, frac=fcfg.upload_frac,
+                uniforms=noise.get("uniforms"),
                 use_kernel=fcfg.use_topk_kernel)
             if lossy:
                 masked = codec_transport(masked, fcfg.codec,
                                          stochastic=fcfg.codec_stochastic,
-                                         seed=seed,
+                                         seed=noise.get("seed"),
                                          use_kernel=fcfg.use_topk_kernel)
             if ef:
                 new_residual = delta - masked
@@ -297,14 +380,15 @@ def _one(dev):
 def make_approach2_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
     d_update = _d_update_fn(pair, d_opt_def)
+    draw = make_approach2_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
              z1=None, z2=None):
         """Every member trains its D on the shared fake batch; G trains
         against the members' AVERAGED output probabilities (alg. 2)."""
-        dev, B = real.device, real.shape[1]
-        z1 = (pair.sample_z(state.generator, B) if z1 is None else z1).to(dev)
-        z2 = (pair.sample_z(state.generator, B) if z2 is None else z2).to(dev)
+        dev = real.device
+        noise = draw(state.generator, real.shape, z1=z1, z2=z2)
+        z1, z2 = noise["z1"].to(dev), noise["z2"].to(dev)
         with torch.no_grad():
             fake = pair.g_apply(state.g, z1)
         d_losses = d_update(state.ds, state.d_opts, real, fake)
@@ -328,19 +412,19 @@ def make_approach2_body(pair, fcfg: DistGANConfig):
 def make_approach3_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
     d_update = _d_update_fn(pair, d_opt_def)
+    draw = make_approach3_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
              z1=None, z2=None):
         """alg. 3: for each member j in turn, train D_j on a fresh fake
         batch, then step G against D_j alone.  ``z1``/``z2`` (C, B, z_dim)
         replace the per-member draws."""
-        dev, C, B = real.device, real.shape[0], real.shape[1]
+        dev, C = real.device, real.shape[0]
+        noise = draw(state.generator, real.shape, z1=z1, z2=z2)
+        z1, z2 = noise["z1"].to(dev), noise["z2"].to(dev)
         g_losses, d_losses = [], []
         for j in range(C):
-            za = (pair.sample_z(state.generator, B) if z1 is None
-                  else z1[j]).to(dev)
-            zb = (pair.sample_z(state.generator, B) if z2 is None
-                  else z2[j]).to(dev)
+            za, zb = z1[j], z2[j]
             with torch.no_grad():
                 fake = pair.g_apply(state.g, za)
             d_j = _row(state.ds, j)
@@ -359,14 +443,15 @@ def make_approach3_body(pair, fcfg: DistGANConfig):
 def make_baseline_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
     d_update = _d_update_fn(pair, d_opt_def)
+    draw = make_baseline_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
              z1=None, z2=None):
         """real: (B, ...) union-data batch; one D (user row 0) and G train
         as a normal GAN (no privacy boundary, no cohort)."""
-        dev, B = real.device, real.shape[0]
-        z1 = (pair.sample_z(state.generator, B) if z1 is None else z1).to(dev)
-        z2 = (pair.sample_z(state.generator, B) if z2 is None else z2).to(dev)
+        dev = real.device
+        noise = draw(state.generator, real.shape, z1=z1, z2=z2)
+        z1, z2 = noise["z1"].to(dev), noise["z2"].to(dev)
         with torch.no_grad():
             fake = pair.g_apply(state.g, z1)
         d = _row(state.ds, 0)
@@ -379,10 +464,11 @@ def make_baseline_body(pair, fcfg: DistGANConfig):
     return body
 
 
-register_approach("approach1", make_approach1_body, sync_ds=True,
-                  uploads=True)
-register_approach("approach2", make_approach2_body)
-register_approach("approach3", make_approach3_body)
-register_approach("baseline", make_baseline_body, user_axis=False)
-register_approach("download_first", make_download_first_body, sync_ds=True,
-                  uploads=True)
+register_approach("approach1", make_approach1_body, make_approach1_noise,
+                  sync_ds=True, uploads=True)
+register_approach("approach2", make_approach2_body, make_approach2_noise)
+register_approach("approach3", make_approach3_body, make_approach3_noise)
+register_approach("baseline", make_baseline_body, make_baseline_noise,
+                  user_axis=False)
+register_approach("download_first", make_download_first_body,
+                  make_approach1_noise, sync_ds=True, uploads=True)

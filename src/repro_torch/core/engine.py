@@ -1,32 +1,67 @@
 """Chunked round engines (port of the reference's ``core/engine.py:70-101,
 143-308``).
 
-``make_engine`` returns ``chunk(state, reals) -> (state, metrics)``: it
-runs one round per leading slice of a pre-staged ``(K, U, B, ...)`` data
-stack and returns every metric stacked on a leading K axis, still on the
-device, so the driver fetches them with one host sync per chunk.
+``make_engine`` returns ``chunk(state, reals, noise=None) -> (state,
+metrics)``: it runs one round per leading slice of a pre-staged ``(K, U,
+B, ...)`` data stack and returns every metric stacked on a leading K axis,
+still on the device, so the driver fetches them with one host sync per
+chunk.
 
-The reference compiles K rounds into one XLA scan and pads a remainder
-chunk with masked rounds so every chunk shares one program.  Eager
-PyTorch has no program to share: a remainder chunk runs just its ``k``
-valid rounds, and since every round issues the same operations on the
-same data, ``run(a); run(b)`` equals ``run(a + b)`` bitwise.  The state
-updates in place across the chunk (the reference donates its carry).
+The reference compiles K rounds into one XLA scan, one dispatch per chunk.
+The port's counterpart is a CUDA graph: on a CUDA carry the engine captures
+the eager chunk once per chunk length and replays it, so a chunk of K rounds
+costs one graph launch.  On a CPU carry it runs the eager chunk.  Either way
+the rounds are the same operations on the same data, so ``run(a); run(b)``
+equals ``run(a + b)`` bitwise.  ``make_eager_engine`` and
+``make_eager_cohort_engine`` are the eager chunks themselves, which the card
+checks hold the graphs to.
+
+A graph engine (``_ChunkGraphs``):
+
+* draws a chunk's noise (the approach's registered noise function, the same
+  one the body calls inline) on the host before the replay, packs it into one
+  pinned buffer and copies it to the graph's device buffers in one H2D copy;
+  the chunk's reals, schedule and weights are copied into the graph's static
+  input buffers;
+* captures lazily, per distinct chunk length, after a one-round warm-up on a
+  side stream against a scratch copy of the carry (kernel builds, cuBLAS and
+  autograd set-up): the warm-up neither advances the carry nor draws from its
+  generator.  The reference pads a remainder chunk with masked rounds; masking
+  every leaf would copy the (U, N) store each round, so the port captures the
+  shorter chunk as a graph of its own;
+* raises if capture or replay fails: there is no eager fallback on the card;
+  the garbage collector is off while it captures (collecting an old engine
+  would destroy its graphs mid-capture);
+* keeps ``kernels.ops``'s launch counts as launches run: the warm-up's and the
+  capture's counts are taken back out, and each replay adds the launches its
+  graph holds.
+
+The carry's tensors are the graph's static carry, updated in place (the
+reference donates its carry).  A graph engine binds to a carry at its first
+call: ``make_engine`` and ``make_fused_store_engine`` to the carry they are
+given, ``make_cohort_engine`` to a copy of it.  The returned carry is that
+bound carry; the returned metrics are the graph's static outputs.  The next
+call overwrites both, so fetch the metrics before it and clone the carry to
+keep it.  A call with another carry copies it into the bound one (and leaves
+it as it was).
 
 Cohort virtualization (``make_cohort_engine``, ``make_fused_store_engine``):
 U LOGICAL users keep their D, optimizer and error-feedback rows in a
 resident ``CohortStore``; each round gathers the scheduled cohort's C rows,
 runs the width-C body and scatters the rows back, stamping ``last_round``.
-The two engines run the same rounds: the plain one works on a copy of the
-carry it is given (which stays readable), the fused-store one consumes it
-and writes the store in place.  In eager PyTorch both give the same
-values bitwise, and with C == U under the ``full`` scheduler both equal
-``make_engine`` bitwise (the gather is an exact permutation).
+The two engines run the same rounds: the plain one leaves the carry it was
+given readable (on the CPU it runs each chunk on a clone; on the card on its
+own carry, into which a carry it did not return is copied: one copy of the
+(U, N) store), the fused-store one consumes it and writes the store in
+place.  Both give the same values bitwise, and with C == U under the
+``full`` scheduler both equal ``make_engine`` bitwise (the gather is an
+exact permutation).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable
 
 import torch
@@ -37,24 +72,219 @@ from repro_torch.core.approaches import (DistGANConfig, DistGANState,
 from repro_torch.core.federated import (CohortStore, cohort_gather,
                                         cohort_scatter, make_cohort_store)
 from repro_torch.core.spec import resolve_approach
-from repro_torch.models.common import tree_map
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import tree_leaves, tree_map
 
 
-def make_engine(pair, fcfg: DistGANConfig, approach: str) -> Callable:
+def _stack_metrics(metrics: list) -> dict:
+    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+
+def _round_noise(noise, k: int) -> dict:
+    return {} if noise is None else noise[k]
+
+
+def make_eager_engine(pair, fcfg: DistGANConfig, approach: str) -> Callable:
+    """The eager chunk: ``chunk(state, reals, noise=None)``, one body call
+    per round, the state updated in place.  ``noise`` is an optional list
+    of K keyword dicts of the rounds' draws (what a dict lacks is drawn
+    inline)."""
     body = resolve_approach(approach).body_factory(pair, fcfg)
 
-    def chunk(state, reals):
+    def chunk(state, reals, noise=None):
         metrics = []
         for k in range(reals.shape[0]):
-            state, m = body(state, reals[k])
+            state, m = body(state, reals[k], **_round_noise(noise, k))
             metrics.append(m)
         return state, _stack_metrics(metrics)
 
     return chunk
 
 
-def _stack_metrics(metrics: list) -> dict:
-    return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+def make_engine(pair, fcfg: DistGANConfig, approach: str) -> Callable:
+    """``chunk(state, reals, noise=None) -> (state, metrics)``: a CUDA graph
+    per chunk length on a CUDA carry, the eager chunk on a CPU carry."""
+    eager = make_eager_engine(pair, fcfg, approach)
+    graphs = _ChunkGraphs(
+        lambda st, inp, noise: eager(st, inp["reals"], noise)[1],
+        resolve_approach(approach).noise_factory(pair, fcfg),
+        lambda st, inp: (st.clone(), {"reals": inp["reals"][:1]}))
+
+    def chunk(state, reals, noise=None):
+        if state.step.device.type != "cuda":
+            return eager(state, reals, noise)
+        return graphs(state, {"reals": reals}, noise)
+
+    chunk.graphs = graphs
+    return chunk
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs over a chunk
+# ---------------------------------------------------------------------------
+
+def carry_tensors(carry) -> list:
+    """Every tensor of a ``DistGANState`` or ``CohortState``, in field
+    order (the generator is not a tensor)."""
+    out = []
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if isinstance(v, CohortStore):
+            out += [t for t in (v.d_flat, v.opt_flat, v.last_round,
+                                v.residual) if t is not None]
+        elif isinstance(v, (dict, torch.Tensor)):
+            out += tree_leaves(v)
+    return out
+
+
+def _as_tensor(value) -> torch.Tensor:
+    """A drawn value as a tensor (an int seed as a (1,) int32 tensor)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.tensor([value], dtype=torch.int32)
+
+
+class NoiseBuffers:
+    """A chunk's round noise in one host buffer (pinned for a CUDA device)
+    and one device buffer of the same bytes, each key a ``(K, ...)`` view
+    of both (16-byte aligned), so a chunk's draws reach the device in one
+    copy.  The keys, shapes and types come from one round's draws."""
+
+    def __init__(self, example: dict, rounds: int, device):
+        self.rounds, self.device = rounds, torch.device(device)
+        self.layout, off = [], 0
+        for key, value in example.items():
+            t = _as_tensor(value)
+            nbytes = rounds * t.numel() * t.element_size()
+            self.layout.append((key, off, nbytes, t.dtype, tuple(t.shape)))
+            off += -(-nbytes // 16) * 16
+        cuda = self.device.type == "cuda"
+        self.host = torch.empty(off, dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.empty(off, dtype=torch.uint8, device=self.device)
+        self.host_views, self.dev_views = self._views(self.host), \
+            self._views(self.dev)
+        self._copied = None       # event after the last host -> device copy
+
+    def _views(self, buf) -> dict:
+        return {key: buf[off:off + n].view(dt).view((self.rounds,) + shape)
+                for key, off, n, dt, shape in self.layout}
+
+    def load(self, draws: list) -> None:
+        """Write K rounds' draws into the host buffer (once its last copy
+        has run) and copy it to the device buffer on the current stream."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for r, d in enumerate(draws):
+            for key, view in self.host_views.items():
+                view[r].copy_(_as_tensor(d[key]).reshape(view.shape[1:]))
+        self.dev.copy_(self.host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def round_views(self) -> list:
+        """K keyword dicts of device views, one per round."""
+        return [{key: v[r] for key, v in self.dev_views.items()}
+                for r in range(self.rounds)]
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured chunk length: its static inputs, noise buffers, graph,
+    static metrics and the kernel launches one replay runs."""
+
+    inputs: dict
+    noise: NoiseBuffers
+    graph: Any = None
+    metrics: dict | None = None
+    launches: dict | None = None
+
+    def load(self, inputs: dict, draws: list) -> None:
+        for name, buf in self.inputs.items():
+            buf.copy_(inputs[name], non_blocking=True)
+        self.noise.load(draws)
+
+
+class _ChunkGraphs:
+    """The CUDA graphs of one eager chunk over one bound carry, one per
+    chunk length (see the module docstring).
+
+    ``rounds_fn(carry, inputs, noise) -> metrics`` runs the K rounds of
+    ``inputs`` (name -> (K, ...) tensor) in place on ``carry``; ``draw`` is
+    the approach's noise function; ``scratch_fn(carry, inputs) ->
+    (scratch carry, one-round inputs)`` builds the warm-up's throwaway
+    copy; ``copy_carry`` binds to a copy of the first carry."""
+
+    def __init__(self, rounds_fn, draw, scratch_fn, copy_carry=False):
+        self.rounds_fn, self.draw = rounds_fn, draw
+        self.scratch_fn, self.copy_carry = scratch_fn, copy_carry
+        self.carry = None
+        self.graphs: dict[int, _Graph] = {}
+        self.stream = None
+
+    def _bind(self, carry):
+        if self.carry is None:
+            self.carry = carry.clone() if self.copy_carry else carry
+        elif carry is not self.carry:
+            for dst, src in zip(carry_tensors(self.carry),
+                                carry_tensors(carry)):
+                dst.copy_(src)
+            self.carry.generator.set_state(carry.generator.get_state())
+        return self.carry
+
+    def __call__(self, carry, inputs: dict, noise=None):
+        carry = self._bind(carry)
+        inputs = {k: v for k, v in inputs.items() if v is not None}
+        k = inputs["reals"].shape[0]
+        shape = tuple(inputs["reals"].shape[1:])
+        draws = [self.draw(carry.generator, shape, **_round_noise(noise, r))
+                 for r in range(k)]
+        g = self.graphs.get(k)
+        if g is None:
+            g = self.graphs[k] = self._capture(carry, inputs, draws)
+        else:
+            g.load(inputs, draws)
+        g.graph.replay()
+        kops.add_launch_counts(g.launches)
+        return carry, g.metrics
+
+    def _capture(self, carry, inputs: dict, draws: list) -> _Graph:
+        dev = carry.step.device
+        g = _Graph({name: torch.empty_like(t, device=dev)
+                    for name, t in inputs.items()},
+                   NoiseBuffers(draws[0], len(draws), dev))
+        g.load(inputs, draws)
+        noise = g.noise.round_views()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        before = kops.launch_counts()
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            # built on the side stream, so its memory is freed there
+            scratch, warm = self.scratch_fn(carry, g.inputs)
+            self.rounds_fn(scratch, warm, noise[:1])
+            del scratch, warm
+        warm_counts = kops.launch_counts()
+        g.graph = torch.cuda.CUDAGraph()
+        # No garbage collection while capturing: collecting an unreachable
+        # object that owns a CUDA graph (an old session's engine, which its
+        # driver references back) destroys the graph, which a capture does
+        # not permit.  thread_local: another thread's CUDA calls (a
+        # profiler's buffer thread) do not invalidate this capture either.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(g.graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                g.metrics = self.rounds_fn(carry, g.inputs, noise)
+        finally:
+            if collecting:
+                gc.enable()
+        after = kops.launch_counts()
+        g.launches = {key: after[key] - warm_counts[key] for key in after}
+        kops.add_launch_counts({key: before[key] - after[key]
+                                for key in after})
+        return g
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +380,11 @@ def _cohort_round_fn(pair, fcfg: DistGANConfig, approach: str) -> Callable:
     return round_fn
 
 
-def _cohort_chunk(pair, fcfg, approach, adaptive, copy_carry):
+def make_eager_cohort_engine(pair, fcfg: DistGANConfig, approach: str,
+                             adaptive: bool = False,
+                             copy_carry: bool = True) -> Callable:
+    """The eager cohort chunk (``copy_carry``: on a clone of the carry it
+    is given, which it returns; else in place)."""
     round_fn = _cohort_round_fn(pair, fcfg, approach)
 
     def chunk(cstate: CohortState, reals, idx, wts=None, noise=None):
@@ -166,19 +400,61 @@ def _cohort_chunk(pair, fcfg, approach, adaptive, copy_carry):
             cstate = cstate.clone()
         metrics = [round_fn(cstate, reals[k], idx[k],
                             None if wts is None else wts[k],
-                            None if noise is None else noise[k])
+                            _round_noise(noise, k))
                    for k in range(reals.shape[0])]
         return cstate, _stack_metrics(metrics)
 
     return chunk
 
 
+def _cohort_scratch(carry: CohortState, inputs: dict):
+    """The warm-up's carry: the shared leaves cloned and a store of just
+    the first round's C rows, with that round's inputs re-indexed to it."""
+    idx = inputs["idx"][0]
+    s = carry.store
+    rows = CohortStore(*(None if t is None else t.index_select(0, idx)
+                         for t in (s.d_flat, s.opt_flat, s.last_round,
+                                   s.residual)))
+    copy = lambda t: t.clone()
+    scratch = CohortState(tree_map(copy, carry.g), tree_map(copy, carry.g_opt),
+                          rows, tree_map(copy, carry.server_d),
+                          carry.step.clone(), torch.Generator())
+    warm = {name: t[:1] for name, t in inputs.items()}
+    warm["idx"] = torch.arange(idx.shape[0], device=idx.device)[None]
+    return scratch, warm
+
+
+def _cohort_engine(pair, fcfg, approach, adaptive, copy_carry) -> Callable:
+    eager = make_eager_cohort_engine(pair, fcfg, approach, adaptive,
+                                     copy_carry)
+    in_place = make_eager_cohort_engine(pair, fcfg, approach, adaptive,
+                                        copy_carry=False)
+    graphs = _ChunkGraphs(
+        lambda st, inp, noise: in_place(st, inp["reals"], inp["idx"],
+                                        inp.get("wts"), noise)[1],
+        resolve_approach(approach).noise_factory(pair, fcfg),
+        _cohort_scratch, copy_carry=copy_carry)
+
+    def chunk(cstate: CohortState, reals, idx, wts=None, noise=None):
+        if cstate.step.device.type != "cuda":
+            return eager(cstate, reals, idx, wts, noise)
+        assert (wts is not None) == adaptive, \
+            "wts must be supplied iff the engine was built adaptive=True"
+        return graphs(cstate, {"reals": reals, "idx": idx, "wts": wts},
+                      noise)
+
+    chunk.graphs = graphs
+    return chunk
+
+
 def make_cohort_engine(pair, fcfg: DistGANConfig, approach: str,
                        adaptive: bool = False) -> Callable:
-    """Cohort engine that leaves the carry it was given readable: it runs
-    the chunk on a copy (one copy of the (U, N) store per chunk) and
-    returns the copy."""
-    return _cohort_chunk(pair, fcfg, approach, adaptive, copy_carry=True)
+    """Cohort engine that leaves the carry it was given readable: on the
+    CPU it runs each chunk on a copy (one copy of the (U, N) store per
+    chunk) and returns the copy; on the card it returns its own carry,
+    which its next call overwrites, and copies into it any carry it did
+    not return."""
+    return _cohort_engine(pair, fcfg, approach, adaptive, copy_carry=True)
 
 
 def make_fused_store_engine(pair, fcfg: DistGANConfig, approach: str,
@@ -187,4 +463,4 @@ def make_fused_store_engine(pair, fcfg: DistGANConfig, approach: str,
     ``make_cohort_engine`` with the carry CONSUMED, so the cohort rows are
     scattered into the (U, N) store in place and no per-chunk copy is
     made.  The caller rebinds to the returned carry."""
-    return _cohort_chunk(pair, fcfg, approach, adaptive, copy_carry=False)
+    return _cohort_engine(pair, fcfg, approach, adaptive, copy_carry=False)

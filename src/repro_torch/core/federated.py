@@ -183,7 +183,10 @@ def cohort_scatter(store: CohortStore, idx: torch.Tensor, ds, d_opts,
         "residual rows must be scattered iff the store carries them"
     store.d_flat.index_copy_(0, idx, d_layout.flatten_stacked(ds))
     store.opt_flat.index_copy_(0, idx, opt_layout.flatten_stacked(d_opts))
-    store.last_round.index_fill_(0, idx, round_idx.to(torch.int32))
+    # index_copy_ of the broadcast stamp, not index_fill_ with a tensor
+    # value, which reads the value on the host (no CUDA graph could hold it)
+    store.last_round.index_copy_(
+        0, idx, round_idx.to(torch.int32).expand(idx.shape[0]))
     if residual is not None:
         store.residual.index_copy_(0, idx, residual)
     return store
@@ -291,17 +294,27 @@ def threshold_mask(rows: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.abs(rows) > tau
 
 
+def random_uniforms(shape, generator: torch.Generator) -> torch.Tensor:
+    """The ``random`` selection's uniforms, drawn on the host ``generator``
+    (jax's per-user keys cannot be reproduced)."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32)
+
+
 def random_mask(rows: torch.Tensor, frac: float,
-                generator: torch.Generator) -> torch.Tensor:
-    """Uniform draws from the host ``generator``, moved to the rows'
-    device (jax's per-user keys cannot be reproduced)."""
-    u = torch.rand(rows.shape, generator=generator, dtype=torch.float32)
-    return u.to(rows.device) < frac
+                generator: torch.Generator | None = None,
+                uniforms: torch.Tensor | None = None) -> torch.Tensor:
+    """``uniforms < frac``: the given ``uniforms`` (rows' shape), else a
+    draw from ``generator``, moved to the rows' device."""
+    if uniforms is None:
+        uniforms = random_uniforms(rows.shape, generator)
+    return uniforms.to(rows.device) < frac
 
 
 def select_delta_flat(rows: torch.Tensor, policy: Selection, *, frac=0.1,
-                      tau=0.0, generator=None, use_kernel: bool = False):
-    """Apply a selection policy to stacked ``(C, N)`` delta rows.
+                      tau=0.0, generator=None, uniforms=None,
+                      use_kernel: bool = False):
+    """Apply a selection policy to stacked ``(C, N)`` delta rows
+    (``random`` takes its ``uniforms`` or draws them from ``generator``).
 
     Returns ``(masked (C, N), kept_fraction (C,))``.  ``use_kernel``
     routes top-k through ``kernels.ops.topk_mask`` — the Hopper kernel on
@@ -316,8 +329,8 @@ def select_delta_flat(rows: torch.Tensor, policy: Selection, *, frac=0.1,
     elif policy == "threshold":
         mask = threshold_mask(rows, tau)
     elif policy == "random":
-        assert generator is not None
-        mask = random_mask(rows, frac, generator)
+        assert generator is not None or uniforms is not None
+        mask = random_mask(rows, frac, generator, uniforms)
     else:
         raise ValueError(policy)
     kept = mask.to(torch.float32).mean(dim=1)
@@ -335,8 +348,8 @@ def codec_transport(rows: torch.Tensor, codec: str, *,
     lossy wire round-trip: identity for ``none``, a double cast for
     ``bf16``, per-row absmax int8 for the int8 codecs — through
     ``kernels.ops`` when ``use_kernel`` (the flag that also routes
-    top-k), else the plain version.  ``seed`` (int) drives stochastic
-    rounding."""
+    top-k), else the plain version.  ``seed`` (an int or a one-element
+    int32 tensor on the rows' device) drives stochastic rounding."""
     if codec == "none":
         return rows
     if codec == "bf16":

@@ -12,7 +12,9 @@ trajectory (``run(5); run(6)`` equals ``run(11)`` bitwise).
 The port has the ``device`` backend in its ``fused`` and ``per_step``
 modes under full participation and, for a cohort-virtualized spec, its
 ``cohort`` mode: U logical users' rows live in a resident store on the
-device and each round a scheduled cohort of C users trains.
+device and each round a scheduled cohort of C users trains.  On a CUDA
+device every mode replays CUDA graphs (``core/engine.py``): ``fused`` and
+``cohort`` one per chunk, ``per_step`` one per round.
 ``save``/``restore`` and the host and streaming drivers come in later
 slices (ROADMAP queue A items 7 and 8).
 """
@@ -45,6 +47,13 @@ _STAGE_CAP_BYTES = 256 * 1024 * 1024
 
 @dataclasses.dataclass
 class RunResult:
+    """One window's results.  ``state`` is the live training state, not a
+    snapshot: under full participation it IS the engine's carry, and in a
+    cohort run its G, optimizer, server D and step are (its ``ds`` and
+    ``d_opts`` are fresh).  The session's next ``run`` updates those in
+    place (on the card, by replaying the graphs captured over them), so
+    clone what must outlive it."""
+
     g_losses: np.ndarray           # (steps,)
     d_losses: np.ndarray           # (steps, U)
     wall_time_s: float
@@ -87,17 +96,94 @@ def _drive_chunks(run_chunk, carry, steps: int, rpj: int, device):
     return carry, chunks, compile_s, steady, window_rates
 
 
-def _stager(batch_round, rounds: int, round_nbytes: int, device):
-    """``reals(start, k)``: rounds ``[start, start + k)`` of a window as one
-    (k, ...) device tensor.  The whole window is staged in one copy when it
-    fits under ``_STAGE_CAP_BYTES``, else each chunk is drawn and copied
-    when it runs; ``batch_round(r)`` draws round r, called in order."""
-    if rounds * round_nbytes <= _STAGE_CAP_BYTES:
-        staged = torch.from_numpy(np.stack(
-            [batch_round(r) for r in range(rounds)])).to(device)
-        return lambda start, k: staged[start:start + k]
-    return lambda start, k: torch.from_numpy(np.stack(
-        [batch_round(start + j) for j in range(k)])).to(device)
+@dataclasses.dataclass
+class _Slot:
+    host: torch.Tensor              # pinned (rpj, ...) buffer
+    dev: torch.Tensor               # its device twin
+    copied: typing.Any = None       # event: host -> dev copy done
+    freed: typing.Any = None        # event: dev read by its chunk
+
+
+class _Stager:
+    """``get(start, k)``: rounds ``[start, start + k)`` of a window as one
+    (k, ...) device tensor; ``batch_round(r)`` draws round r and is called
+    in order.  A window under ``_STAGE_CAP_BYTES`` is staged in one copy
+    (from pinned memory on a CUDA device).  A larger one goes chunk by
+    chunk; on a CUDA device through two pinned host buffers used in turn:
+    ``after(start, k)``, called once chunk ``start`` is enqueued, draws the
+    next chunk into the other buffer and copies it on a side stream, which
+    waits for that buffer's last reader, so the copy overlaps the replay;
+    ``get`` makes the current stream wait for the copy."""
+
+    def __init__(self, batch_round, rounds: int, round_nbytes: int,
+                 rpj: int, device: torch.device):
+        self.batch_round, self.rounds, self.rpj = batch_round, rounds, rpj
+        self.device, self.cuda = device, device.type == "cuda"
+        self.window = None
+        if rounds * round_nbytes <= _STAGE_CAP_BYTES:
+            self.window = self._draw(0, rounds).to(device, non_blocking=True)
+        elif self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.slots: list[_Slot] = []
+            self.staged: dict[int, _Slot] = {}
+
+    def _draw(self, start: int, k: int, out=None,
+              rows: int | None = None) -> torch.Tensor:
+        """Rounds ``[start, start + k)`` on the host, into the first k rows
+        of ``out``, or of a new buffer of ``rows`` (default k) rounds,
+        pinned on a CUDA device."""
+        first = np.asarray(self.batch_round(start), np.float32)
+        if out is None:
+            out = torch.empty((rows or k,) + first.shape,
+                              dtype=torch.float32, pin_memory=self.cuda)
+        host = out.numpy()
+        host[0] = first
+        for j in range(1, k):
+            host[j] = self.batch_round(start + j)
+        return out
+
+    def _prefetch(self, start: int, k: int) -> None:
+        if len(self.slots) < 2:
+            slot = self._new_slot(start, k)
+        else:
+            slot = self.slots[len(self.staged) % 2]
+            slot.copied.synchronize()     # its host buffer is free again
+            self._draw(start, k, out=slot.host)
+        with torch.cuda.stream(self.stream):
+            if slot.freed is not None:
+                self.stream.wait_event(slot.freed)
+            slot.dev[:k].copy_(slot.host[:k], non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(self.stream)
+        self.staged[start] = slot
+
+    def _new_slot(self, start: int, k: int) -> _Slot:
+        host = self._draw(start, k, rows=self.rpj)
+        dev = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        dev.record_stream(self.stream)
+        self.slots.append(_Slot(host, dev))
+        return self.slots[-1]
+
+    def get(self, start: int, k: int) -> torch.Tensor:
+        if self.window is not None:
+            return self.window[start:start + k]
+        if not self.cuda:
+            return self._draw(start, k)
+        if start not in self.staged:
+            self._prefetch(start, k)
+        slot = self.staged[start]
+        torch.cuda.current_stream(self.device).wait_event(slot.copied)
+        return slot.dev[:k]
+
+    def after(self, start: int, k: int) -> None:
+        if self.window is not None or not self.cuda:
+            return
+        slot = self.staged[start]
+        slot.freed = torch.cuda.Event()
+        slot.freed.record(torch.cuda.current_stream(self.device))
+        nxt = start + k
+        if nxt < self.rounds:
+            self._prefetch(nxt, min(self.rpj, self.rounds - nxt))
 
 
 def _upload_accounting(pair, fcfg: DistGANConfig, approach, C: int,
@@ -154,10 +240,9 @@ class DeviceBackendDriver:
                                            sync_ds=sync)
             return
         self.mode = sp.engine.kind
-        if self.mode == "fused":
-            self.eng = make_engine(pair, fcfg, sp.approach)
-        else:
-            self.step_fn = sess.approach.body_factory(pair, fcfg)
+        # per_step runs the same engine one round at a time: on the card a
+        # one-round graph, fetched after every round
+        self.eng = make_engine(pair, fcfg, sp.approach)
         self.state = init_state(pair, fcfg, sp.seed, sess.device,
                                 sync_ds=sync)
 
@@ -196,13 +281,19 @@ class DeviceBackendDriver:
                                         sess.cohort_size,
                                         float(np.mean(kept)))})
 
+    def _stager(self, batch_round, rounds: int, round_nbytes: int):
+        return _Stager(batch_round, rounds, round_nbytes,
+                       self.sess.spec.engine.rounds_per_jit,
+                       self.sess.device)
+
     def _run_fused(self, rounds: int) -> RunResult:
         sess = self.sess
-        reals = _stager(lambda r: sess._batch_full(), rounds,
-                        sess._probe_nbytes_full(), sess.device)
+        reals = self._stager(lambda r: sess._batch_full(), rounds,
+                             sess._probe_nbytes_full())
 
         def run_chunk(start: int, k: int, state):
-            state, m = self.eng(state, reals(start, k))
+            state, m = self.eng(state, reals.get(start, k))
+            reals.after(start, k)
             return state, _fetch(m)        # one host sync per chunk
 
         return self._run_chunks(run_chunk, rounds)[0]
@@ -228,11 +319,11 @@ class DeviceBackendDriver:
 
         def one(state):
             real = torch.from_numpy(sess._batch_full()).to(sess.device)
-            state, m = self.step_fn(state, real)
+            state, m = self.eng(state, real[None])
             m = _fetch(m)
-            g_list.append(float(m["g_loss"]))
-            d_list.append(m["d_loss"])
-            kept.append(float(m["kept_frac"]))
+            g_list.append(float(m["g_loss"][0]))
+            d_list.append(m["d_loss"][0])
+            kept.append(float(m["kept_frac"][0]))
             return state
 
         t0 = time.perf_counter()
@@ -262,8 +353,8 @@ class DeviceBackendDriver:
         U, C = sess.fcfg.num_users, sess.cohort_size
         schedule = sess._next_schedule(rounds)
         wts = sess._next_weights(schedule)
-        reals = _stager(lambda r: sess._batch_cohort(schedule[r]), rounds,
-                        sess._probe_nbytes_cohort(schedule), sess.device)
+        reals = self._stager(lambda r: sess._batch_cohort(schedule[r]),
+                             rounds, sess._probe_nbytes_cohort(schedule))
         sched_dev = torch.from_numpy(schedule.astype(np.int64)).to(
             sess.device)
         wts_dev = None if wts is None else torch.from_numpy(wts).to(
@@ -271,8 +362,9 @@ class DeviceBackendDriver:
 
         def run_chunk(start: int, k: int, cstate):
             w = None if wts_dev is None else wts_dev[start:start + k]
-            cstate, m = self.eng(cstate, reals(start, k),
+            cstate, m = self.eng(cstate, reals.get(start, k),
                                  sched_dev[start:start + k], wts=w)
+            reals.after(start, k)
             return cstate, _fetch(m)       # one host sync per chunk
 
         res, cat = self._run_chunks(run_chunk, rounds)

@@ -115,23 +115,29 @@ BACKEND_REGISTRY = Registry("backend")
 @dataclasses.dataclass(frozen=True)
 class ApproachDef:
     """A registered training approach.  ``body_factory(pair, fcfg)`` builds
-    the round function; ``sync_ds`` — local Ds start at the server
+    the round function; ``noise_factory(pair, fcfg)`` builds
+    ``draw(generator, real_shape, **given) -> dict``, the round's host
+    draws in the order the body consumes them (the body calls it for what
+    it was not given); ``sync_ds`` — local Ds start at the server
     weights; ``user_axis`` — the approach has a per-user axis;
     ``uploads`` — parameter deltas cross the privacy boundary."""
 
     name: str
     body_factory: Callable
+    noise_factory: Callable
     sync_ds: bool = False
     user_axis: bool = True
     uploads: bool = False
 
 
-def register_approach(name: str, body_factory: Callable, *,
-                      sync_ds: bool = False, user_axis: bool = True,
+def register_approach(name: str, body_factory: Callable,
+                      noise_factory: Callable, *, sync_ds: bool = False,
+                      user_axis: bool = True,
                       uploads: bool = False) -> ApproachDef:
     return APPROACH_REGISTRY.register(
-        name, ApproachDef(name, body_factory, sync_ds=sync_ds,
-                          user_axis=user_axis, uploads=uploads))
+        name, ApproachDef(name, body_factory, noise_factory,
+                          sync_ds=sync_ds, user_axis=user_axis,
+                          uploads=uploads))
 
 
 def register_scheduler(name: str, fn: Callable) -> Callable:

@@ -106,6 +106,26 @@ def ssd_route_counts() -> dict[str, int]:
     return dict(_ssd.route_launches)
 
 
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keys of ``launch_counts()``; negative to take counts
+    back out) to the counts.  A CUDA graph's kernels bump their wrappers'
+    counts once, at capture: the graph engines take those out and add the
+    launches a graph holds at each replay (``core/engine.py``).  No graph
+    holds flash attention or the SSD scan, whose route splits it would
+    leave behind."""
+    for key, n in delta.items():
+        if not n:
+            continue
+        if key == "topk_mask_rows":
+            _topk.launches += n
+        elif key == "topk_mask_block":
+            _topk.block_launches += n
+        elif key in _quantize.launches:
+            _quantize.launches[key] += n
+        else:
+            raise ValueError(f"no graph adds launches of {key!r}")
+
+
 def reset_launch_counts() -> None:
     _topk.launches = 0
     _topk.block_launches = 0

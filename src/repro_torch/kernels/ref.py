@@ -29,13 +29,18 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_u01(row: torch.Tensor, col: torch.Tensor, seed: int) -> torch.Tensor:
+def hash_u01(row: torch.Tensor, col: torch.Tensor, seed) -> torch.Tensor:
     """The reference's counter hash ``_hash_u01`` (``quantize.py:37-49``):
-    uint32 xorshift-multiply mix of (row, column, seed) -> f32 in [0, 1)."""
-    s = int(seed) & _M32
+    uint32 xorshift-multiply mix of (row, column, seed) -> f32 in [0, 1).
+    ``seed`` is an int or a one-element integer tensor (read on the
+    device, as the kernel reads a seed tensor)."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.reshape(()).to(device=col.device, dtype=torch.int64) & _M32
+        seed_term = _mul32(s, 0xC2B2AE3D)
+    else:
+        seed_term = ((int(seed) & _M32) * 0xC2B2AE3D) & _M32
     h = (_mul32(col.to(torch.int64), 0x9E3779B1)
-         + _mul32(row.to(torch.int64), 0x85EBCA77)
-         + ((s * 0xC2B2AE3D) & _M32)) & _M32
+         + _mul32(row.to(torch.int64), 0x85EBCA77) + seed_term) & _M32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
@@ -49,7 +54,7 @@ def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
     """(R, N) f32 -> (q int8 (R, N), scale f32 (R,)):
     ``scale = max|x[r]| / 127``, ``inv = where(scale > 0, 1/scale, 0)``,
     ``q = clip(round(x * inv), -127, 127)`` (or stochastic rounding keyed
-    by the counter hash)."""
+    by the counter hash on ``seed``, an int or a one-element tensor)."""
     x = x.to(torch.float32)
     absmax = torch.amax(torch.abs(x), dim=1)
     scale = absmax / torch.full_like(absmax, 127.0)

@@ -1,17 +1,28 @@
-"""Where a main-path round's time goes on the GPU.
+"""Where a main-path round's time goes on the GPU, through the CUDA-graph
+engine and through the eager chunk.
 
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 16]
         [--codec topk_int8] [--stochastic] [--trace chiprun_out/round.json]
 
 Runs approach-1 federation at the paper's full MLP width (784/256/256,
 z 64; 8 users of Dirichlet-split 28x28 digit-like data; batch 64; fused
-engine), warms up one chunk, times one chunk of ``--rounds`` rounds unprofiled,
-then profiles one more with ``torch.profiler`` (CPU + CUDA activities)
-and prints one JSON line: wall ms per round with and without the
-profiler, device-busy ms per round (the union of kernel and memcpy
-intervals on the device), the idle share against the unprofiled wall, device operations per
-round, the time in this package's own kernels, the top device kernels by
-time and the top host operations by self CPU time.  Needs a CUDA device.
+engine) twice in one process from one seed: first as the session runs it
+(a CUDA graph per chunk), then with its engine swapped for the eager chunk
+(``core.engine.make_eager_engine``).  Each warms up one chunk of
+``--rounds`` rounds, times a window of four chunks unprofiled, then
+profiles one more chunk with ``torch.profiler`` (CPU + CUDA activities).
+Prints one JSON line with, for each: wall ms per round of the timed window
+(its data sampling and staging included) and of the profiled chunk, the
+window's steady ms per round (``RunResult.step_time_s``: its last three
+chunks, staging excluded), device-busy ms per round (the union of kernel
+and memcpy intervals on the device), the idle share against the window's
+wall and against the steady round, device operations per round, the time
+in this package's own kernels, the top device kernels by time and the top
+host operations by self CPU time.  For the graph it also takes
+one chunk apart (``breakdown``, per round, best of 5): the host's noise
+draws, loading them and the reals into the graph's buffers, the
+``replay()`` call, and the replay's device time between CUDA events.
+``--trace`` writes the graph run's Chrome trace.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.approaches import DistGANConfig
+from repro_torch.core.engine import make_eager_engine
 from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
 from repro_torch.core.session import FederationSession
 from repro_torch.core.spec import (CombineSpec, CompressionSpec, EngineSpec,
@@ -62,6 +74,97 @@ def _busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def _profile(sess, rounds: int, trace: str | None) -> dict:
+    """A warm-up chunk, a timed window of four chunks, one profiled chunk
+    of ``sess``."""
+    sess.run(rounds)                                      # warm-up chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.run(4 * rounds)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / 4
+    steady_ms = res.step_time_s * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.run(rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace)
+
+    kernels, intervals = {}, []
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA":
+            continue
+        start = ev.time_range.start
+        end = ev.time_range.end
+        intervals.append((start, end))
+        launches += 1
+        kernels.setdefault(ev.name, [0, 0.0])
+        kernels[ev.name][0] += 1
+        kernels[ev.name][1] += (end - start) / 1e3
+    r = rounds
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    busy = _busy_ms(intervals)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    own_ms = sum(v[1] for k, v in kernels.items()
+                 if any(k.startswith(o) or f" {o}" in k or f"::{o}" in k
+                        for o in _OWN))
+    return {
+        "wall_ms_per_round_unprofiled": plain_wall * 1e3 / r,
+        "wall_ms_per_round_profiled": wall * 1e3 / r,
+        "device_busy_ms_per_round": busy / r,
+        "device_idle_share_unprofiled": 1.0 - busy / (plain_wall * 1e3),
+        "steady_ms_per_round": steady_ms,
+        "device_idle_share_steady": 1.0 - busy / r / steady_ms,
+        "device_ops_per_round": launches / r,
+        "own_kernels_ms_per_round": own_ms / r,
+        "top_device_ops": [{"name": k[:80], "calls_per_round": v[0] / r,
+                            "ms_per_round": v[1] / r} for k, v in top],
+        "top_host_ops": [{"name": a.key[:60], "calls_per_round": a.count / r,
+                          "self_cpu_ms_per_round":
+                              a.self_cpu_time_total / 1e3 / r}
+                         for a in host[:12]]}
+
+
+def _replay_breakdown(sess, rounds: int, reps: int = 5) -> dict:
+    """One chunk of the session's graph engine taken apart, best of
+    ``reps``: the host's noise draws for the chunk, loading them and the
+    reals into the graph's buffers, the ``replay()`` call itself, and the
+    replay's device time between CUDA events (on the state as it stands)."""
+    graphs = sess._driver.eng.graphs
+    g, carry = graphs.graphs[rounds], graphs.carry
+    shape = tuple(g.inputs["reals"].shape[1:])
+    best = dict.fromkeys(("draw_ms", "load_ms", "replay_call_ms",
+                          "replay_device_ms"), float("inf"))
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = [graphs.draw(carry.generator, shape) for _ in range(rounds)]
+        t1 = time.perf_counter()
+        g.load(g.inputs, draws)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        t3 = time.perf_counter()
+        g.graph.replay()
+        t4 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        for key, value in (("draw_ms", t1 - t0), ("load_ms", t2 - t1),
+                           ("replay_call_ms", t4 - t3)):
+            best[key] = min(best[key], value * 1e3)
+        best["replay_device_ms"] = min(best["replay_device_ms"],
+                                       start.elapsed_time(end))
+    out = {f"{k}_per_round": v / rounds for k, v in best.items()}
+    out["graph_lengths"] = sorted(graphs.graphs)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=16)
@@ -81,58 +184,21 @@ def main() -> None:
         combine=CombineSpec(compression=CompressionSpec(
             codec=args.codec, error_feedback=False,
             stochastic=args.stochastic)))
-    sess = FederationSession(pair, DistGANConfig(num_users=args.users,
-                                                 upload_frac=0.1),
-                             _dataset(args.users), spec)
-    sess.run(args.rounds)                                 # warm-up chunk
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sess.run(args.rounds)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.run(args.rounds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-
-    kernels, intervals = {}, []
-    launches = 0
-    for ev in prof.events():
-        if ev.device_type.name != "CUDA":
-            continue
-        start = ev.time_range.start
-        end = ev.time_range.end
-        intervals.append((start, end))
-        launches += 1
-        kernels.setdefault(ev.name, [0, 0.0])
-        kernels[ev.name][0] += 1
-        kernels[ev.name][1] += (end - start) / 1e3
-    r = args.rounds
-    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
-    busy = _busy_ms(intervals)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
-    own_ms = sum(v[1] for k, v in kernels.items()
-                 if any(k.startswith(o) or f" {o}" in k or f"::{o}" in k
-                        for o in _OWN))
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "rounds": r,
-        "codec": args.codec, "stochastic": args.stochastic,
-        "wall_ms_per_round_unprofiled": plain_wall * 1e3 / r,
-        "wall_ms_per_round_profiled": wall * 1e3 / r,
-        "device_busy_ms_per_round": busy / r,
-        "device_idle_share_unprofiled": 1.0 - busy / (plain_wall * 1e3),
-        "device_ops_per_round": launches / r,
-        "own_kernels_ms_per_round": own_ms / r,
-        "top_device_ops": [{"name": k[:80], "calls_per_round": v[0] / r,
-                            "ms_per_round": v[1] / r} for k, v in top],
-        "top_host_ops": [{"name": a.key[:60], "calls_per_round": a.count / r,
-                          "self_cpu_ms_per_round":
-                              a.self_cpu_time_total / 1e3 / r}
-                         for a in host[:12]]}))
+    fcfg = DistGANConfig(num_users=args.users, upload_frac=0.1)
+    dataset = _dataset(args.users)
+    out = {"device": torch.cuda.get_device_name(0), "rounds": args.rounds,
+           "codec": args.codec, "stochastic": args.stochastic}
+    for name in ("graph", "eager"):
+        sess = FederationSession(pair, fcfg, dataset, spec)
+        if name == "eager":
+            sess._driver.eng = make_eager_engine(pair, sess.fcfg,
+                                                 "approach1")
+        out[name] = _profile(sess, args.rounds,
+                             args.trace if name == "graph" else None)
+        if name == "graph":
+            out[name]["breakdown"] = _replay_breakdown(sess, args.rounds)
+        del sess
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -200,3 +200,230 @@ def test_cohort_session_launches_the_kernels_every_round(cuda):
     assert np.all(np.isfinite(res.g_losses)) and res.d_losses.shape == (8, 3)
     assert res.extra["participation_counts"].sum() == 8 * 3
     assert res.state.ds["l1"]["w"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The round engines as CUDA graphs
+# ---------------------------------------------------------------------------
+
+_SMALL = dict(data_dim=64, z_dim=16, g_hidden=32, d_hidden=32)
+
+_GRAPH_CASES = {
+    "approach1-none": ("approach1", dict(codec="none")),
+    "approach1-topk_int8": ("approach1", dict(codec="topk_int8")),
+    "approach1-topk_int8-sr": ("approach1", dict(codec="topk_int8",
+                                                 codec_stochastic=True)),
+    "approach1-random-int8-sr": ("approach1", dict(
+        selection="random", codec="int8", codec_stochastic=True)),
+    "approach2": ("approach2", {}),
+    "approach3": ("approach3", {}),
+    "baseline": ("baseline", {}),
+    "download_first-sr": ("download_first", dict(codec="topk_int8",
+                                                 codec_stochastic=True)),
+}
+
+
+def _equal_carries(a, b):
+    from repro_torch.core.engine import carry_tensors
+    ta, tb = carry_tensors(a), carry_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb)) \
+        and torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+@pytest.mark.parametrize("case", list(_GRAPH_CASES))
+def test_graph_engine_equals_eager_chunk_bitwise(cuda, case):
+    """``make_engine`` replays a captured chunk on a CUDA carry: two chunks
+    of 4 rounds (capture, then a replay) and one of 3 (a graph of its own)
+    give the eager chunk's state and metrics bitwise, drawing the same
+    noise from the state's generator."""
+    from repro_torch.core import approaches as tapp
+    from repro_torch.core import engine as teng
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.spec import resolve_approach
+    approach, kw = _GRAPH_CASES[case]
+    pair = make_mlp_pair(MLPGanConfig(**_SMALL))
+    fcfg = tapp.DistGANConfig(num_users=3, error_feedback=False, **kw)
+    sync = resolve_approach(approach).sync_ds
+    shape = (8, 64) if approach == "baseline" else (3, 8, 64)
+    reals = _rows((11,) + shape, 5).to(cuda)
+    eager = teng.make_eager_engine(pair, fcfg, approach)
+    graph = teng.make_engine(pair, fcfg, approach)
+    a = tapp.init_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    b = tapp.init_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    for start, k in ((0, 4), (4, 4), (8, 3)):
+        a, ma = eager(a, reals[start:start + k])
+        b, mb = graph(b, reals[start:start + k])
+        torch.cuda.synchronize()
+        assert all(torch.equal(ma[key], mb[key]) for key in ma)
+    assert _equal_carries(a, b)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("approach,ef", [("approach1", True),
+                                         ("approach1", False),
+                                         ("download_first", True),
+                                         ("approach2", False),
+                                         ("approach3", False)])
+def test_cohort_graph_engines_equal_eager_chunk_bitwise(cuda, approach, ef,
+                                                        fuse):
+    """Both cohort engines replay their chunk on a CUDA carry bitwise equal
+    to the eager chunk (stochastic int8 with error feedback and adaptive
+    weights where the approach uploads), and the plain engine leaves the
+    carry it was given as it was."""
+    from repro_torch.core import approaches as tapp
+    from repro_torch.core import engine as teng
+    from repro_torch.core import federated as tfed
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.spec import resolve_approach
+    pair = make_mlp_pair(MLPGanConfig(**_SMALL))
+    uploads = resolve_approach(approach).uploads
+    fcfg = tapp.DistGANConfig(
+        num_users=8, combiner="staleness_max_abs",
+        codec="topk_int8" if uploads else "none", error_feedback=ef,
+        codec_stochastic=uploads)
+    sync = resolve_approach(approach).sync_ds
+    sched = tfed.make_schedule("uniform", 8, 3, 9,
+                               np.random.default_rng(1))
+    wts = torch.from_numpy(tfed.participation_weights(sched, 8)).to(cuda) \
+        if uploads else None
+    idx = torch.from_numpy(sched.astype(np.int64)).to(cuda)
+    reals = _rows((9, 3, 8, 64), 6).to(cuda)
+    mk = teng.make_fused_store_engine if fuse else teng.make_cohort_engine
+    graph = mk(pair, fcfg, approach, adaptive=uploads)
+    eager = teng.make_eager_cohort_engine(pair, fcfg, approach, uploads,
+                                          copy_carry=not fuse)
+    a = teng.init_cohort_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    b = teng.init_cohort_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    given = b
+    for start, k in ((0, 4), (4, 4), (8, 1)):
+        sl = slice(start, start + k)
+        a, ma = eager(a, reals[sl], idx[sl], None if wts is None else wts[sl])
+        b, mb = graph(b, reals[sl], idx[sl], None if wts is None else wts[sl])
+        torch.cuda.synchronize()
+        assert all(torch.equal(ma[key], mb[key]) for key in ma)
+    assert _equal_carries(a, b)
+    assert (b is given) == fuse
+    if not fuse:
+        assert _equal_carries(given, teng.init_cohort_state(
+            pair, fcfg, 0, cuda, sync_ds=sync))
+
+
+def _graph_session(cuda, engine="fused", codec="topk_int8", stochastic=True,
+                   rpj=4):
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.session import FederationSession
+    from repro_torch.core.spec import (CombineSpec, CompressionSpec,
+                                       EngineSpec, FederationSpec)
+    from repro_torch.data import digits_like_mixture, dirichlet_partition
+    rng = np.random.default_rng(0)
+    _, sample = digits_like_mixture(list(range(10)), size=8)
+    data = sample(rng, 400).reshape(400, -1)
+    dataset = dirichlet_partition(data, rng.integers(0, 10, 400), 3, 0.5)
+    spec = FederationSpec(
+        "approach1", batch_size=8, eval_samples=16,
+        engine=EngineSpec(kind=engine, rounds_per_jit=rpj),
+        combine=CombineSpec(compression=CompressionSpec(
+            codec=codec, error_feedback=False, stochastic=stochastic)))
+    return FederationSession(make_mlp_pair(MLPGanConfig(**_SMALL)),
+                             DistGANConfig(num_users=3), dataset, spec,
+                             device=cuda)
+
+
+@pytest.mark.parametrize("codec,stochastic", [("none", False),
+                                              ("topk_int8", True)])
+def test_graph_windows_and_per_step_equal_one_window(cuda, codec,
+                                                     stochastic):
+    """On the card, ``run(5); run(6)`` equals ``run(11)`` bitwise through
+    graphs of chunk lengths 4, 1, 2 and 3, and the ``per_step`` loop (a
+    one-round graph, fetched every round) equals the fused engine."""
+    from repro_torch.convert import state_to_numpy
+    whole = _graph_session(cuda, codec=codec, stochastic=stochastic).run(11)
+    sess = _graph_session(cuda, codec=codec, stochastic=stochastic)
+    first = sess.run(5)
+    first_g = first.g_losses.copy()
+    second = sess.run(6)
+    per_step = _graph_session(cuda, "per_step", codec, stochastic).run(11)
+    for other in (second, per_step):
+        want, got = state_to_numpy(whole.state), state_to_numpy(other.state)
+        for key in want:
+            for x, y in zip(_leaves(want[key]), _leaves(got[key])):
+                np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(
+        np.concatenate([first_g, second.g_losses]), whole.g_losses)
+    np.testing.assert_array_equal(per_step.g_losses, whole.g_losses)
+    np.testing.assert_array_equal(second.samples, whole.samples)
+    assert _graph_lengths(sess) == [1, 2, 4]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _graph_lengths(sess):
+    """The chunk lengths a session's engine has captured."""
+    return sorted(sess._driver.eng.graphs.graphs)
+
+
+def test_launch_counts_count_graph_replays(cuda):
+    """A captured kernel counts once per replay: a lossy session of 6
+    rounds in chunks of 4 and 2 counts 6 top-k, quantize and dequantize
+    launches (not the warm-up's or the capture's), and 6 more rounds
+    through the same two graphs count 6 more."""
+    sess = _graph_session(cuda)
+    ops.reset_launch_counts()
+    sess.run(6)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(topk_mask_rows=6, quantize_rows=6, dequantize_rows=6)
+    assert ops.launch_counts() == want
+    assert _graph_lengths(sess) == [2, 4]
+    sess.run(6)
+    want.update(topk_mask_rows=12, quantize_rows=12, dequantize_rows=12)
+    assert ops.launch_counts() == want
+    assert _graph_lengths(sess) == [2, 4]
+
+
+def test_chunked_staging_equals_whole_window(cuda, monkeypatch):
+    """A window over the staging cap goes chunk by chunk through two pinned
+    host buffers, each chunk's copy on a side stream while the previous
+    chunk replays: the same rounds, bitwise, as the window staged whole, for
+    the fused and the cohort engine."""
+    from repro_torch.core import session as tsess
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.session import FederationSession
+    from repro_torch.core.spec import (CombineSpec, CompressionSpec,
+                                       EngineSpec, FederationSpec,
+                                       ParticipationSpec)
+    from repro_torch.data import digits_like_mixture, dirichlet_partition
+    rng = np.random.default_rng(0)
+    _, sample = digits_like_mixture(list(range(10)), size=8)
+    data = sample(rng, 400).reshape(400, -1)
+    dataset = dirichlet_partition(data, rng.integers(0, 10, 400), 6, 0.5)
+
+    def run(cohort):
+        spec = FederationSpec(
+            "approach1", batch_size=8, eval_samples=0,
+            engine=EngineSpec(rounds_per_jit=3, fuse_store_rounds=cohort),
+            participation=ParticipationSpec(
+                "uniform" if cohort else "full",
+                cohort_size=3 if cohort else None),
+            combine=CombineSpec(compression=CompressionSpec(
+                codec="topk_int8", error_feedback=cohort, stochastic=True)))
+        sess = FederationSession(make_mlp_pair(MLPGanConfig(**_SMALL)),
+                                 DistGANConfig(num_users=6), dataset, spec,
+                                 device=cuda)
+        return [sess.run(8), sess.run(7)], sess._driver.state
+
+    for cohort in (False, True):
+        monkeypatch.setattr(tsess, "_STAGE_CAP_BYTES", 256 * 1024 * 1024)
+        whole, ws = run(cohort)
+        monkeypatch.setattr(tsess, "_STAGE_CAP_BYTES", 1)
+        chunked, cs = run(cohort)
+        assert _equal_carries(ws, cs)
+        for a, b in zip(whole, chunked):
+            np.testing.assert_array_equal(a.g_losses, b.g_losses)
+            np.testing.assert_array_equal(a.d_losses, b.d_losses)
