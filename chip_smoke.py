@@ -85,7 +85,34 @@ it goes wrong:
    the f32 route once per layer.  The reduced f32 configs from one seed on
    the card (kernels, f32 route) and on the CPU (plain versions) must agree
    at the reference's tolerances;
-9. the result: a ``kernels`` JSON line, the card line, and as the last
+9. checkpoints — the main path (approach 1, ``topk_int8`` with stochastic
+   rounding, chunks of 16): 16 rounds, ``save``, then a fresh process
+   (this script with ``--resume-main``) restores, runs 16 rounds and saves;
+   its state and losses must equal an uninterrupted 32-round run BITWISE
+   (G, the Ds, the server D, every optimizer buffer, the step and the
+   round-noise generator).  The cohort fused-store engine at U = 256, C =
+   8 (``topk_int8`` + EF + SR) the same way, restored in this process (the
+   error-feedback residual too).  One run with ``autosave_every=8`` whose
+   autosaves hold the uninterrupted trajectory.  Save and restore wall
+   seconds and the checkpoints' bytes are printed;
+10. the conv pair — (a) the DCGAN pair at the paper's CelebA/LSUN width
+   (64 x 64 x 3, z 100, 64 base filters: 2,297,728 G and 675,584 D
+   parameters), approach 1, 8 users of Dirichlet(0.5)-split digit-like
+   images at 64 x 64 (tiled to 3 channels), batch 64, ``topk_int8`` with
+   error feedback, 32 rounds through the eager chunk and through the CUDA
+   graphs: bitwise equal, one top-k, quantize and dequantize launch per
+   round; steady ms per round of both, first chunk, peak GB; the eager
+   chunk's time with deterministic cuDNN and without.  B1 and B2 held
+   BITWISE to their plain versions on 8 rows of 675,584 and timed there.
+   (b) the repo's Tables 3-4 run (32 x 32 x 1, z 64, 32 filters, 2 users
+   holding digits 0-4 / 5-9, approach 3, batch 32, 64 rounds): finite
+   losses, template coverage printed.  (c) W-GAN approach 3 on the paper
+   MLP (d_lr 5e-4, g_lr 1e-4, b1 0), 32 rounds: finite losses, every
+   critic weight within +-wgan_clip.  Then one round of (a) at U = 2 from
+   the same weights on the card and on the CPU must agree within
+   ``CONV_LOSS_RTOL`` (losses) and ``CONV_LEAF_REL`` / ``CONV_LEAF_LR_STEPS``
+   (every state leaf);
+11. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -94,6 +121,8 @@ Needs one CUDA device and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -130,6 +159,22 @@ LM_REL_L2 = {"tinyllama-1.1b": (0.2, 1e-3), "mamba2-780m": (0.8, 2e-2)}
 # ... and the bf16 kernel path must be no farther from the f32 logits than
 # the bf16 plain path is, up to this factor.
 LM_F32_RATIO = 1.05
+# The DCGAN pair at the paper's CelebA/LSUN width, and its D's row width
+CONV_FULL = dict(image_size=64, channels=3, z_dim=100, base_filters=64)
+CONV_D_N, CONV_G_N = 675584, 2297728
+CONV_ROUNDS = 32
+# One conv round at U = 2 on the card vs the CPU.  Losses: rtol 1e-4 (f32
+# sums in another order through ~3 M parameters; measured 1.2e-5).  Every
+# state leaf: |card - cpu| <= CONV_LEAF_REL * max|leaf| + CONV_LEAF_LR_STEPS
+# * lr.  Adam's first step is +-lr per element, so an element whose
+# gradient rounds to the other sign moves 2 lr; and where the top-k fold
+# takes another coordinate at its threshold (deltas an ULP apart) the
+# server D differs there by a delta (~lr), which shifts G's gradient, and
+# so its Adam moments, by a small fraction of their largest entry (the
+# printed ``max_rel_beyond_lr``; PERF.md has the measured value).
+CONV_LOSS_RTOL, CONV_LEAF_REL, CONV_LEAF_LR_STEPS = 1e-4, 2e-2, 4
+# checkpoints are written inside the checkout, in a directory git ignores
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def _fail(msg: str) -> int:
@@ -754,7 +799,7 @@ def _digits_dataset(num_users: int, size: int, per_class: int):
 def _session(pair, dataset, num_users, codec, stochastic, device,
              batch=64, rpj=16, eval_samples=256, approach="approach1",
              scheduler="full", cohort=None, fuse=False, ef=False,
-             combiner="max_abs"):
+             combiner="max_abs", fcfg=None):
     from repro_torch.core.approaches import DistGANConfig
     from repro_torch.core.session import FederationSession
     from repro_torch.core.spec import (CombineSpec, CompressionSpec,
@@ -767,9 +812,13 @@ def _session(pair, dataset, num_users, codec, stochastic, device,
         participation=ParticipationSpec(scheduler, cohort_size=cohort),
         combine=CombineSpec(combiner=combiner, compression=CompressionSpec(
             codec=codec, error_feedback=ef, stochastic=stochastic)))
-    return FederationSession(pair, DistGANConfig(num_users=num_users,
-                                                 upload_frac=FRAC),
-                             dataset, spec, device=device)
+    return FederationSession(pair, fcfg or _fcfg(num_users), dataset, spec,
+                             device=device)
+
+
+def _fcfg(num_users):
+    from repro_torch.core.approaches import DistGANConfig
+    return DistGANConfig(num_users=num_users, upload_frac=FRAC)
 
 
 def _main_path(torch, dev):
@@ -1243,6 +1292,460 @@ def _cohort_cpu_agreement(torch, dev) -> dict:
     return {"cohort_topk_int8_sr_ef": max(diffs)}
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+def _same_arrays(torch, a: list, b: list) -> bool:
+    """Two lists of checkpoint leaves equal bitwise (shapes, types,
+    values; wherever they live)."""
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+
+def _main_ckpt_session(dev, pair=None, dataset=None):
+    """The main path as the checkpoint phase runs it (and the resumed
+    process rebuilds it): approach 1, topk_int8 with stochastic rounding,
+    chunks of 16, no samples."""
+    pair = pair or _paper_pair()
+    dataset = dataset or _digits_dataset(MAIN_ROWS, 28, 400)
+    return _session(pair, dataset, MAIN_ROWS, "topk_int8", True, dev,
+                    eval_samples=0), pair, dataset
+
+
+def _resume_main(ckpt: str, out: str) -> int:
+    """``--resume-main CKPT OUT``: restore the main path from CKPT in this
+    (fresh) process on the card, run 16 rounds, save into OUT with the
+    window's losses; print the wall seconds as one JSON line."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.core.session import FederationSession
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device (torch.cuda.is_available() is False)")
+    t0 = time.perf_counter()
+    sess = FederationSession.restore(ckpt, _paper_pair(), _fcfg(MAIN_ROWS),
+                                     _digits_dataset(MAIN_ROWS, 28, 400))
+    restore_s = time.perf_counter() - t0
+    res = sess.run(16)
+    sess.save(out)
+    np.savez(Path(out) / "losses.npz", g=res.g_losses, d=res.d_losses)
+    print(json.dumps({"restore_s": restore_s, "round": sess.round}))
+    return 0
+
+
+def _checkpoint_phase(torch, dev) -> list:
+    """Save / restore / autosave against uninterrupted runs, bitwise."""
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step, read_leaves, tree_flatten
+    from repro_torch.core.session import FederationSession
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    lines = []
+    whole, pair, data = _main_ckpt_session(dev)
+    want = whole.run(32)
+    want_arrays = tree_flatten(whole._driver.arrays())
+
+    first = _main_ckpt_session(dev, pair, data)[0]
+    got1 = first.run(16)
+    t0 = time.perf_counter()
+    first.save(str(CKPT_DIR / "main"))
+    save_s = time.perf_counter() - t0
+    out = CKPT_DIR / "main_resumed"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--resume-main",
+         str(CKPT_DIR / "main"), str(out)], capture_output=True, text=True,
+        timeout=400, cwd=ROOT)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"resume process failed: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    losses = np.load(out / "losses.npz")
+    if not (np.array_equal(np.concatenate([got1.g_losses, losses["g"]]),
+                           want.g_losses)
+            and np.array_equal(np.concatenate([got1.d_losses, losses["d"]]),
+                               want.d_losses)
+            and _same_arrays(torch, read_leaves(str(out), 32), want_arrays)):
+        raise AssertionError("main path: save at 16, restore in a fresh "
+                             "process, 16 more != 32 uninterrupted")
+    lines.append({"run": "main path approach1 topk_int8 SR, save at 16, "
+                         "restore in a fresh process, 16 more",
+                  "bitwise": True, "leaves": len(want_arrays),
+                  "save_s": save_s, "restore_s": child["restore_s"],
+                  "resume_process_s": child_s,
+                  "checkpoint_bytes": _dir_bytes(CKPT_DIR / "main")})
+
+    auto = _main_ckpt_session(dev, pair, data)[0]
+    t0 = time.perf_counter()
+    res = auto.run(32, autosave_every=8, autosave_path=str(CKPT_DIR / "auto"))
+    auto_s = time.perf_counter() - t0
+    steps = sorted(int(f.name[5:13]) for f in (CKPT_DIR / "auto").iterdir()
+                   if f.suffix == ".msgpack")
+    if not (steps == [8, 16, 24, 32]
+            and latest_step(str(CKPT_DIR / "auto")) == 32
+            and np.array_equal(res.g_losses, want.g_losses)
+            and _same_arrays(torch, read_leaves(str(CKPT_DIR / "auto"), 16),
+                             read_leaves(str(CKPT_DIR / "main"), 16))
+            and _same_arrays(torch, read_leaves(str(CKPT_DIR / "auto"), 32),
+                             want_arrays)):
+        raise AssertionError("autosaves do not hold the uninterrupted "
+                             "trajectory")
+    lines.append({"run": "main path, run(32, autosave_every=8)",
+                  "autosaves": steps, "bitwise": True, "wall_s": auto_s,
+                  "plain_wall_s": want.wall_time_s})
+    del whole, first, auto
+    shutil.rmtree(CKPT_DIR / "auto")
+
+    U = COHORT_US[0]
+    cdata = _digits_dataset(U, 28, 400)
+
+    def cohort():
+        return _session(pair, cdata, U, "topk_int8", True, dev,
+                        eval_samples=0, scheduler="uniform", cohort=COHORT_C,
+                        fuse=True, ef=True, combiner="staleness_max_abs")
+
+    whole = cohort()
+    want = whole.run(32)
+    want_arrays = tree_flatten(whole._driver.arrays())
+    del whole
+    part = cohort()
+    got1 = part.run(16)
+    t0 = time.perf_counter()
+    part.save(str(CKPT_DIR / "cohort"))
+    save_s = time.perf_counter() - t0
+    del part
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored = FederationSession.restore(str(CKPT_DIR / "cohort"), pair,
+                                         _fcfg(U), cdata)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got2 = restored.run(16)
+    if not (np.array_equal(np.concatenate([got1.g_losses, got2.g_losses]),
+                           want.g_losses)
+            and np.array_equal(np.concatenate([got1.d_losses,
+                                               got2.d_losses]),
+                               want.d_losses)
+            and _same_arrays(torch, tree_flatten(restored._driver.arrays()),
+                             want_arrays)):
+        raise AssertionError("cohort fused store: save at 16, restore, 16 "
+                             "more != 32 uninterrupted")
+    lines.append({"run": f"cohort U={U} C={COHORT_C} topk_int8+EF+SR fused "
+                         f"store, save at 16, restore in process, 16 more",
+                  "bitwise": True, "leaves": len(want_arrays),
+                  "save_s": save_s, "restore_s": restore_s,
+                  "checkpoint_bytes": _dir_bytes(CKPT_DIR / "cohort")})
+    del restored, want_arrays
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# The DCGAN pair, W-GAN
+# ---------------------------------------------------------------------------
+
+def _image_dataset(num_users: int, size: int, channels: int, per_class: int):
+    """Digit-like images at ``size`` x ``size``, tiled to ``channels``, NHWC,
+    Dirichlet(0.5)-split over ``num_users``."""
+    import numpy as np
+
+    from repro_torch.data import digits_like_mixture, dirichlet_partition
+    rng = np.random.default_rng(0)
+    data, labels = [], []
+    for c in range(10):
+        _, sample = digits_like_mixture([c], size=size)
+        data.append(sample(rng, per_class))
+        labels.append(np.full(per_class, c))
+    data = np.repeat(np.concatenate(data)[..., None], channels, axis=-1)
+    return dirichlet_partition(data, np.concatenate(labels), num_users,
+                               alpha=0.5, seed=0)
+
+
+def _conv_width_kernels(torch, dev, recs) -> int:
+    """B1 and B2 on 8 rows of the paper-width conv D (675,584, beyond B1's
+    shared memory), held BITWISE to their plain versions and timed; the
+    times go into each record under ``at_conv_d_width``."""
+    from repro_torch.kernels import quantize as tq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as tt
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((MAIN_ROWS, CONV_D_N), generator=gen, device=dev) * 2e-4
+    x[1] = torch.round(x[1] * 2e4) / 2e4                 # heavy ties
+    x[5, : CONV_D_N // 2] = 0.0                          # half-sparse row
+    cases = 0
+    for frac in (FRAC, 0.01, 1.0):
+        cases += 1
+        if not torch.equal(tt.topk_mask_rows(x, frac),
+                           ref.topk_mask_global_ref(x, frac)):
+            raise AssertionError(f"topk_mask_rows != plain at 8 x {CONV_D_N}"
+                                 f" frac={frac}")
+    for stochastic, seed in ((False, None), (True, 123), (True, 2**31 - 2)):
+        cases += 1
+        q, s = tq.quantize_rows(x, stochastic=stochastic, seed=seed)
+        qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
+        if not (torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(
+                tq.dequantize_rows(q, s), ref.dequantize_rows_ref(qr, sr))):
+            raise AssertionError(f"codec != plain at 8 x {CONV_D_N}")
+    k = ref.topk_k(CONV_D_N, FRAC)
+    elems = MAIN_ROWS * CONV_D_N
+    q, s = tq.quantize_rows(x)
+
+    def lib_topk():
+        kth = torch.topk(torch.abs(x), k, dim=1).values[:, -1:]
+        return torch.abs(x) >= kth
+
+    timed = {
+        "topk_mask_rows": (lambda: tt.topk_mask_rows(x, FRAC),
+                           lambda: ref.topk_mask_global_ref(x, FRAC),
+                           lib_topk, elems * 5, elems),
+        "quantize_rows": (lambda: tq.quantize_rows(x),
+                          lambda: ref.quantize_rows_ref(x), None,
+                          elems * 5 + MAIN_ROWS * 4, elems * 3),
+        "quantize_rows_stochastic": (
+            lambda: tq.quantize_rows(x, stochastic=True, seed=123),
+            lambda: ref.quantize_rows_ref(x, stochastic=True, seed=123),
+            None, elems * 5 + MAIN_ROWS * 4, elems * 6),
+        "dequantize_rows": (lambda: tq.dequantize_rows(q, s),
+                            lambda: ref.dequantize_rows_ref(q, s), None,
+                            elems * 5 + MAIN_ROWS * 4, elems)}
+    for rec in recs:
+        if rec["name"] in timed:
+            kern, plain, lib, nbytes, ops = timed[rec["name"]]
+            r = _record(torch, rec["name"], rec["source"], rec["replaces"],
+                        kern, plain, lib, nbytes=nbytes, ops=ops, err=0.0)
+            rec["at_conv_d_width"] = {
+                "shape": [MAIN_ROWS, CONV_D_N], "k": k,
+                **{key: r[key] for key in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "share_of_bound")}}
+    del x, q, s
+    return cases
+
+
+def _conv_full_phase(torch, dev):
+    """(a): the DCGAN pair at full width, eager chunk then graphs, 32 rounds
+    each from one seed; returns (line, launch totals of the graph run)."""
+    import numpy as np
+
+    from repro_torch.core import engine as teng
+    from repro_torch.core.gan import ConvGanConfig, make_conv_pair
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_leaves
+
+    pair = make_conv_pair(ConvGanConfig(**CONV_FULL))
+    g, d = (sum(math.prod(t.shape) for t in tree_leaves(tree))
+            for tree in (pair.g_decls, pair.d_decls))
+    if (g, d) != (CONV_G_N, CONV_D_N):
+        raise AssertionError(f"conv pair parameters G {g}, D {d}")
+    data = _image_dataset(MAIN_ROWS, CONV_FULL["image_size"],
+                          CONV_FULL["channels"], 200)
+
+    def make(dv):
+        return _session(pair, data, MAIN_ROWS, "topk_int8", False, dv,
+                        eval_samples=64, scheduler="full", cohort=MAIN_ROWS,
+                        fuse=True, ef=True)
+
+    out = {}
+    for kind in ("eager", "graph"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sess = make(dev)
+        if kind == "eager":
+            _eager_twin(sess)
+        ops.reset_launch_counts()
+        res = sess.run(CONV_ROUNDS)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(topk_mask_rows=CONV_ROUNDS, quantize_rows=CONV_ROUNDS,
+                    dequantize_rows=CONV_ROUNDS)
+        if counts != want:
+            raise AssertionError(f"conv {kind}: launches {counts} != {want}")
+        out[kind] = (sess, res, counts, (torch.cuda.max_memory_allocated()
+                                         - base) / 1e9)
+    (es, er, _, epeak), (gs, gr, counts, gpeak) = out["eager"], out["graph"]
+    differ = [name for name, same in (
+        ("g_losses", np.array_equal(er.g_losses, gr.g_losses)),
+        ("d_losses", np.array_equal(er.d_losses, gr.d_losses)),
+        ("samples", np.array_equal(er.samples, gr.samples))) if not same]
+    differ += [f"carry tensor {i}" for i, (a, b) in enumerate(zip(
+        teng.carry_tensors(es._driver.state),
+        teng.carry_tensors(gs._driver.state))) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"conv pair: graph != eager chunk, bitwise: "
+                             f"{differ}")
+    if not (np.all(np.isfinite(gr.g_losses))
+            and np.all(np.isfinite(gr.d_losses))):
+        raise AssertionError("conv pair: non-finite losses")
+    size, ch = CONV_FULL["image_size"], CONV_FULL["channels"]
+    if gr.samples.shape != (64, size, size, ch) or \
+            not np.all(np.abs(gr.samples) <= 1.0):
+        raise AssertionError("conv pair: generator samples")
+    line = {"run": f"conv approach1 {size}x{size}x{ch} "
+                   f"f{CONV_FULL['base_filters']} z{CONV_FULL['z_dim']} "
+                   f"U={MAIN_ROWS} B=64 topk_int8+EF",
+            "rounds": CONV_ROUNDS, "bitwise": True, "launches": counts,
+            "eager_ms_per_round": er.step_time_s * 1e3,
+            "graph_ms_per_round": gr.step_time_s * 1e3,
+            "eager_first_chunk_s": er.extra["compile_s"],
+            "graph_first_chunk_s": gr.extra["compile_s"],
+            "eager_peak_gb": epeak, "graph_peak_gb": gpeak,
+            "g_loss_first_last": [float(gr.g_losses[0]),
+                                  float(gr.g_losses[-1])],
+            "kept_frac": gr.extra["kept_frac"]}
+    del out, es, gs, er, gr
+    torch.cuda.empty_cache()
+    line["eager_ms_per_round_cudnn"] = _cudnn_cost(torch, make, dev)
+    return line, counts
+
+
+def _cudnn_cost(torch, make, dev) -> dict:
+    """Steady ms per round of the conv pair's eager chunk with the engines'
+    deterministic cuDNN and with cuDNN's defaults (deterministic off, no
+    autotuning), in turns: what determinism costs."""
+    import contextlib
+
+    from repro_torch.core import engine as teng
+    saved = teng.deterministic_convolutions
+    times = {"deterministic": [], "default": []}
+    try:
+        for kind in ("deterministic", "default", "deterministic", "default"):
+            teng.deterministic_convolutions = (
+                saved if kind == "deterministic" else contextlib.nullcontext)
+            res = _eager_twin(make(dev)).run(CONV_ROUNDS)
+            times[kind].append(res.step_time_s * 1e3)
+            del res
+    finally:
+        teng.deterministic_convolutions = saved
+    return times
+
+
+def _conv_paper_phase(torch, dev) -> dict:
+    """(b): the repo's Tables 3-4 run, 32 x 32 x 1, 2 users (digits 0-4 /
+    5-9), approach 3, batch 32, 64 rounds: finite losses, coverage printed
+    (not asserted)."""
+    import numpy as np
+
+    from repro_torch.core.gan import ConvGanConfig, make_conv_pair
+    from repro_torch.data import (FederatedDataset, digits_like_mixture,
+                                  template_coverage)
+    t1, s1 = digits_like_mixture([0, 1, 2, 3, 4], size=32)
+    t2, s2 = digits_like_mixture([5, 6, 7, 8, 9], size=32)
+    templates = np.concatenate([t1, t2])
+
+    def union(rng, n):
+        h = n // 2
+        return np.concatenate([s1(rng, h), s2(rng, n - h)])[..., None]
+
+    ds = FederatedDataset([lambda r, n: s1(r, n)[..., None],
+                           lambda r, n: s2(r, n)[..., None]], union, {})
+    pair = make_conv_pair(ConvGanConfig(image_size=32, channels=1, z_dim=64,
+                                        base_filters=32))
+    res = _session(pair, ds, 2, "none", False, dev, batch=32, rpj=16,
+                   approach="approach3").run(64)
+    if not (np.all(np.isfinite(res.g_losses))
+            and np.all(np.isfinite(res.d_losses))):
+        raise AssertionError("Tables 3-4 conv run: non-finite losses")
+    cov, _ = template_coverage(res.samples[..., 0], templates, thresh=0.35)
+    return {"run": "conv approach3 32x32x1 f32 z64 U=2 B=32 (Tables 3-4)",
+            "rounds": 64, "template_coverage": cov,
+            "steady_ms_per_round": res.step_time_s * 1e3,
+            "first_chunk_s": res.extra["compile_s"],
+            "g_loss_first_last": [float(res.g_losses[0]),
+                                  float(res.g_losses[-1])]}
+
+
+def _wgan_phase(torch, dev) -> dict:
+    """(c): W-GAN approach 3 on the paper MLP, 32 rounds: finite losses,
+    every critic weight within +-wgan_clip."""
+    import numpy as np
+
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.models.common import tree_leaves
+    fcfg = DistGANConfig(num_users=MAIN_ROWS, loss_type="wgan", d_lr=5e-4,
+                         g_lr=1e-4, b1=0.0)
+    res = _session(_paper_pair(), _digits_dataset(MAIN_ROWS, 28, 400),
+                   MAIN_ROWS, "none", False, dev, rpj=8, approach="approach3",
+                   fcfg=fcfg).run(32)
+    clip = max(float(t.abs().max()) for t in tree_leaves(res.state.ds))
+    if not (np.all(np.isfinite(res.g_losses))
+            and np.all(np.isfinite(res.d_losses))):
+        raise AssertionError("W-GAN: non-finite losses")
+    if clip > np.float32(fcfg.wgan_clip):
+        raise AssertionError(f"W-GAN critic weight {clip} beyond the clip")
+    return {"run": f"wgan approach3 paper MLP U={MAIN_ROWS}", "rounds": 32,
+            "max_abs_critic_weight": clip, "wgan_clip": fcfg.wgan_clip,
+            "steady_ms_per_round": res.step_time_s * 1e3,
+            "g_loss_first_last": [float(res.g_losses[0]),
+                                  float(res.g_losses[-1])]}
+
+
+def _conv_cpu_agreement(torch, dev) -> dict:
+    """One round of the full-width conv run at U = 2 from one seed on the
+    card (kernels, cuDNN) and on the CPU (plain versions): losses within
+    CONV_LOSS_RTOL, every state leaf within CONV_LEAF_REL of its largest
+    entry plus CONV_LEAF_LR_STEPS steps of lr, the round-noise generators
+    equal.  Returns the worst absolute diff, the worst diff beyond the lr
+    steps relative to its leaf's largest entry, and how many elements
+    exceed the main path's card-vs-CPU bound (atol 2e-3, rtol 1e-3)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import tree_flatten
+    from repro_torch.core.gan import ConvGanConfig, make_conv_pair
+    from repro_torch.kernels import ops
+
+    pair = make_conv_pair(ConvGanConfig(**CONV_FULL))
+    data = _image_dataset(2, CONV_FULL["image_size"], CONV_FULL["channels"],
+                          40)
+    runs = []
+    for dv in (dev, "cpu"):
+        sess = _session(pair, data, 2, "topk_int8", False, dv, rpj=1,
+                        eval_samples=0, scheduler="full", cohort=2,
+                        fuse=True, ef=True)
+        ops.reset_launch_counts()
+        res = sess.run(1)
+        runs.append((res, tree_flatten(sess._driver.arrays()),
+                     ops.launch_counts()["topk_mask_rows"]))
+    (ra, xa, na), (rb, xb, nb) = runs
+    if (na, nb) != (1, 0):
+        raise AssertionError(f"conv card-vs-CPU: top-k launches {na}, {nb}")
+    np.testing.assert_allclose(ra.g_losses, rb.g_losses, rtol=CONV_LOSS_RTOL)
+    np.testing.assert_allclose(ra.d_losses, rb.d_losses, rtol=CONV_LOSS_RTOL)
+    if not torch.equal(xa[-1], xb[-1]):
+        raise AssertionError("conv card-vs-CPU: generator states differ")
+    lr = _fcfg(2).d_lr
+    worst, worst_rel, beyond = 0.0, 0.0, 0
+    steps = CONV_LEAF_LR_STEPS * lr
+    for i, (a, b) in enumerate(zip(xa[:-1], xb[:-1])):
+        a, b = a.cpu().double().numpy(), b.double().numpy()
+        if not a.size:
+            continue
+        diff, scale = np.abs(a - b), float(np.max(np.abs(b)))
+        bound = CONV_LEAF_REL * scale + steps
+        if float(diff.max()) > bound:
+            raise AssertionError(f"conv card-vs-CPU: leaf {i} differs by "
+                                 f"{float(diff.max())} > {bound}")
+        worst = max(worst, float(diff.max()))
+        worst_rel = max(worst_rel, max(float(diff.max()) - steps, 0.0)
+                        / max(scale, 1e-30))
+        beyond += int(np.sum(diff > 2e-3 + 1e-3 * np.abs(b)))
+    return {"max_abs_diff": worst, "max_rel_beyond_lr": worst_rel,
+            "elements_beyond_2e-3": beyond, "elements": sum(
+                t.numel() for t in xb[:-1]),
+            "loss_rel_diff": float(np.max(np.abs(ra.d_losses - rb.d_losses)
+                                          / np.abs(rb.d_losses)))}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -1325,6 +1828,29 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    for line in _checkpoint_phase(torch, dev):
+        print("[ckpt] " + json.dumps(line), flush=True)
+    print(f"[ckpt] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    n_conv = _conv_width_kernels(torch, dev, recs)
+    print(f"[kernels] B1/B2 bitwise vs plain at 8 x {CONV_D_N}: {n_conv} "
+          f"cases; " + json.dumps({r["name"]: r["at_conv_d_width"]
+                                   for r in recs
+                                   if "at_conv_d_width" in r}), flush=True)
+    line, conv_counts = _conv_full_phase(torch, dev)
+    print("[conv] " + json.dumps(line), flush=True)
+    for rec in recs:
+        rec["launches"] += conv_counts.get(rec["name"], 0)
+    print("[conv] " + json.dumps(_conv_paper_phase(torch, dev)), flush=True)
+    print("[conv] " + json.dumps(_wgan_phase(torch, dev)), flush=True)
+    worst = _conv_cpu_agreement(torch, dev)
+    print(f"[check] conv card vs CPU, one round at U=2 (losses rtol "
+          f"{CONV_LOSS_RTOL}; leaves {CONV_LEAF_REL} x max|leaf| + "
+          f"{CONV_LEAF_LR_STEPS} lr): {json.dumps(worst)}", flush=True)
+    print(f"[conv] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     lm_recs, info = _lm_kernel_phase(torch, dev)
     print(f"[kernels] LM kernels vs plain ({time.perf_counter() - t0:.1f} s):"
           f" {json.dumps(info)}", flush=True)
@@ -1358,4 +1884,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-main"] and len(sys.argv) == 4:
+        sys.exit(_resume_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -4,7 +4,10 @@ baseline as PyTorch round bodies (port of the reference's
 server discriminator) and its ``download_first`` variant, approach 2
 (alg. 2, averaged-output multi-discriminator), approach 3 (alg. 3,
 round-robin G against each D_j) and ``baseline`` (one GAN on the union
-data).  The WGAN losses are not ported yet (ROADMAP queue A item 5).
+data), each with the paper's BCE objective or, under ``loss_type="wgan"``,
+the weight-clipped W-GAN critic (clipped after every D step).  The bodies
+take any ``GanPair``: the MLP pair and the DCGAN conv pair run the same
+code.
 
 State layout, as in the reference:
 
@@ -80,7 +83,7 @@ class DistGANConfig:
     server_scale: float = 1.0  # fold factor for combined deltas
     staleness_decay: float = 0.5  # delta age discount (staleness_* combiners)
     use_topk_kernel: bool = True  # Hopper top-k + int8 codec kernels
-    loss_type: str = "bce"     # bce (paper); wgan not ported yet
+    loss_type: str = "bce"     # bce (paper) | wgan (beyond-paper, ref [1])
     wgan_clip: float = 0.05
     codec: str = "none"        # upload wire codec (spec.CODECS)
     error_feedback: bool = True   # EF-SGD residual for lossy codecs
@@ -101,10 +104,6 @@ def init_state(pair, fcfg: DistGANConfig, seed: int, device, *,
     noise generator continues that stream.  ``sync_ds=True`` (approach 1):
     local Ds start at the server weights (paper §3.1 step 1); otherwise
     each user draws its own D."""
-    if fcfg.loss_type != "bce":
-        raise NotImplementedError(
-            "the WGAN losses are not ported to repro_torch yet (ROADMAP "
-            "queue A item 5)")
     gen = torch.Generator().manual_seed(seed)
     g_opt_def, d_opt_def = _opts(fcfg)
     g, d0 = pair.init(gen, device)
@@ -123,6 +122,18 @@ def init_state(pair, fcfg: DistGANConfig, seed: int, device, *,
 def _d_shapes(pair):
     return tree_map(lambda d: torch.empty(d.shape, device="meta"),
                     pair.d_decls)
+
+
+def state_template(pair, fcfg: DistGANConfig) -> DistGANState:
+    """``init_state``'s shapes and types as meta tensors (nothing drawn)."""
+    g_opt_def, d_opt_def = _opts(fcfg)
+    meta = lambda d: torch.empty(d.shape, device="meta")
+    g, d0 = tree_map(meta, pair.g_decls), tree_map(meta, pair.d_decls)
+    u = fcfg.num_users
+    ds = tree_map(lambda t: torch.empty((u,) + t.shape, device="meta"), d0)
+    return DistGANState(g, g_opt_def.init(g), ds, d_opt_def.init(ds, (u,)),
+                        d0, torch.empty((), dtype=torch.int32, device="meta"),
+                        torch.Generator())
 
 
 def d_flat_layout(pair):
@@ -150,26 +161,37 @@ def _grad(loss_fn, params):
     return loss.detach(), tree_map(lambda _: next(git), params)
 
 
-def _d_update_fn(pair, d_opt_def):
+def _d_update_fn(pair, d_opt_def, fcfg: DistGANConfig | None = None):
     """All users' D steps at once: ``ds``/``opts`` stacked on the user
-    axis, ``real (U, B, ...)``, one shared ``fake (B, ...)``."""
+    axis, ``real (U, B, ...)``, one shared ``fake (B, ...)``.  Under
+    ``loss_type="wgan"`` the critic loss, and every D clipped to
+    ``[-wgan_clip, wgan_clip]`` after its step."""
+    wgan = fcfg is not None and fcfg.loss_type == "wgan"
+    d_loss = losses.wgan_d_loss if wgan else losses.d_loss
 
     def update(ds, opts, real, fake):
         def loss_fn(dp):
-            return losses.d_loss(pair.d_apply(dp, real),
-                                 pair.d_apply(dp, fake))      # (U,)
-        loss, grads = _grad(loss_fn, ds)
+            return d_loss(pair.d_apply(dp, real), pair.d_apply(dp, fake))
+        loss, grads = _grad(loss_fn, ds)                    # (U,)
         apply_updates(ds, d_opt_def.update(grads, opts, ds))
+        if wgan:
+            losses.clip_params(ds, fcfg.wgan_clip)
         return loss
     return update
 
 
-def _g_step(pair, g_opt_def, state, d, z):
-    """One G step against discriminator ``d`` (non-saturating loss on
-    ``G(z)``); returns the loss."""
+def _g_loss_single(fcfg: DistGANConfig, scores):
+    if fcfg.loss_type == "wgan":
+        return losses.wgan_g_loss(scores)
+    return losses.g_loss_nonsat(scores)
+
+
+def _g_step(pair, fcfg, g_opt_def, state, d, z):
+    """One G step against discriminator ``d`` (the non-saturating or the
+    W-GAN generator loss on ``G(z)``); returns the loss."""
 
     def g_loss(gp):
-        return losses.g_loss_nonsat(pair.d_apply(d, pair.g_apply(gp, z)))
+        return _g_loss_single(fcfg, pair.d_apply(d, pair.g_apply(gp, z)))
 
     gl, grads = _grad(g_loss, state.g)
     with torch.no_grad():
@@ -260,7 +282,7 @@ def _on(dev, t):
 
 def make_approach1_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
-    d_update = _d_update_fn(pair, d_opt_def)
+    d_update = _d_update_fn(pair, d_opt_def, fcfg)
     combiner = resolve_combiner(fcfg.combiner)
     layout = d_flat_layout(pair)
     lossy = fcfg.codec != "none"
@@ -328,7 +350,7 @@ def make_approach1_body(pair, fcfg: DistGANConfig):
                 d.copy_(s.unsqueeze(0).expand_as(d))
 
         # G trains against the server D only (alg. 1 lines 7-10)
-        gl = _g_step(pair, g_opt_def, state, state.server_d, z2)
+        gl = _g_step(pair, fcfg, g_opt_def, state, state.server_d, z2)
         with torch.no_grad():
             state.step += 1
         metrics = {"d_loss": d_losses, "g_loss": gl,
@@ -379,13 +401,16 @@ def _one(dev):
 
 def make_approach2_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
-    d_update = _d_update_fn(pair, d_opt_def)
+    d_update = _d_update_fn(pair, d_opt_def, fcfg)
     draw = make_approach2_noise(pair, fcfg)
+    g_loss_avg = (losses.wgan_g_loss_avg if fcfg.loss_type == "wgan"
+                  else losses.g_loss_avg_probs)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
              z1=None, z2=None):
         """Every member trains its D on the shared fake batch; G trains
-        against the members' AVERAGED output probabilities (alg. 2)."""
+        against the members' AVERAGED output probabilities (alg. 2; the
+        averaged critic scores under W-GAN)."""
         dev = real.device
         noise = draw(state.generator, real.shape, z1=z1, z2=z2)
         z1, z2 = noise["z1"].to(dev), noise["z2"].to(dev)
@@ -395,8 +420,7 @@ def make_approach2_body(pair, fcfg: DistGANConfig):
         ds = state.ds
 
         def g_loss(gp):
-            return losses.g_loss_avg_probs(pair.d_apply(ds,
-                                                        pair.g_apply(gp, z2)))
+            return g_loss_avg(pair.d_apply(ds, pair.g_apply(gp, z2)))
 
         gl, grads = _grad(g_loss, state.g)
         with torch.no_grad():
@@ -411,7 +435,7 @@ def make_approach2_body(pair, fcfg: DistGANConfig):
 
 def make_approach3_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
-    d_update = _d_update_fn(pair, d_opt_def)
+    d_update = _d_update_fn(pair, d_opt_def, fcfg)
     draw = make_approach3_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
@@ -430,7 +454,7 @@ def make_approach3_body(pair, fcfg: DistGANConfig):
             d_j = _row(state.ds, j)
             d_losses.append(d_update(d_j, _row(state.d_opts, j),
                                      real[j:j + 1], fake))
-            g_losses.append(_g_step(pair, g_opt_def, state, d_j, zb))
+            g_losses.append(_g_step(pair, fcfg, g_opt_def, state, d_j, zb))
         with torch.no_grad():
             state.step += 1
         return state, {"d_loss": torch.cat(d_losses),
@@ -442,7 +466,7 @@ def make_approach3_body(pair, fcfg: DistGANConfig):
 
 def make_baseline_body(pair, fcfg: DistGANConfig):
     g_opt_def, d_opt_def = _opts(fcfg)
-    d_update = _d_update_fn(pair, d_opt_def)
+    d_update = _d_update_fn(pair, d_opt_def, fcfg)
     draw = make_baseline_noise(pair, fcfg)
 
     def body(state: DistGANState, real, ages=None, weights=None, *,
@@ -456,7 +480,7 @@ def make_baseline_body(pair, fcfg: DistGANConfig):
             fake = pair.g_apply(state.g, z1)
         d = _row(state.ds, 0)
         dl = d_update(d, _row(state.d_opts, 0), real[None], fake)
-        gl = _g_step(pair, g_opt_def, state, d, z2)
+        gl = _g_step(pair, fcfg, g_opt_def, state, d, z2)
         with torch.no_grad():
             state.step += 1
         return state, {"d_loss": dl, "g_loss": gl, "kept_frac": _one(dev)}

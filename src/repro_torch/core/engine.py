@@ -32,6 +32,10 @@ A graph engine (``_ChunkGraphs``):
 * raises if capture or replay fails: there is no eager fallback on the card;
   the garbage collector is off while it captures (collecting an old engine
   would destroy its graphs mid-capture);
+* captures, as the eager chunks run, under ``deterministic_convolutions``
+  (``device.py``): cuDNN may pick only deterministic algorithms, so a conv
+  pair's backward sums in one fixed order and a replay equals the eager
+  chunk bitwise; the caller's cuDNN settings are put back after;
 * keeps ``kernels.ops``'s launch counts as launches run: the warm-up's and the
   capture's counts are taken back out, and each replay adds the launches its
   graph holds.
@@ -68,10 +72,11 @@ import torch
 
 from repro_torch.core.approaches import (DistGANConfig, DistGANState,
                                          d_flat_layout, d_opt_flat_layout,
-                                         init_state)
+                                         init_state, state_template)
 from repro_torch.core.federated import (CohortStore, cohort_gather,
                                         cohort_scatter, make_cohort_store)
 from repro_torch.core.spec import resolve_approach
+from repro_torch.device import deterministic_convolutions
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -93,9 +98,10 @@ def make_eager_engine(pair, fcfg: DistGANConfig, approach: str) -> Callable:
 
     def chunk(state, reals, noise=None):
         metrics = []
-        for k in range(reals.shape[0]):
-            state, m = body(state, reals[k], **_round_noise(noise, k))
-            metrics.append(m)
+        with deterministic_convolutions():
+            for k in range(reals.shape[0]):
+                state, m = body(state, reals[k], **_round_noise(noise, k))
+                metrics.append(m)
         return state, _stack_metrics(metrics)
 
     return chunk
@@ -241,7 +247,8 @@ class _ChunkGraphs:
                  for r in range(k)]
         g = self.graphs.get(k)
         if g is None:
-            g = self.graphs[k] = self._capture(carry, inputs, draws)
+            with deterministic_convolutions():
+                g = self.graphs[k] = self._capture(carry, inputs, draws)
         else:
             g.load(inputs, draws)
         g.graph.replay()
@@ -332,6 +339,17 @@ def init_cohort_state(pair, fcfg: DistGANConfig, seed: int, device, *,
                        st.generator)
 
 
+def cohort_state_template(pair, fcfg: DistGANConfig) -> CohortState:
+    """``init_cohort_state``'s shapes and types as meta tensors (nothing
+    drawn, no (U, N) store materialized)."""
+    st = state_template(pair, fcfg)
+    store = make_cohort_store(st.ds, st.d_opts, d_flat_layout(pair),
+                              d_opt_flat_layout(pair, fcfg),
+                              error_feedback=_wants_residual(fcfg))
+    return CohortState(st.g, st.g_opt, store, st.server_d, st.step,
+                       st.generator)
+
+
 def cohort_state_to_full(pair, fcfg: DistGANConfig,
                          cstate: CohortState) -> DistGANState:
     """The store unpacked into the stacked-tree ``DistGANState`` layout
@@ -398,10 +416,11 @@ def make_eager_cohort_engine(pair, fcfg: DistGANConfig, approach: str,
             "wts must be supplied iff the engine was built adaptive=True"
         if copy_carry:
             cstate = cstate.clone()
-        metrics = [round_fn(cstate, reals[k], idx[k],
-                            None if wts is None else wts[k],
-                            _round_noise(noise, k))
-                   for k in range(reals.shape[0])]
+        with deterministic_convolutions():
+            metrics = [round_fn(cstate, reals[k], idx[k],
+                                None if wts is None else wts[k],
+                                _round_noise(noise, k))
+                       for k in range(reals.shape[0])]
         return cstate, _stack_metrics(metrics)
 
     return chunk

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import tree_leaves
+
 
 def bce_with_logits(logits, targets):
     """Elementwise binary cross-entropy on logits."""
@@ -36,3 +38,36 @@ def g_loss_avg_probs(fake_logits_per_user):
     the user axis of ``(U, B)`` logits, then BCE against 1."""
     avg = torch.mean(torch.sigmoid(fake_logits_per_user), dim=0)
     return -torch.mean(torch.log(avg + 1e-7))
+
+
+# ---------------------------------------------------------------------------
+# W-GAN (Arjovsky et al., the paper's ref [1]), weight-clipped
+# ---------------------------------------------------------------------------
+
+def wgan_d_loss(real_scores, fake_scores):
+    """Critic loss: maximize E[D(real)] - E[D(fake)]."""
+    return fake_scores.mean(-1) - real_scores.mean(-1)
+
+
+def wgan_g_loss(fake_scores):
+    return -fake_scores.mean(-1)
+
+
+def wgan_g_loss_avg(fake_scores_per_user):
+    """Approach 2's analogue: average the critics' ``(U, B)`` scores over
+    the users, then over the batch."""
+    return -torch.mean(torch.mean(fake_scores_per_user, dim=0))
+
+
+def clip_params(params, c: float) -> None:
+    """W-GAN Lipschitz enforcement: clip every leaf to [-c, c] IN PLACE
+    (the reference returns the clipped tree)."""
+    for p in tree_leaves(params):
+        p.clamp_(-c, c)
+
+
+def d_accuracy(real_logits, fake_logits):
+    """Share of real logits > 0 and fake logits <= 0, averaged (over the
+    last axis)."""
+    return 0.5 * ((real_logits > 0).to(torch.float32).mean(-1)
+                  + (fake_logits <= 0).to(torch.float32).mean(-1))

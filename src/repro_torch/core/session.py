@@ -1,5 +1,5 @@
 """FederationSession: the executor behind FederationSpec (port of the
-reference's ``core/session.py:75-233, 533-802, 1123-1338``).
+reference's ``core/session.py:75-233, 533-802, 1123-1430``).
 
 A session binds a :class:`repro_torch.core.spec.FederationSpec` to the
 runtime objects a spec cannot serialize (the G/D ``pair``, the
@@ -15,34 +15,51 @@ modes under full participation and, for a cohort-virtualized spec, its
 device and each round a scheduled cohort of C users trains.  On a CUDA
 device every mode replays CUDA graphs (``core/engine.py``): ``fused`` and
 ``cohort`` one per chunk, ``per_step`` one per round.
-``save``/``restore`` and the host and streaming drivers come in later
-slices (ROADMAP queue A items 7 and 8).
+
+``save(path)`` / ``restore(path, ...)`` checkpoint the whole session in
+the reference's layout: ``step_<round>.msgpack`` holds the training
+state's arrays in the reference's leaf order, ``session.json`` the spec,
+the round, the numpy data and scheduler streams and the participation
+counts; ``run(rounds, autosave_every=, autosave_path=)`` saves at
+internal round boundaries.  The reference's PRNG key slot holds the
+port's round-noise generator state (a uint8 tensor) instead.  The host
+and streaming drivers come in a later slice (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 import typing
 
 import numpy as np
 import torch
 
-from repro_torch.core.approaches import DistGANConfig, d_flat_layout, init_state
-from repro_torch.core.engine import (cohort_state_to_full, init_cohort_state,
+from repro_torch.checkpoint.msgpack_ckpt import (check_leaves, latest_step,
+                                                 read_leaves, save_checkpoint,
+                                                 tree_flatten, tree_unflatten)
+from repro_torch.core.approaches import (DistGANConfig, DistGANState,
+                                         d_flat_layout, init_state,
+                                         state_template)
+from repro_torch.core.engine import (CohortState, cohort_state_template,
+                                     cohort_state_to_full, init_cohort_state,
                                      make_cohort_engine, make_engine,
                                      make_fused_store_engine)
-from repro_torch.core.federated import (make_schedule_source,
+from repro_torch.core.federated import (CohortStore, make_schedule_source,
                                         participation_weights,
                                         upload_bytes_flat)
 from repro_torch.core.spec import (FederationSpec, register_backend,
                                    resolve_approach, resolve_backend)
-from repro_torch.device import resolve_device
+from repro_torch.device import deterministic_convolutions, resolve_device
 from repro_torch.models.common import tree_map
 
 # pre-stage a whole window's batches on the device when below this (else
 # the fused engine stages chunk by chunk)
 _STAGE_CAP_BYTES = 256 * 1024 * 1024
+
+_SESSION_META = "session.json"
 
 
 @dataclasses.dataclass
@@ -61,6 +78,35 @@ class RunResult:
     samples: np.ndarray | None
     state: typing.Any              # DistGANState
     extra: dict
+
+
+def _merge_results(parts: list) -> RunResult:
+    """Consecutive sub-window results (the autosave path) as one window's:
+    time series concatenate, counts sum, and the point-in-time fields
+    (state, samples, staleness) come from the last sub-window."""
+    if len(parts) == 1:
+        return parts[0]
+    extra = dict(parts[-1].extra)
+    for key in ("mean_age", "schedule", "participation_weights"):
+        if all(key in p.extra for p in parts):
+            extra[key] = np.concatenate([p.extra[key] for p in parts])
+    if all("participation_counts" in p.extra for p in parts):
+        extra["participation_counts"] = np.sum(
+            [p.extra["participation_counts"] for p in parts], axis=0)
+    if all("compile_s" in p.extra for p in parts):
+        extra["compile_s"] = float(sum(p.extra["compile_s"]
+                                       for p in parts))
+    if all("min_step_time_s" in p.extra for p in parts):
+        extra["min_step_time_s"] = min(p.extra["min_step_time_s"]
+                                       for p in parts)
+    return RunResult(
+        g_losses=np.concatenate([p.g_losses for p in parts]),
+        d_losses=np.concatenate([p.d_losses for p in parts]),
+        wall_time_s=sum(p.wall_time_s for p in parts),
+        step_time_s=parts[-1].step_time_s,
+        samples=parts[-1].samples,
+        state=parts[-1].state,
+        extra=extra)
 
 
 def _sync(device: torch.device) -> None:
@@ -222,10 +268,19 @@ class DeviceBackendDriver:
     fetches metrics one round at a time (the comparison target); for a
     cohort-virtualized spec the cohort engine over a resident store
     (``fuse_store_rounds`` picks the engine that writes the store in
-    place).  A backend driver is built as ``driver_cls(session)`` and
-    offers ``run``, ``generator_params`` and ``user_d_flat``."""
+    place).  A backend driver is built as ``driver_cls(session,
+    defer_state=False)`` and offers ``run``, ``arrays``, ``load_arrays``,
+    ``generator_params`` and ``user_d_flat``.
 
-    def __init__(self, sess: "FederationSession"):
+    ``arrays()`` is the checkpointable state: the reference's
+    ``DistGANState`` (or ``CohortState``) fields in order as a list, the
+    PRNG key slot holding the round-noise generator's state.
+    ``defer_state=True`` (the restore path) builds no initial state:
+    ``arrays()`` then returns meta tensors of the state's shapes and
+    types, and ``load_arrays`` builds the state from the restored arrays,
+    so no CUDA graph has bound to a carry yet."""
+
+    def __init__(self, sess: "FederationSession", defer_state: bool = False):
         self.sess = sess
         pair, fcfg, sp = sess.pair, sess.fcfg, sess.spec
         sync = sess.approach.sync_ds
@@ -236,15 +291,43 @@ class DeviceBackendDriver:
                   else make_cohort_engine)
             self.eng = mk(pair, fcfg, sp.approach,
                           adaptive=sp.combine.adaptive_server_scale)
-            self.state = init_cohort_state(pair, fcfg, sp.seed, sess.device,
-                                           sync_ds=sync)
-            return
-        self.mode = sp.engine.kind
-        # per_step runs the same engine one round at a time: on the card a
-        # one-round graph, fetched after every round
-        self.eng = make_engine(pair, fcfg, sp.approach)
-        self.state = init_state(pair, fcfg, sp.seed, sess.device,
-                                sync_ds=sync)
+            init = init_cohort_state
+        else:
+            self.mode = sp.engine.kind
+            # per_step runs the same engine one round at a time: on the
+            # card a one-round graph, fetched after every round
+            self.eng = make_engine(pair, fcfg, sp.approach)
+            init = init_state
+        self.state = None if defer_state else init(
+            pair, fcfg, sp.seed, sess.device, sync_ds=sync)
+
+    # -- checkpoint state --------------------------------------------------
+
+    def arrays(self) -> list:
+        st = self.state
+        if st is None:
+            mk = (cohort_state_template if self.mode == "cohort"
+                  else state_template)
+            st = mk(self.sess.pair, self.sess.fcfg)
+        if self.mode == "cohort":
+            s = st.store
+            mid = [[s.d_flat, s.opt_flat, s.last_round, s.residual]]
+        else:
+            mid = [st.ds, st.d_opts]
+        return [st.g, st.g_opt, *mid, st.server_d, st.step,
+                st.generator.get_state()]
+
+    def load_arrays(self, tree: list, generator: torch.Generator) -> None:
+        """Build the deferred state from restored arrays (``arrays()``'s
+        structure on the session's device, the key slot left out) and the
+        round-noise generator."""
+        assert self.state is None, "load_arrays builds a deferred state"
+        if self.mode == "cohort":
+            g, g_opt, store, server_d, step = tree
+            self.state = CohortState(g, g_opt, CohortStore(*store), server_d,
+                                     step, generator)
+        else:
+            self.state = DistGANState(*tree, generator)
 
     def generator_params(self):
         return self.state.g
@@ -397,7 +480,7 @@ class FederationSession:
     ``device`` is CUDA unless the caller passes ``"cpu"``."""
 
     def __init__(self, pair, fcfg: DistGANConfig, dataset,
-                 spec: FederationSpec, *, device=None):
+                 spec: FederationSpec, *, device=None, _defer_state=False):
         spec.validate_against(fcfg.num_users)
         self.device = resolve_device(device)
         self.pair = pair
@@ -432,7 +515,9 @@ class FederationSession:
                              if spec.combine.adaptive_server_scale else None)
         self._probe_nbytes: int | None = None
         self._eval_override: int | None = None
-        self._driver = resolve_backend(spec.backend.kind).driver_cls(self)
+        self._mid_window = False
+        self._driver = resolve_backend(spec.backend.kind).driver_cls(
+            self, defer_state=_defer_state)
 
     @property
     def cohort_virtual(self) -> bool:
@@ -504,7 +589,7 @@ class FederationSession:
         if not n:
             return None
         gen = torch.Generator().manual_seed(self.spec.seed + 1)
-        with torch.no_grad():
+        with torch.no_grad(), deterministic_convolutions():
             z = self.pair.sample_z(gen, n, self.device)
             return self.pair.g_apply(g_params, z).cpu().numpy()
 
@@ -529,21 +614,133 @@ class FederationSession:
             autosave_path: str | None = None) -> RunResult:
         """Advance the federation by ``rounds`` rounds and return the
         window's RunResult.  ``eval_samples`` overrides the spec's value
-        for this window only.  Autosave needs ``save``, which comes with
-        the checkpoint slice."""
+        for this window only.
+
+        ``autosave_every=N`` (with ``autosave_path``) saves the session
+        (:meth:`save`) every N rounds at internal window boundaries and at
+        the end: windowing does not change the trajectory, so a run killed
+        mid-way restores from its last autosave onto the uninterrupted
+        trajectory.  Samples are drawn on the final sub-window only; the
+        result is the merged window."""
         assert isinstance(rounds, int) and rounds >= 1, rounds
-        if autosave_every is not None or autosave_path is not None:
-            raise NotImplementedError(
-                "save/restore and autosave are not ported to repro_torch "
-                "yet (ROADMAP queue A item 7)")
-        return self._run_window(rounds, eval_samples)
+        if autosave_every is None:
+            return self._run_window(rounds, eval_samples)
+        if not isinstance(autosave_every, int) or autosave_every < 1:
+            raise ValueError(f"autosave_every must be a positive int, got "
+                             f"{autosave_every!r}")
+        if not autosave_path:
+            raise ValueError("autosave_every needs an autosave_path to "
+                             "save into")
+        parts, done = [], 0
+        while done < rounds:
+            k = min(autosave_every, rounds - done)
+            last = done + k == rounds
+            parts.append(self._run_window(k, eval_samples if last else 0))
+            done += k
+            self.save(autosave_path)
+        return _merge_results(parts)
 
     def _run_window(self, rounds: int,
                     eval_samples: int | None) -> RunResult:
         self._eval_override = eval_samples
+        self._mid_window = True
         try:
             result = self._driver.run(rounds)
         finally:
             self._eval_override = None
+        # only on success: a failure leaves the rng streams, counts and
+        # carry partly advanced, and save() must refuse
+        self._mid_window = False
         self.round += rounds
         return result
+
+    # -- checkpoint / restore ----------------------------------------------
+
+    def save(self, path: str) -> str:
+        """Checkpoint the session under directory ``path``: the state's
+        arrays as ``step_<round>.msgpack`` and ``session.json`` with the
+        spec, the round, the numpy streams and the participation counts
+        (the reference's keys).  Reading the carry waits for the device.
+
+        Refuses after a ``run()`` that raised mid-window: its streams,
+        counts and carry are then partly advanced past the round counter,
+        and a checkpoint of them would restore a silently wrong
+        trajectory."""
+        if self._mid_window:
+            raise RuntimeError(
+                "session state is inconsistent: the last run() raised "
+                "mid-window (rng streams/carry advanced past the round "
+                "counter).  Saving would checkpoint a silently wrong "
+                "trajectory; restore from the last good checkpoint.")
+        os.makedirs(path, exist_ok=True)
+        ckpt = save_checkpoint(path, self.round, self._driver.arrays())
+        meta = {
+            "format": 1,
+            "spec": self.spec.to_dict(),
+            "round": self.round,
+            "num_users": self.fcfg.num_users,
+            "data_rng": self.data_rng.bit_generator.state,
+            "sched_rng": self.sched_rng.bit_generator.state,
+            "part_counts": (None if self._part_counts is None
+                            else self._part_counts.tolist()),
+        }
+        tmp = os.path.join(path, _SESSION_META + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1, sort_keys=True)
+        os.replace(tmp, os.path.join(path, _SESSION_META))
+        return ckpt
+
+    @classmethod
+    def restore(cls, path: str, pair, fcfg: DistGANConfig, dataset, *,
+                device=None) -> "FederationSession":
+        """Rebuild a session from ``save(path)``, in this process or a
+        fresh one, on ``device`` (CUDA unless ``"cpu"``).  ``pair`` /
+        ``fcfg`` / ``dataset`` must match the saving run; the spec comes
+        from the checkpoint.  The state is built once, from the restored
+        arrays (no fresh initial state is drawn first).
+
+        A checkpoint the JAX reference wrote restores too: every array but
+        the PRNG key, the numpy streams, the counts and the round carry
+        over.  jax's threefry key has no counterpart in torch, so the
+        port's round-noise generator is then seeded from ``spec.seed`` and
+        the round (:func:`resume_generator_seed`), and the rounds after the
+        restore draw other noise than the reference's would."""
+        with open(os.path.join(path, _SESSION_META)) as f:
+            meta = json.load(f)
+        if meta["num_users"] != fcfg.num_users:
+            raise ValueError(
+                f"checkpoint was saved with num_users={meta['num_users']}, "
+                f"got fcfg.num_users={fcfg.num_users}")
+        spec = FederationSpec.from_dict(meta["spec"])
+        sess = cls(pair, fcfg, dataset, spec, device=device,
+                   _defer_state=True)
+        step = meta["round"]
+        assert latest_step(path) == step, (latest_step(path), step)
+        template = sess._driver.arrays()
+        targets = tree_flatten(template)
+        stored = read_leaves(path, step)
+        key = len(targets) - 1                     # the PRNG slot is last
+        check_leaves(stored, targets, skip=(key,))
+        gen = torch.Generator()
+        if stored[key].dtype == torch.uint8 and \
+                stored[key].shape == targets[key].shape:
+            gen.set_state(stored[key])
+        else:                                      # a jax key
+            gen.manual_seed(resume_generator_seed(spec.seed, step))
+        arrays = [s.to(device=sess.device, dtype=t.dtype)
+                  for s, t in zip(stored[:key], targets[:key])]
+        sess._driver.load_arrays(tree_unflatten(template[:-1], arrays), gen)
+        sess.round = step
+        sess.data_rng.bit_generator.state = meta["data_rng"]
+        sess.sched_rng.bit_generator.state = meta["sched_rng"]
+        if meta["part_counts"] is not None:
+            sess._part_counts = np.asarray(meta["part_counts"], np.float64)
+        return sess
+
+
+def resume_generator_seed(seed: int, round_: int) -> int:
+    """The round-noise generator's seed after restoring a checkpoint that
+    carries no generator state (one the JAX reference wrote): a function
+    of the spec's seed and the round only."""
+    return int(np.random.SeedSequence([seed, round_, 0x7E57]).generate_state(
+        1, np.uint64)[0] >> 1)

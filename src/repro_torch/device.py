@@ -8,6 +8,8 @@ every kernel wrapper to its plain PyTorch version.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -31,3 +33,19 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to deterministic algorithms, chosen without
+    autotuning, for the block's duration (the caller's settings are put
+    back after): a convolution's backward then sums in one fixed order,
+    so an eager chunk, its CUDA-graph replay and a resumed run agree
+    bitwise.  No effect on the CPU."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved

@@ -1,5 +1,6 @@
-"""Hand-written AdamW over nested dicts of tensors (port of the reference's
-``optim/optimizers.py:38-69`` and ``apply_updates``).
+"""Hand-written optimizers over nested dicts of tensors (port of the
+reference's ``optim/optimizers.py``): AdamW, SGD with optional momentum,
+``apply_updates`` and ``global_norm_clip``.
 
 ``torch.optim.Adam`` places ``sqrt`` and ``eps`` differently from the
 reference, so the update is spelled out in the reference's order:
@@ -9,6 +10,11 @@ The port updates moments and parameters IN PLACE, where the reference
 donates the state buffers to its jitted step.  A step tensor may carry
 leading user dims (``(U,)`` for the stacked per-user optimizers); the bias
 corrections then broadcast over each parameter's trailing dims.
+
+``lr`` is a float or a schedule ``lr(step) -> lr`` (``optim/schedule.py``)
+called on the incremented step tensor, on its device, so a CUDA graph
+that captured the update reads each replay's step.  A float lr issues the
+same operations as before schedules existed.
 """
 
 from __future__ import annotations
@@ -25,16 +31,28 @@ class Optimizer(NamedTuple):
     update: Callable  # (grads, state, params) -> updates; state in place
 
 
-def adamw(lr: float, *, b1=0.9, b2=0.95, eps=1e-8,
-          weight_decay=0.0) -> Optimizer:
+def _lr_scale(lr, step, lead: int):
+    """``-lr`` for a float lr; for a schedule, ``-lr(step)`` as an f32
+    tensor of the step's shape, and a function giving its view against a
+    leaf of ``ndim`` dims (the step's dims lead)."""
+    if not callable(lr):
+        return lambda ndim: -lr
+    neg = -lr(step).to(torch.float32)
+    return lambda ndim: neg.reshape(neg.shape + (1,) * (ndim - lead))
+
+
+def _f32_zeros(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
 
     def init(params, lead: tuple = ()):
         """``lead`` is the shape of the step counter: ``()`` for one
         model, ``(U,)`` for U stacked models."""
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
         device = tree_leaves(params)[0].device
-        return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+        return {"mu": _f32_zeros(params), "nu": _f32_zeros(params),
                 "step": torch.zeros(lead, dtype=torch.int32, device=device)}
 
     def update(grads, state, params):
@@ -43,6 +61,7 @@ def adamw(lr: float, *, b1=0.9, b2=0.95, eps=1e-8,
         c1 = 1.0 - torch.pow(torch.full_like(step, b1), step)
         c2 = 1.0 - torch.pow(torch.full_like(step, b2), step)
         lead = step.ndim
+        neg_lr = _lr_scale(lr, state["step"], lead)
 
         def upd(g, mu, nu, p):
             g = g.to(torch.float32)
@@ -54,11 +73,49 @@ def adamw(lr: float, *, b1=0.9, b2=0.95, eps=1e-8,
             step_dir = (mu / c1b) / (torch.sqrt(nu / c2b) + eps)
             if weight_decay:
                 step_dir = step_dir + weight_decay * p.to(torch.float32)
-            return -lr * step_dir
+            return neg_lr(g.ndim) * step_dir
 
         return tree_map(upd, grads, state["mu"], state["nu"], params)
 
     return Optimizer(init, update)
+
+
+def sgd(lr, *, momentum=0.0) -> Optimizer:
+    """SGD, with a heavy-ball velocity in f32 when ``momentum`` is set."""
+
+    def init(params, lead: tuple = ()):
+        device = tree_leaves(params)[0].device
+        st = {"step": torch.zeros(lead, dtype=torch.int32, device=device)}
+        if momentum:
+            st["vel"] = _f32_zeros(params)
+        return st
+
+    def update(grads, state, params):
+        state["step"] += 1
+        neg_lr = _lr_scale(lr, state["step"], state["step"].ndim)
+        if momentum:
+            def vel(v, g):
+                v.copy_(momentum * v + g.to(torch.float32))
+                return neg_lr(v.ndim) * v
+            return tree_map(vel, state["vel"], grads)
+        return tree_map(lambda g: neg_lr(g.ndim) * g.to(torch.float32),
+                        grads)
+
+    return Optimizer(init, update)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_leaves(tree)))
+
+
+def global_norm_clip(grads, max_norm: float):
+    """``(grads * min(1, max_norm / (norm + 1e-9)), norm)``; a new tree."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    grads), norm
 
 
 def apply_updates(params, updates) -> None:

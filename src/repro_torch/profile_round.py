@@ -2,11 +2,13 @@
 engine and through the eager chunk.
 
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 16]
-        [--codec topk_int8] [--stochastic] [--trace chiprun_out/round.json]
+        [--codec topk_int8] [--stochastic] [--conv]
+        [--trace chiprun_out/round.json]
 
 Runs approach-1 federation at the paper's full MLP width (784/256/256,
 z 64; 8 users of Dirichlet-split 28x28 digit-like data; batch 64; fused
-engine) twice in one process from one seed: first as the session runs it
+engine; ``--conv``: the DCGAN pair at the paper's CelebA/LSUN width, 64 x
+64 x 3 images, z 100, 64 base filters) twice in one process from one seed: first as the session runs it
 (a CUDA graph per chunk), then with its engine swapped for the eager chunk
 (``core.engine.make_eager_engine``).  Each warms up one chunk of
 ``--rounds`` rounds, times a window of four chunks unprofiled, then
@@ -37,7 +39,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.approaches import DistGANConfig
 from repro_torch.core.engine import make_eager_engine
-from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+from repro_torch.core.gan import (ConvGanConfig, MLPGanConfig,
+                                  make_conv_pair, make_mlp_pair)
 from repro_torch.core.session import FederationSession
 from repro_torch.core.spec import (CombineSpec, CompressionSpec, EngineSpec,
                                    FederationSpec)
@@ -47,16 +50,21 @@ from repro_torch.data import digits_like_mixture, dirichlet_partition
 _OWN = ("topk_mask_cluster", "quantize_cluster", "dequantize")
 
 
-def _dataset(num_users: int):
+def _dataset(num_users: int, conv: bool = False):
+    """28 x 28 digit-like images as flat rows, or (``conv``) at 64 x 64
+    tiled to 3 channels (NHWC), Dirichlet(0.5)-split over the users."""
     rng = np.random.default_rng(0)
+    size, per_class = (64, 200) if conv else (28, 400)
     data, labels = [], []
     for c in range(10):
-        _, sample = digits_like_mixture([c], size=28)
-        data.append(sample(rng, 400))
-        labels.append(np.full(400, c))
-    return dirichlet_partition(np.concatenate(data).reshape(4000, -1),
-                               np.concatenate(labels), num_users, alpha=0.5,
-                               seed=0)
+        _, sample = digits_like_mixture([c], size=size)
+        data.append(sample(rng, per_class))
+        labels.append(np.full(per_class, c))
+    data = np.concatenate(data)
+    data = (np.repeat(data[..., None], 3, axis=-1) if conv
+            else data.reshape(len(data), -1))
+    return dirichlet_partition(data, np.concatenate(labels), num_users,
+                               alpha=0.5, seed=0)
 
 
 def _busy_ms(intervals) -> float:
@@ -171,13 +179,17 @@ def main() -> None:
     ap.add_argument("--users", type=int, default=8)
     ap.add_argument("--codec", default="topk_int8")
     ap.add_argument("--stochastic", action="store_true")
+    ap.add_argument("--conv", action="store_true",
+                    help="the DCGAN pair at 64 x 64 x 3, 64 base filters")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA device")
 
-    pair = make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
-                                      d_hidden=256))
+    pair = (make_conv_pair(ConvGanConfig(image_size=64, channels=3, z_dim=100,
+                                         base_filters=64)) if args.conv else
+            make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
+                                       d_hidden=256)))
     spec = FederationSpec(
         "approach1", batch_size=64, eval_samples=0,
         engine=EngineSpec(kind="fused", rounds_per_jit=args.rounds),
@@ -185,9 +197,10 @@ def main() -> None:
             codec=args.codec, error_feedback=False,
             stochastic=args.stochastic)))
     fcfg = DistGANConfig(num_users=args.users, upload_frac=0.1)
-    dataset = _dataset(args.users)
+    dataset = _dataset(args.users, args.conv)
     out = {"device": torch.cuda.get_device_name(0), "rounds": args.rounds,
-           "codec": args.codec, "stochastic": args.stochastic}
+           "codec": args.codec, "stochastic": args.stochastic,
+           "pair": "conv" if args.conv else "mlp"}
     for name in ("graph", "eager"):
         sess = FederationSession(pair, fcfg, dataset, spec)
         if name == "eager":

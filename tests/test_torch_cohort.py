@@ -414,8 +414,17 @@ def test_run_distgan_cohort_kwargs_and_refusals():
     with pytest.raises(ValueError, match="full"):
         FederationSpec("approach1", participation=ParticipationSpec(
             cohort_size=2)).validate_against(6)
-    with pytest.raises(NotImplementedError, match="WGAN"):
-        tapp.init_state(pair, tapp.DistGANConfig(loss_type="wgan"), 0, "cpu")
+    # the W-GAN objective is ported: a W-GAN cohort run goes through the
+    # shim, every trained critic within its clip
+    wgan = run_distgan(pair, tapp.DistGANConfig(num_users=6, loss_type="wgan",
+                                                wgan_clip=0.05),
+                       _dataset(6), "approach2", participation="uniform",
+                       cohort_size=2, **kw)
+    assert np.all(np.isfinite(wgan.g_losses))
+    trained = torch.from_numpy(wgan.extra["participation_counts"] > 0)
+    assert trained.any()
+    assert float(wgan.state.ds["l1"]["w"][trained].abs().max()) <= \
+        np.float32(0.05)
 
 
 def test_cohort_manifest_reads_the_reference_manifest():

@@ -427,3 +427,119 @@ def test_chunked_staging_equals_whole_window(cuda, monkeypatch):
         for a, b in zip(whole, chunked):
             np.testing.assert_array_equal(a.g_losses, b.g_losses)
             np.testing.assert_array_equal(a.d_losses, b.d_losses)
+
+
+# ---------------------------------------------------------------------------
+# The conv pair and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+CONV_D_WIDTH = 675584    # the DCGAN D at 64 x 64 x 3, 64 base filters
+
+
+def test_topk_and_codec_bitwise_at_the_conv_d_width(cuda):
+    """B1 and B2 on 8 rows of the paper-width conv D (slices beyond shared
+    memory, so B1's passes read device memory), upload fraction 0.1:
+    bitwise their plain versions, ties and a half-sparse row included."""
+    x = (_rows((8, CONV_D_WIDTH), 31) * 2e-4).to(cuda)
+    x[1] = torch.round(x[1] * 2e4) / 2e4
+    x[5, :CONV_D_WIDTH // 2] = 0.0
+    assert torch.equal(ttopk.topk_mask_rows(x, 0.1),
+                       ref.topk_mask_global_ref(x, 0.1))
+    for stochastic, seed in ((False, None), (True, 2**31 - 2)):
+        q, s = tquant.quantize_rows(x, stochastic=stochastic, seed=seed)
+        qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        assert torch.equal(tquant.dequantize_rows(q, s),
+                           ref.dequantize_rows_ref(qr, sr))
+
+
+_CONV = dict(image_size=16, channels=3, z_dim=16, base_filters=8)
+_CONV_CASES = {
+    "approach1-topk_int8-sr": ("approach1", dict(codec="topk_int8",
+                                                 codec_stochastic=True)),
+    "approach2": ("approach2", {}),
+    "approach3-wgan": ("approach3", dict(loss_type="wgan", b1=0.0)),
+    "baseline": ("baseline", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_CONV_CASES))
+def test_conv_graph_engine_equals_eager_chunk_bitwise(cuda, case):
+    """The DCGAN pair's rounds (cuDNN convolutions, per-user batch norms)
+    replayed from CUDA graphs equal the eager chunk bitwise: deterministic
+    cuDNN in both, the same algorithms captured as run."""
+    from repro_torch.core import approaches as tapp
+    from repro_torch.core import engine as teng
+    from repro_torch.core.gan import ConvGanConfig, make_conv_pair
+    from repro_torch.core.spec import resolve_approach
+    approach, kw = _CONV_CASES[case]
+    pair = make_conv_pair(ConvGanConfig(**_CONV))
+    fcfg = tapp.DistGANConfig(num_users=3, error_feedback=False, **kw)
+    sync = resolve_approach(approach).sync_ds
+    shape = (8, 16, 16, 3) if approach == "baseline" else (3, 8, 16, 16, 3)
+    reals = _rows((7,) + shape, 8).clamp(-1, 1).to(cuda)
+    eager = teng.make_eager_engine(pair, fcfg, approach)
+    graph = teng.make_engine(pair, fcfg, approach)
+    a = tapp.init_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    b = tapp.init_state(pair, fcfg, 0, cuda, sync_ds=sync)
+    for start, k in ((0, 3), (3, 3), (6, 1)):
+        a, ma = eager(a, reals[start:start + k])
+        b, mb = graph(b, reals[start:start + k])
+        torch.cuda.synchronize()
+        assert all(torch.equal(ma[key], mb[key]) for key in ma)
+    assert _equal_carries(a, b)
+    assert not torch.backends.cudnn.deterministic   # put back after
+
+
+def _ckpt_session(cuda, kind):
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.gan import (ConvGanConfig, MLPGanConfig,
+                                      make_conv_pair, make_mlp_pair)
+    from repro_torch.core.session import FederationSession
+    from repro_torch.core.spec import (CombineSpec, CompressionSpec,
+                                       EngineSpec, FederationSpec,
+                                       ParticipationSpec)
+    from repro_torch.data import FederatedDataset
+    rng = np.random.default_rng(0)
+    conv = kind == "conv_approach1"
+    shape = (16, 16, 3) if conv else (64,)
+    shards = [rng.uniform(-1, 1, (50,) + shape).astype(np.float32)
+              for _ in range(6)]
+    dataset = FederatedDataset(
+        [lambda r, n, x=x: x[r.integers(0, 50, n)] for x in shards],
+        lambda r, n: shards[0][r.integers(0, 50, n)], {})
+    cohort = kind == "cohort_fused_store"
+    spec = FederationSpec(
+        "approach1", batch_size=8, eval_samples=4,
+        engine=EngineSpec(rounds_per_jit=4, fuse_store_rounds=cohort),
+        participation=ParticipationSpec("uniform" if cohort else "full",
+                                        cohort_size=3 if cohort else None),
+        combine=CombineSpec(compression=CompressionSpec(
+            codec="topk_int8", error_feedback=cohort, stochastic=True)))
+    pair = (make_conv_pair(ConvGanConfig(**_CONV)) if conv else
+            make_mlp_pair(MLPGanConfig(**_SMALL)))
+    fcfg = DistGANConfig(num_users=6)
+    return (FederationSession(pair, fcfg, dataset, spec, device=cuda),
+            (pair, fcfg, dataset))
+
+
+@pytest.mark.parametrize("kind", ["fused", "cohort_fused_store",
+                                  "conv_approach1"])
+def test_save_restore_resumes_bitwise_under_graphs(cuda, kind, tmp_path):
+    """``run(5); save; restore; run(5)`` on the card, every chunk a graph
+    replay, equals ``run(10)`` bitwise: the restored session builds its
+    carry from the file before its first capture."""
+    from repro_torch.core.session import FederationSession
+    full, _ = _ckpt_session(cuda, kind)
+    want = full.run(10)
+    first, args = _ckpt_session(cuda, kind)
+    w1 = first.run(5)
+    first.save(str(tmp_path))
+    second = FederationSession.restore(str(tmp_path), *args, device=cuda)
+    w2 = second.run(5)
+    np.testing.assert_array_equal(np.concatenate([w1.g_losses, w2.g_losses]),
+                                  want.g_losses)
+    np.testing.assert_array_equal(np.concatenate([w1.d_losses, w2.d_losses]),
+                                  want.d_losses)
+    np.testing.assert_array_equal(w2.samples, want.samples)
+    assert _equal_carries(second._driver.state, full._driver.state)

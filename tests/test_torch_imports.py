@@ -22,7 +22,10 @@ def test_import_leaves_jax_out_of_the_process():
     """A fresh interpreter (this one already holds jax via conftest)."""
     code = ("import sys, repro_torch, repro_torch.core.session, "
             "repro_torch.core.protocol, repro_torch.convert, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.checkpoint, "
+            "repro_torch.checkpoint.msgpack_codec, repro_torch.core.gan, "
+            "repro_torch.core.losses, repro_torch.optim.schedule, "
+            "repro_torch.examples.distgan_mnist; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -39,12 +42,14 @@ def test_static_scan_finds_no_jax_or_reference_import(path):
     assert not hits, f"{path} imports {hits}"
 
 
-def test_entry_points_refuse_the_cpu_unless_asked():
+def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from repro_torch.core.approaches import DistGANConfig
     from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
-    from repro_torch.core.protocol import run_distgan
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.protocol import (measure_component_times,
+                                           run_distgan)
     from repro_torch.core.session import FederationSession
     from repro_torch.core.spec import FederationSpec
     from repro_torch.data import federated_split
@@ -61,6 +66,17 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         FederationSession(pair, fcfg, ds, FederationSpec("approach1"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_distgan(pair, fcfg, ds, "approach1", steps=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_component_times(pair, fcfg, ds, 4, iters=1)
+    save_checkpoint(str(tmp_path / "t"), 0, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(str(tmp_path / "t"), 0, {"w": torch.ones(2)})
+    sess = FederationSession(pair, fcfg, ds, FederationSpec(
+        "approach1", batch_size=4, eval_samples=0), device="cpu")
+    sess.run(1)
+    sess.save(str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederationSession.restore(str(tmp_path / "s"), pair, fcfg, ds)
     res = run_distgan(pair, fcfg, ds, "approach1", steps=2, batch_size=4,
                       eval_samples=0, device="cpu")
     assert res.extra["device"] == "cpu"
