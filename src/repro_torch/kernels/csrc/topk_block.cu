@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_cluster.cuh"   // ROW_CLUSTER_STAMP (profile_codec --stamps)
+
 namespace {
 
 constexpr int kBlock = 8192;
@@ -64,6 +66,7 @@ topk_block(const float* __restrict__ x, bool* __restrict__ out, long long n,
   const long long start = static_cast<long long>(blockIdx.x) * kBlock
                           + threadIdx.x;
 
+  ROW_CLUSTER_STAMP(0);
   float mag[kPer];
   float m = 0.0f;
 #pragma unroll
@@ -72,6 +75,7 @@ topk_block(const float* __restrict__ x, bool* __restrict__ out, long long n,
     mag[i] = j < n ? fabsf(x[base + j]) : 0.0f;
     m = fmaxf(m, mag[i]);
   }
+  ROW_CLUSTER_STAMP(1);                      // loaded, own max
   m = warp_max(m);
   if (lane == 0) pmax[warp] = m;
   __syncthreads();
@@ -79,6 +83,7 @@ topk_block(const float* __restrict__ x, bool* __restrict__ out, long long n,
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) hi = fmaxf(hi, pmax[w]);
   float lo = 0.0f;
+  ROW_CLUSTER_STAMP(2);                      // block max
 
   for (int it = 0; it < kIters; ++it) {
     const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
@@ -98,12 +103,14 @@ topk_block(const float* __restrict__ x, bool* __restrict__ out, long long n,
       hi = mid;
     }
   }
+  ROW_CLUSTER_STAMP(3);                      // 32 rounds
 
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const long long j = start + static_cast<long long>(i) * kThreads;
     if (j < n) out[base + j] = mag[i] >= lo;
   }
+  ROW_CLUSTER_STAMP(4);                      // mask stored
 }
 
 }  // namespace

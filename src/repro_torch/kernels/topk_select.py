@@ -33,8 +33,10 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
-def _block_lib():
-    fn = build.load("topk_block").topk_mask_block_rows
+def bind_block(lib: ctypes.CDLL):
+    """``lib``'s ``topk_mask_block_rows`` (a build of ``csrc/topk_block.cu``)
+    with its C signature set."""
+    fn = lib.topk_mask_block_rows
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -80,7 +82,7 @@ def topk_mask_block_rows(x: torch.Tensor, frac: float) -> torch.Tensor:
     rows, n = x.shape
     if not (0 < rows <= 65535 and 0 < n):
         raise ValueError(f"bad block top-k problem: rows={rows} n={n}")
-    fn = _block_lib()
+    fn = bind_block(build.load("topk_block"))
     out = torch.empty((rows, n), dtype=torch.bool, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
