@@ -926,9 +926,12 @@ def _np_leaves(tree):
 def _block_topk_phase(torch, dev):
     """The block-local top-k held BITWISE to its plain version on the cases
     of tests/test_kernels.py (as 3-row batches), ties at quarter steps,
-    all-zero rows and the main shape; timings at the main shape.  Returns
-    its record (launches filled in by ``_block_topk_path``), the main input
-    and the number of cases."""
+    all-zero rows, rows holding NaN, +-inf, subnormals and magnitudes near
+    the least normal, frac 1.0 and 1.5, rows 4 bytes off the mask's
+    alignment, and the main shape and the conv D's width (8 x 675,584);
+    timings at the main shape, and at the conv D's width under
+    ``at_conv_d_width``.  Returns its record (launches filled in by
+    ``_block_topk_path``), the main input and the number of cases."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_select as tt
 
@@ -939,11 +942,25 @@ def _block_topk_phase(torch, dev):
         return torch.randn(shape, generator=gen, device=dev)
 
     main = randn((MAIN_ROWS, MAIN_N)) * 2e-4
+    conv = randn((MAIN_ROWS, CONV_D_N)) * 2e-4
     zeros = torch.zeros((2, blk + 17), device=dev)
+    special = randn((7, 2 * blk + 100))
+    special[0, 5000] = float("nan")                   # slice 0 keeps all
+    special[0, :: 97] = float("inf")                  # but the NaN
+    special[1, 1:: 89] = float("-inf")
+    special[2, ::2] *= 1e-40                          # subnormals count 0
+    special[3] = (special[3].abs() + 0.5) * 1.1754944e-38   # subnormal mids
+    special[4, ::3] = float("inf")
+    special[5, blk:] = 0.0
+    special[6] *= 5e37                                # lo + h overflows
+    off = torch.empty(3 * 20011 + 1, device=dev)[1:].view(3, 20011)
+    off.copy_(randn((3, 20011)))                      # x 4 bytes off
     cases = [(randn((3, n)), frac) for n in (blk, 3 * blk, blk + 17, 5000)
              for frac in (0.01, 0.1, 0.5)]
     cases += [(torch.round(randn((3, 2 * blk + 100)) * 4) / 4, 0.1),
-              (zeros, 0.1), (main, FRAC)]
+              (zeros, 0.1), (main, FRAC), (main, 1.0), (conv, FRAC),
+              (conv, 0.01), (off, 0.1)]
+    cases += [(special, frac) for frac in (0.01, 0.1, 0.5, 1.0, 1.5)]
     for x, frac in cases:
         if not torch.equal(tt.topk_mask_block_rows(x, frac),
                            ref.topk_mask_block_ref(x, frac)):
@@ -951,27 +968,40 @@ def _block_topk_phase(torch, dev):
                                  f"{tuple(x.shape)} frac={frac}")
     if not tt.topk_mask_block_rows(zeros, 0.1).all():
         raise AssertionError("all-zero rows must keep every entry (lo = 0)")
+    nan_slice = tt.topk_mask_block_rows(special, 0.1)[0, :blk]
+    if int(nan_slice.sum()) != blk - 1:
+        raise AssertionError("a slice holding a NaN keeps every other entry")
 
-    nblk = -(-MAIN_N // blk)
-    k = ref.topk_k(blk, FRAC)
+    def lib_topk(x):
+        rows, n = x.shape
+        mag = torch.nn.functional.pad(x.abs(), (0, (-n) % blk)).view(-1, blk)
+        kth = torch.topk(mag, ref.topk_k(blk, FRAC), dim=1).values[:, -1:]
+        return (mag >= kth).view(rows, -1)[:, :n]
 
-    def lib_topk():
-        mag = torch.nn.functional.pad(main.abs(), (0, nblk * blk - MAIN_N))
-        mag = mag.view(-1, blk)
-        kth = torch.topk(mag, k, dim=1).values[:, -1:]
-        return (mag >= kth).view(MAIN_ROWS, -1)[:, :MAIN_N]
+    def record(x):
+        rows, n = x.shape
+        slots = rows * -(-n // blk) * blk
+        err = float((tt.topk_mask_block_rows(x, FRAC).float()
+                     - ref.topk_mask_block_ref(x, FRAC).float()).abs().max())
+        # bytes: x read once, the mask written once; operations: |x| and
+        # its pattern, the max, the first digit's count and the mask's
+        # compare over every (zero-padded) slot
+        return _record(torch, "topk_mask_block",
+                       "src/repro_torch/kernels/csrc/topk_block.cu",
+                       "src/repro/kernels/topk_select.py:65",
+                       lambda: tt.topk_mask_block_rows(x, FRAC),
+                       lambda: ref.topk_mask_block_ref(x, FRAC),
+                       lambda: lib_topk(x), nbytes=rows * n * 5,
+                       ops=slots * 4, err=err)
 
-    err = float((tt.topk_mask_block_rows(main, FRAC).float()
-                 - ref.topk_mask_block_ref(main, FRAC).float()).abs().max())
-    # bytes: x read once, the mask written once; operations: |x|, the max
-    # and 32 compare-and-count rounds over every (zero-padded) slot
-    rec = _record(torch, "topk_mask_block",
-                  "src/repro_torch/kernels/csrc/topk_block.cu",
-                  "src/repro/kernels/topk_select.py:65",
-                  lambda: tt.topk_mask_block_rows(main, FRAC),
-                  lambda: ref.topk_mask_block_ref(main, FRAC), lib_topk,
-                  nbytes=MAIN_ROWS * MAIN_N * 5,
-                  ops=MAIN_ROWS * nblk * blk * (2 * 32 + 2), err=err)
+    rec = record(main)
+    r = record(conv)
+    rec["at_conv_d_width"] = {
+        "shape": [MAIN_ROWS, CONV_D_N], "k": ref.topk_k(blk, FRAC),
+        **{key: r[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "share_of_bound", "max_abs_err")}}
+    del conv
     return rec, main, len(cases)
 
 

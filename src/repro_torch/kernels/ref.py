@@ -86,6 +86,21 @@ def topk_k(n: int, frac: float) -> int:
 
 BLOCK = 8 * 128 * 8      # the block-local top-k's slice (topk_select.py:40)
 _BISECT_ITERS = 32
+_MIN_NORMAL = 2.0 ** -126           # f32's least normal magnitude
+_INF_BITS = 0x7F800000
+
+
+def mag_bits(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` as int32 bit patterns, ``x`` cast to f32 first (the
+    reference's ``_mag_bits``, ``topk_select.py:94-99``): the patterns'
+    order is the magnitudes' order, with NaN above +inf."""
+    return x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
+
+
+def _flushed(v: torch.Tensor) -> torch.Tensor:
+    """``v >= 0`` with its subnormals as 0, as the reference's f32 takes
+    them (XLA on the CPU and the TPU flush subnormals to zero)."""
+    return torch.where(v < _MIN_NORMAL, torch.zeros_like(v), v)
 
 
 def topk_mask_block_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
@@ -94,31 +109,76 @@ def topk_mask_block_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
     ``BLOCK`` and every ``BLOCK`` slice keeps ``|x| >= lo`` after a 32-step
     f32 bisection (``lo = 0``, ``hi = max|x|``, ``mid = 0.5 * (lo + hi)``,
     ``count(|x| >= mid) >= k`` -> ``lo = mid`` else ``hi = mid``) with
-    ``k = max(int(BLOCK * frac), 1)``.  ``x`` is (N,) or (C, N); a row is
-    padded on its own."""
+    ``k = max(int(BLOCK * frac), 1)``, subnormal magnitudes and mids taken
+    as 0.  A NaN in a slice makes its ``hi`` NaN and keeps ``lo = 0``.
+    ``x`` is (N,) or (C, N); a row is padded on its own."""
     if x.ndim == 1:
         return topk_mask_block_ref(x[None], frac)[0]
     rows, n = x.shape
     k = topk_k(BLOCK, frac)
-    mag = torch.abs(x.to(torch.float32))
+    mag = _flushed(torch.abs(x.to(torch.float32)))
     mag = torch.nn.functional.pad(mag, (0, (-n) % BLOCK)).reshape(-1, BLOCK)
     hi = torch.amax(mag, dim=1)
     lo = torch.zeros_like(hi)
     half = torch.full_like(hi, 0.5)
     for _ in range(_BISECT_ITERS):
-        mid = half * (lo + hi)
+        mid = _flushed(half * (lo + hi))
         take = torch.sum(mag >= mid[:, None], dim=1) >= k
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     return (mag >= lo[:, None]).reshape(rows, -1)[:, :n]
 
 
+def topk_mask_block_select(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """The block top-k as the Hopper kernel computes it
+    (``csrc/topk_block.cu``): per zero-padded slice, ``hi`` the largest
+    ``|x|`` pattern (NaN above +inf), ``v_k`` the exact k-th largest pattern
+    (subnormals as 0), then the reference's 32 steps replayed on scalars
+    with ``count(|x| >= mid) >= k`` read as ``v_k >= mid`` (as ``2 v_k >=
+    lo + h`` where no mid can be subnormal or overflow); a NaN ``hi`` or
+    ``k > BLOCK`` keeps ``lo = 0``.  Equal to :func:`topk_mask_block_ref`
+    on every input.  A plain emulation for the tests; no path of the port
+    calls it."""
+    if x.ndim == 1:
+        return topk_mask_block_select(x[None], frac)[0]
+    rows, n = x.shape
+    k = topk_k(BLOCK, frac)
+    bits = mag_bits(x)
+    bits = torch.where(bits < 0x00800000, torch.zeros_like(bits), bits)
+    bits = torch.nn.functional.pad(bits, (0, (-n) % BLOCK)).reshape(-1, BLOCK)
+    hi_bits = torch.amax(bits, dim=1)
+    select = hi_bits <= _INF_BITS
+    if k <= BLOCK:
+        vk = torch.topk(bits, k, dim=1).values[:, -1].view(torch.float32)
+    else:
+        select = torch.zeros_like(select)
+        vk = torch.zeros(bits.shape[0], dtype=torch.float32, device=x.device)
+    # the kernel's fast replay: with v_k >= 2^-125 every mid is normal and
+    # exactly (lo + h) / 2, so v_k >= mid is 2 v_k >= lo + h (hi < 2^127:
+    # no overflow)
+    fast = (vk.view(torch.int32) >= 2 * 0x00800000) & (hi_bits < 0x7F000000)
+    hi = hi_bits.view(torch.float32)
+    lo = torch.zeros_like(hi)
+    half = torch.full_like(hi, 0.5)
+    vk2 = vk * 2.0
+    for _ in range(_BISECT_ITERS):
+        s = lo + hi
+        mid = torch.where(fast, half * s, _flushed(half * s))
+        take = select & torch.where(fast, vk2 >= s, vk >= mid)
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    mag = bits.view(torch.float32)
+    return (mag >= lo[:, None]).reshape(rows, -1)[:, :n]
+
+
 def topk_mask_global_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
-    """Row-wise full-vector top-k: keep entries with ``|x| >=`` the k-th
-    largest magnitude of their row (ties kept).  ``x`` is (N,) or (C, N)."""
-    k = topk_k(x.shape[-1], frac)
-    mag = torch.abs(x)
-    kth = torch.topk(mag, k, dim=-1).values[..., -1:]
-    return mag >= kth
+    """Row-wise full-vector top-k: keep entries whose ``|x|`` bit pattern is
+    ``>=`` the k-th largest pattern of their row (ties kept), ordered as
+    the reference and the kernel order them (:func:`mag_bits`: a NaN is
+    above +inf, so it is always kept).  ``k`` over N keeps every entry, as
+    k = N does.  ``x`` is (N,) or (C, N)."""
+    k = min(topk_k(x.shape[-1], frac), x.shape[-1])
+    bits = mag_bits(x)
+    kth = torch.topk(bits, k, dim=-1).values[..., -1:]
+    return bits >= kth
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):

@@ -59,16 +59,71 @@ def test_topk_kernel_beyond_shared_memory_and_one_wave(cuda, rows, n):
                                ref.topk_mask_global_ref(t, frac))
 
 
-@pytest.mark.parametrize("n", [5000, 8192, 8192 + 17, 3 * 8192, 267009])
-@pytest.mark.parametrize("frac", [0.01, 0.1, 0.5])
-def test_block_topk_kernel_matches_plain_bitwise(cuda, n, frac):
-    x = _rows((8, n), n).to(cuda)
+def _special_rows(x):
+    """Rows 1-7 of ``x`` (8, n) made hard: ties, an all-zero row, zero tail
+    slices, a NaN and +-inf, subnormals among normals, magnitudes near the
+    least normal (subnormal mids), +inf and magnitudes near the largest
+    float."""
+    n = x.shape[1]
     x[1] = torch.round(x[1] * 4) / 4           # ties
     x[2] = 0.0                                 # all-zero row: lo = 0
     x[3, n // 3:] = 0.0                        # zero tail slices
-    got = ttopk.topk_mask_block_rows(x, frac)
-    assert torch.equal(got, ref.topk_mask_block_ref(x, frac))
-    assert got[2].all()
+    x[4, n // 2] = float("nan")                # its slice keeps all but NaN
+    x[4, :: 97] = float("inf")
+    x[4, 1:: 89] = float("-inf")
+    x[5, ::2] *= 1e-40                         # subnormals count as 0
+    x[6] = (x[6].abs() + 0.5) * 1.1754944e-38  # mids go subnormal
+    x[7, : n // 2: 3] = float("inf")
+    x[7, n // 2:] *= 5e37                      # lo + h overflows
+    return x
+
+
+@pytest.mark.parametrize("n", [5000, 8192, 8192 + 17, 3 * 8192, 267009,
+                               675584])
+@pytest.mark.parametrize("frac", [0.01, 0.1, 0.5, 1.0])
+def test_block_topk_kernel_matches_plain_bitwise(cuda, n, frac):
+    """Every row case, with x aligned as the mask is and one element off
+    (an odd offset into a larger buffer: scalar loads), and the CPU's plain
+    version and kernel emulation on the same rows."""
+    x = _special_rows(_rows((8, n), n)).to(cuda)
+    off = torch.empty(8 * n + 1, device=cuda)[1:].view(8, n)
+    off.copy_(x)
+    want = ref.topk_mask_block_ref(x, frac)
+    for t in (x, off):
+        assert torch.equal(ttopk.topk_mask_block_rows(t, frac), want)
+    assert torch.equal(ref.topk_mask_block_select(x, frac), want)
+    assert torch.equal(ref.topk_mask_block_ref(x.cpu(), frac), want.cpu())
+    assert want[2].all()
+
+
+def test_topk_kernel_keeps_nan_like_the_plain_version(cuda):
+    """A NaN is above +inf in the bit order of the reference and of B1, so
+    the global mask always keeps it; the repaired plain version agrees."""
+    x = _rows((4, 16389), 5).to(cuda)
+    x[0, 1638] = float("nan")
+    x[1, :: 7] = float("nan")
+    x[2, 5] = float("inf")
+    x[2, 6] = float("nan")
+    x[3, :] = float("nan")
+    for frac in (0.01, 0.1, 1.0):
+        got = ttopk.topk_mask_rows(x, frac)
+        assert torch.equal(got, ref.topk_mask_global_ref(x, frac))
+        assert got[x.isnan()].all()
+    assert int(ttopk.topk_mask_rows(x, 0.1)[0].sum()) == 1638
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [False, True])
+def test_topk_wrappers_cast_half_rows_to_f32(cuda, dtype, block):
+    """bf16 / f16 rows are cast to f32 first, as the reference casts them."""
+    x = _rows((3, 20011), 9).to(cuda).to(dtype)
+    x[1] = torch.round(x[1] * 4) / 4
+    fn, plain = ((ttopk.topk_mask_block_rows, ref.topk_mask_block_ref)
+                 if block else (ttopk.topk_mask_rows,
+                                ref.topk_mask_global_ref))
+    got = fn(x, 0.1)
+    assert torch.equal(got, plain(x.float(), 0.1))
+    assert torch.equal(got, plain(x.cpu(), 0.1).to(cuda))
 
 
 @pytest.mark.parametrize("stochastic", [False, True])

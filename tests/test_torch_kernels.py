@@ -69,14 +69,82 @@ def test_topk_plain_degenerate_rows():
     assert ops.topk_mask(torch.zeros(300), 0.1).all()
 
 
+def _special_row(case, n=16389):
+    x = _normal((n,), 41)
+    if case == "nan":                       # one NaN: the reference keeps it
+        x[int(n * 0.1)] = np.nan
+    elif case == "nans":
+        x[:: 1000] = np.nan
+    elif case == "all_nan":
+        x[:] = np.nan
+    elif case == "inf":
+        x[:: 97] = np.inf
+    elif case == "neg_inf":
+        x[1:: 89] = -np.inf
+    elif case == "nan_inf":
+        x[:: 97] = np.inf
+        x[5] = np.nan
+        x[6] = -np.nan
+    elif case == "subnormals":
+        x[::2] *= np.float32(1e-40)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("frac", [0.01, 0.1, 1.0])
+@pytest.mark.parametrize("case", ["nan", "nans", "all_nan", "inf", "neg_inf",
+                                  "nan_inf", "subnormals"])
+def test_topk_plain_orders_nan_and_inf_like_reference(case, frac):
+    """The global mask orders |x| by its bit pattern, as the reference and
+    B1 do: NaN above +inf, so a NaN is always kept."""
+    x = _special_row(case)
+    got = ops.topk_mask(torch.from_numpy(x), frac).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.topk_mask(jnp.asarray(x), frac)))
+    assert got[np.isnan(x)].all()
+
+
+def test_topk_plain_bit_order_equals_value_order_on_finite_rows():
+    """On finite rows the bit-pattern threshold is the value threshold:
+    the mask is what ``torch.topk`` over the magnitudes gives."""
+    x = _normal((4, BLOCK + 17), 13)
+    x[1] = np.round(x[1] * 4) / 4
+    x[2, ::2] = 0.0
+    x[2, 1::4] = -0.0
+    x[3, ::2] *= np.float32(1e-40)
+    t = torch.from_numpy(x)
+    for frac in (0.01, 0.1, 0.5, 1.0):
+        mag = t.abs()
+        kth = torch.topk(mag, max(int(t.shape[1] * frac), 1),
+                         dim=-1).values[..., -1:]
+        assert torch.equal(ref.topk_mask_global_ref(t, frac), mag >= kth)
+
+
+def test_topk_plain_frac_over_one_and_half_rows_match_reference():
+    """k over N keeps every entry, as the reference's bisection does; bf16
+    and f16 rows are cast to f32 first, as the reference casts them."""
+    x = _special_row("nan_inf", 5000)
+    got = ops.topk_mask(torch.from_numpy(x), 1.5).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.topk_mask(jnp.asarray(x), 1.5)))
+    assert got.all()
+    for dtype, jdtype in ((torch.bfloat16, jnp.bfloat16),
+                          (torch.float16, jnp.float16)):
+        h = torch.from_numpy(np.round(_normal((3, 5000), 3) * 8) / 8).to(dtype)
+        got = ops.topk_mask(h, 0.1).numpy()
+        for r in range(3):
+            np.testing.assert_array_equal(got[r], np.asarray(jops.topk_mask(
+                jnp.asarray(h[r].float().numpy()).astype(jdtype), 0.1)))
+
+
 def test_topk_row_batched_equals_per_row_reference():
     """One (C, N) call equals C per-row reference calls (the reference's
     per-user list at approaches.py:224-227)."""
-    x = _normal((4, BLOCK + 5), 7)
+    x = _normal((5, BLOCK + 5), 7)
     x[1] = np.round(x[1] * 2) / 2          # a row with ties
     x[3] = 0.0                             # an all-zero row
+    x[4, :: 50] = np.nan                   # NaN rows keep their NaNs
     got = ops.topk_mask(torch.from_numpy(x), 0.1).numpy()
-    for r in range(4):
+    for r in range(5):
         np.testing.assert_array_equal(
             got[r], np.asarray(jops.topk_mask(jnp.asarray(x[r]), 0.1)))
 
