@@ -290,6 +290,17 @@ def participation_weights(schedule: np.ndarray, num_users: int, *,
 # Selection masks (row-batched)
 # ---------------------------------------------------------------------------
 
+def topk_mask(rows: torch.Tensor, frac: float) -> torch.Tensor:
+    """The reference's non-kernel ``topk_mask``, row-wise: ``|x| >=`` the
+    k-th largest ``|x|`` of the row by value (ties kept).  A NaN compares
+    false, so it is never kept, unlike the kernels' bit-pattern order
+    (``kernels/ref.py::topk_mask_global_ref``)."""
+    mag = torch.abs(rows)
+    kth = torch.topk(mag, kref.topk_k(rows.shape[-1], frac), dim=-1
+                     ).values[..., -1:]
+    return mag >= kth
+
+
 def threshold_mask(rows: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.abs(rows) > tau
 
@@ -319,13 +330,12 @@ def select_delta_flat(rows: torch.Tensor, policy: Selection, *, frac=0.1,
     Returns ``(masked (C, N), kept_fraction (C,))``.  ``use_kernel``
     routes top-k through ``kernels.ops.topk_mask`` — the Hopper kernel on
     a CUDA tensor, its plain version on a CPU tensor — one launch for all
-    C rows; without it, top-k is the ``torch.topk`` version on any
-    device (the reference's non-kernel ``topk_mask``)."""
+    C rows; without it, top-k is :func:`topk_mask` on any device."""
     if policy == "none":
         return rows, torch.ones(rows.shape[0], device=rows.device)
     if policy == "topk":
         mask = (kops.topk_mask(rows, frac) if use_kernel
-                else kref.topk_mask_global_ref(rows, frac))
+                else topk_mask(rows, frac))
     elif policy == "threshold":
         mask = threshold_mask(rows, tau)
     elif policy == "random":
@@ -334,7 +344,9 @@ def select_delta_flat(rows: torch.Tensor, policy: Selection, *, frac=0.1,
     else:
         raise ValueError(policy)
     kept = mask.to(torch.float32).mean(dim=1)
-    return rows * mask, kept
+    # the reference's ``flat * mask`` is a select under XLA: a dropped
+    # entry is +0 even where it is NaN, inf or negative
+    return torch.where(mask, rows, 0.0), kept
 
 
 # ---------------------------------------------------------------------------

@@ -151,31 +151,15 @@ __device__ __forceinline__ uint32_t warp_select(const Smem& sm, const Fixed& f,
 }
 
 // The reference's 32 bisection steps from hi, count(mag >= mid) >= k read
-// as v_k >= mid, each mid rounded on its own (__fadd_rn, __fmul_rn).
+// as v_k >= mid, each mid rounded on its own (__fadd_rn, __fmul_rn) and
+// flushed to 0 where it is subnormal.
 __device__ __forceinline__ float replay(uint32_t hi, uint32_t vk_bits) {
   const float vk = __uint_as_float(vk_bits);
   float lo = 0.0f, h = __uint_as_float(hi);
-  if (vk_bits >= 2 * kMinNormal && hi < 0x7F000000u) {
-    // v_k <= h, so every mid >= h / 2 >= v_k / 2 is normal and exactly
-    // (lo + h) / 2: v_k >= mid <=> 2 v_k >= lo + h, which with hi < 2^127
-    // cannot overflow, and the compare waits on one add
-    const float vk2 = 2.0f * vk;
 #pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const float s = __fadd_rn(lo, h);
-      const float mid = __fmul_rn(0.5f, s);
-      const bool take = vk2 >= s;
-      lo = take ? mid : lo;
-      h = take ? h : mid;
-    }
-    return lo;
-  }
-  // v_k near the subnormals or hi near the overflow: the steps as written,
-  // subnormal mids flushed (rare, so left rolled)
-#pragma unroll 1
   for (int it = 0; it < kIters; ++it) {
     float mid = __fmul_rn(0.5f, __fadd_rn(lo, h));
-    mid = mid < __uint_as_float(kMinNormal) ? 0.0f : mid;   // flushed
+    mid = mid < __uint_as_float(kMinNormal) ? 0.0f : mid;
     const bool take = vk >= mid;
     lo = take ? mid : lo;
     h = take ? h : mid;

@@ -133,8 +133,7 @@ def topk_mask_block_select(x: torch.Tensor, frac: float) -> torch.Tensor:
     (``csrc/topk_block.cu``): per zero-padded slice, ``hi`` the largest
     ``|x|`` pattern (NaN above +inf), ``v_k`` the exact k-th largest pattern
     (subnormals as 0), then the reference's 32 steps replayed on scalars
-    with ``count(|x| >= mid) >= k`` read as ``v_k >= mid`` (as ``2 v_k >=
-    lo + h`` where no mid can be subnormal or overflow); a NaN ``hi`` or
+    with ``count(|x| >= mid) >= k`` read as ``v_k >= mid``; a NaN ``hi`` or
     ``k > BLOCK`` keeps ``lo = 0``.  Equal to :func:`topk_mask_block_ref`
     on every input.  A plain emulation for the tests; no path of the port
     calls it."""
@@ -152,18 +151,12 @@ def topk_mask_block_select(x: torch.Tensor, frac: float) -> torch.Tensor:
     else:
         select = torch.zeros_like(select)
         vk = torch.zeros(bits.shape[0], dtype=torch.float32, device=x.device)
-    # the kernel's fast replay: with v_k >= 2^-125 every mid is normal and
-    # exactly (lo + h) / 2, so v_k >= mid is 2 v_k >= lo + h (hi < 2^127:
-    # no overflow)
-    fast = (vk.view(torch.int32) >= 2 * 0x00800000) & (hi_bits < 0x7F000000)
     hi = hi_bits.view(torch.float32)
     lo = torch.zeros_like(hi)
     half = torch.full_like(hi, 0.5)
-    vk2 = vk * 2.0
     for _ in range(_BISECT_ITERS):
-        s = lo + hi
-        mid = torch.where(fast, half * s, _flushed(half * s))
-        take = select & torch.where(fast, vk2 >= s, vk >= mid)
+        mid = _flushed(half * (lo + hi))
+        take = select & (vk >= mid)
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     mag = bits.view(torch.float32)
     return (mag >= lo[:, None]).reshape(rows, -1)[:, :n]

@@ -14,17 +14,11 @@ D's width), beside two yardsticks at both shapes: ``copy_floor``, one
 PyTorch elementwise kernel that reads the same f32 and writes the bools
 (``torch.ge(x, 0)``), the floor that the bytes and one launch set; and
 ``library``, ``torch.topk`` over the zero-padded 8192-slices and a compare.
-``--block`` runs only the block top-k's lines.  ``--variant SOURCE[:FLAGS]``
-(repeatable) times copies of ``csrc/topk_block.cu`` against the package's
-build instead: each built with the package's flags, ``-I csrc`` and FLAGS
-(separated by commas) beside the package's build, called through its C
-entry point at both shapes, held to the plain version, and timed in turns
-(package, A, B, ..., B, A, package) by device ms; with ``--stamps`` each
-variant's stamps are printed too.  ``--src`` times the kernels of another source tree instead (for
-example the parent commit unpacked with ``git archive``): its
-``repro_torch`` is imported in place of this one, so two versions can be
-timed in turns on one card, each in its own process.  Prints one JSON line
-per kernel:
+``--block`` runs only the block top-k's lines.  ``--src`` times the
+kernels of another source tree instead (for example the parent commit
+unpacked with ``git archive``): its ``repro_torch`` is imported in place of
+this one, so two versions can be timed in turns on one card, each in its
+own process.  Prints one JSON line per kernel:
 
 * ``event_ms``: CUDA-event time of one call, host enqueue included (median
   of ``--reps`` after warm-up), what the host-bound round pays;
@@ -50,7 +44,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-from pathlib import Path
 
 import torch
 
@@ -116,77 +109,26 @@ def stamps(x) -> None:
             lambda sr=stochastic: quant(
                 x.data_ptr(), q.data_ptr(), scale.data_ptr(), rows, n,
                 int(sr), None, SEED, stream)))
+    host = (ctypes.c_longlong * 32)()
     for name, lib, phases, launch in runs:
+        for _ in range(3):
+            build.check(launch(), name)
+        torch.cuda.synchronize()
+        build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
+        build.check(launch(), name)
+        torch.cuda.synchronize()
+        build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
+        t = list(host)
+        cycles, last = {}, 0            # an early stop leaves passes unset
+        for i, phase in enumerate(phases, start=1):
+            if t[i]:
+                cycles[phase] = t[i] - t[last]
+                last = i
         print(json.dumps({"kernel": name, "stamps_of": "thread 0, CTA 0, row 0",
                           "shape": [rows, n],
                           "device": torch.cuda.get_device_name(0),
-                          **phase_cycles(lib, phases,
-                                         lambda f=launch, name=name:
-                                         build.check(f(), name))}),
+                          "cycles": cycles, "total_cycles": t[last] - t[0]}),
               flush=True)
-
-
-def phase_cycles(lib, phases, launch) -> dict:
-    """SM cycles between the stamps (``csrc/row_cluster.cuh``) of one
-    ``launch`` after three warm-up launches, by phase name; a phase whose
-    stamp was not reached (an early stop) is left out."""
-    from repro_torch.kernels import build
-    host = (ctypes.c_longlong * 32)()
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
-    launch()
-    torch.cuda.synchronize()
-    build.check(lib.row_cluster_stamps(host), "row_cluster_stamps")
-    t = list(host)
-    cycles, last = {}, 0
-    for i, phase in enumerate(phases, start=1):
-        if t[i]:
-            cycles[phase] = t[i] - t[last]
-            last = i
-    return {"cycles": cycles, "total_cycles": t[last] - t[0]}
-
-
-def block_variants(specs, inputs, reps: int, with_stamps: bool) -> None:
-    """The package's block top-k against copies of its source, in turns."""
-    from repro_torch.kernels import build, ref
-    from repro_torch.kernels import topk_select as tt
-    libs = [("package", build.load_variant("topk_block", "profile_pkg",
-                                           STAMP_FLAGS)
-             if with_stamps else build.load("topk_block"))]
-    for i, spec in enumerate(specs):
-        path, _, flags = spec.partition(":")
-        extra = tuple(f for f in flags.split(",") if f) + (
-            "-I", str(build.CSRC)) + (STAMP_FLAGS if with_stamps else ())
-        libs.append((spec, build.load_variant(
-            "topk_block", f"profile_codec_{i}", extra, Path(path))))
-    k = ref.topk_k(ref.BLOCK, FRAC)
-    for x in inputs:
-        rows, n = x.shape
-        out = torch.empty((rows, n), dtype=torch.bool, device=x.device)
-        want = ref.topk_mask_block_ref(x, FRAC)
-        lines = []
-        for name, lib in libs:
-            fn = tt.bind_block(lib)
-
-            def launch(fn=fn, name=name):
-                build.check(fn(x.data_ptr(), out.data_ptr(), rows, n, k,
-                               torch.cuda.current_stream().cuda_stream), name)
-            out.zero_()
-            launch()
-            lines.append({"variant": name, "shape": [rows, n],
-                          "exact": torch.equal(out, want), "device_ms": [],
-                          "launch": launch, "lib": lib})
-        for line in lines + lines[::-1]:
-            line["device_ms"].append(graph_ms(line["launch"], reps))
-        for line in lines:
-            if with_stamps:
-                line |= phase_cycles(line["lib"], BLOCK_PHASES,
-                                     line["launch"])
-            del line["launch"], line["lib"]
-            line["device"] = torch.cuda.get_device_name(0)
-            print(json.dumps(line), flush=True)
 
 
 def main_input(dev, n=MAIN_N):
@@ -218,9 +160,6 @@ def main(argv=None) -> int:
                     help="print the phase stamps of the kernels instead")
     ap.add_argument("--block", action="store_true",
                     help="time only the block top-k and its yardsticks")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="SOURCE[:FLAGS], a copy of csrc/topk_block.cu to "
-                         "time against the package's (repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_codec needs a CUDA device")
@@ -231,10 +170,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels import topk_select as tt
 
     x = main_input(torch.device("cuda"))
-    if args.variant:
-        block_variants(args.variant, (x, main_input(x.device, CONV_N)),
-                       args.reps, args.stamps)
-        return 0
     if args.stamps:
         stamps(x)
         return 0

@@ -65,6 +65,47 @@ def test_select_rows_match_per_row_reference_bitwise():
         assert float(kept[r]) == pytest.approx(float(k), abs=1e-7)
 
 
+def _special_row(case, n=16389):
+    x = np.random.default_rng(41).normal(size=n).astype(np.float32)
+    if case == "nan":
+        x[int(n * 0.1)] = np.nan
+    elif case == "nans":
+        x[:: 1000] = np.nan
+    elif case == "all_nan":
+        x[:] = np.nan
+    elif case == "inf":
+        x[:: 97] = np.inf
+    elif case == "neg_inf":
+        x[1:: 89] = -np.inf
+    elif case == "inf_dropped":            # more infs than k: ties kept
+        x[:: 7] = np.inf
+        x[3:: 7] = -np.inf
+    elif case == "nan_inf":
+        x[:: 97] = np.inf
+        x[5] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("frac", [0.01, 0.1])
+@pytest.mark.parametrize("case", ["nan", "nans", "all_nan", "inf", "neg_inf",
+                                  "inf_dropped", "nan_inf"])
+def test_select_topk_nan_and_inf_rows_match_reference_bitwise(case, frac,
+                                                              use_kernel):
+    """Both top-k routes on rows holding NaN or +-inf, bit for bit: the
+    non-kernel mask orders |x| by value (a NaN is dropped), the kernel's by
+    bit pattern (a NaN is kept), and a dropped entry is +0 as the
+    reference's masking leaves it."""
+    x = _special_row(case)
+    got, kept = tfed.select_delta_flat(torch.from_numpy(x[None]), "topk",
+                                       frac=frac, use_kernel=use_kernel)
+    m, k = jfed.select_delta_flat(jnp.asarray(x), "topk", frac=frac,
+                                  use_kernel=use_kernel)
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  np.asarray(m).view(np.int32))
+    assert float(kept[0]) == pytest.approx(float(k), abs=1e-7)
+
+
 def test_combine_max_abs_matches_reference_on_ties():
     """Rows that tie in magnitude (also with opposite signs): the first
     user wins, as with jnp.argmax."""

@@ -250,7 +250,8 @@ def _stamp_indices(src):
 
 @pytest.mark.parametrize("src,phases", [
     ("topk_select", profile_codec.TOPK_PHASES),
-    ("quantize", profile_codec.QUANT_PHASES)])
+    ("quantize", profile_codec.QUANT_PHASES),
+    ("topk_block", profile_codec.BLOCK_PHASES)])
 def test_stamp_variant_names_every_phase(monkeypatch, src, phases):
     """``profile_codec --stamps`` builds the source with the package's
     flags and ``-DROW_CLUSTER_STAMPS``, and names one phase per stamp after
