@@ -18,6 +18,9 @@ it goes wrong:
    rows at an odd address, a seed in device memory, and both kernels
    replayed from a CUDA graph with new rows and a new seed written into its
    buffers), each of them one device operation per call (torch.profiler);
+   the codec also on the rows where the reference's f32 flushes
+   subnormals (an absmax below 127 * 2^-126, subnormal entries, inf and
+   NaN entries; subnormal, NaN and inf scales into dequantize);
    flash attention
    at tinyllama-1.1b's full width (B 4, S 2048, 32 q heads over 4 kv heads,
    hd 64; causal and window 128) on both routes: bf16 on the wgmma kernel
@@ -62,13 +65,26 @@ it goes wrong:
    16 + 16 rounds each with 8 users, and approach 2 with a cohort of 4 of
    16 users; finite losses.  A small cohort session with error-fed int8
    uploads on the card and on the CPU must agree;
-7. graphs against the eager chunk — each main-path run, the cohort U = 256
+7. host streaming — the ``host`` backend at full MLP width: approach 1,
+   ``topk_int8`` with error feedback, a uniform cohort of 8 of U = 256 and
+   U = 1024 users, whose (U, N) store lives in pinned host memory, 64
+   rounds in each of five modes: (a) the synchronous stream, (b) without
+   data prefetch, (c) one round in flight, (d) superbatch windows of 16,
+   (e) int8 row staging.  One top-k, quantize and dequantize launch per
+   round (one more quantize and dequantize on (e)'s legs); (a) and (b) held
+   to the device cohort engine on the same schedule and (d) to (a) within
+   1e-6 per round and on the final store, ages and staleness bitwise; peak
+   device memory must not grow with U.  Prints ms per round, host stall
+   per round, pinned and device GB, the U = 1024 / U = 256 ratio and the
+   stall ratio (c) / (b).  Small host sessions on the card and on the CPU
+   must agree;
+8. graphs against the eager chunk — each main-path run, the cohort U = 256
    run on both engines and approaches 2, 3 and the baseline, 48 rounds from
    one seed through the eager chunk and through the CUDA graphs the session
    replays: carries and losses bitwise equal, the graph's steady ms per
    round no higher, the peak device memory of each; windows of 5 + 6 rounds
    equal to one of 11 under graphs;
-8. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
+9. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
    and its cross-entropy) of tinyllama-1.1b with ``use_flash=True``, then
    of mamba2-780m with ``use_ssm_kernel=True``, at their full published
    width in bf16, random weights from seed 0 on the card, answering three
@@ -85,7 +101,7 @@ it goes wrong:
    the f32 route once per layer.  The reduced f32 configs from one seed on
    the card (kernels, f32 route) and on the CPU (plain versions) must agree
    at the reference's tolerances;
-9. checkpoints — the main path (approach 1, ``topk_int8`` with stochastic
+10. checkpoints — the main path (approach 1, ``topk_int8`` with stochastic
    rounding, chunks of 16): 16 rounds, ``save``, then a fresh process
    (this script with ``--resume-main``) restores, runs 16 rounds and saves;
    its state and losses must equal an uninterrupted 32-round run BITWISE
@@ -95,7 +111,7 @@ it goes wrong:
    error-feedback residual too).  One run with ``autosave_every=8`` whose
    autosaves hold the uninterrupted trajectory.  Save and restore wall
    seconds and the checkpoints' bytes are printed;
-10. the conv pair — (a) the DCGAN pair at the paper's CelebA/LSUN width
+11. the conv pair — (a) the DCGAN pair at the paper's CelebA/LSUN width
    (64 x 64 x 3, z 100, 64 base filters: 2,297,728 G and 675,584 D
    parameters), approach 1, 8 users of Dirichlet(0.5)-split digit-like
    images at 64 x 64 (tiled to 3 channels), batch 64, ``topk_int8`` with
@@ -112,7 +128,7 @@ it goes wrong:
    the same weights on the card and on the CPU must agree within
    ``CONV_LOSS_RTOL`` (losses) and ``CONV_LEAF_REL`` / ``CONV_LEAF_LR_STEPS``
    (every state leaf);
-11. the result: a ``kernels`` JSON line, the card line, and as the last
+12. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -249,6 +265,7 @@ def _kernel_phase(torch, dev):
                 raise AssertionError(f"dequantize_rows != plain at "
                                      f"{tuple(x.shape)}")
 
+    _subnormal_codec_check(torch, tq, ref, dev)
     seed_t = torch.full((1,), 2**31 - 2, dtype=torch.int32, device=dev)
     if not all(torch.equal(a, b) for a, b in zip(
             tq.quantize_rows(many, stochastic=True, seed=seed_t),
@@ -301,6 +318,63 @@ def _kernel_phase(torch, dev):
            lambda: ref.dequantize_rows_ref(q_main, s_main), None,
            nbytes=elems + MAIN_ROWS * 4 + elems * 4, ops=elems, err=deq_err)
     return recs, len(topk_cases), len(codec_cases)
+
+
+def _codec_edge_rows(torch, dev, n: int):
+    """Rows of n where the reference's f32 flushes: an absmax below 127 *
+    2^-126 (scale 0), subnormal entries under a subnormal and under a normal
+    scale, inf entries (inf times inv = 0 is NaN, coded 0), a NaN, and
+    magnitudes just above the least normal scale."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((7, n), generator=gen, device=dev)
+    tiny = 127 * 2.0 ** -126
+    x[0] *= 1e-37
+    x[1] = 5e-39
+    x[1, 0] = 1e-36
+    x[2] *= 1e-38
+    x[2, 0] = 3 * tiny
+    x[3, ::7] = float("inf")
+    x[3, 1::11] = float("-inf")
+    x[4, n // 2] = float("nan")
+    x[5] = x[5].abs() * 2.0 ** -126 + tiny
+    x[6] *= 2e-4                                  # a normal row beside them
+    return x
+
+
+def _same_floats(torch, a, b) -> bool:
+    """Equal bit patterns (so signed zeros too), NaN where NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _subnormal_codec_check(torch, tq, ref, dev) -> None:
+    """B2 on the flushed edges, BITWISE against the plain versions: the
+    edge rows at the main width, at 1 and 4096 elements and beyond shared
+    memory, both rounding modes; dequantize with subnormal, least-normal,
+    zero, NaN and inf scales."""
+    for n in (1, 4096, MAIN_N, BIG_N):
+        x = _codec_edge_rows(torch, dev, n)
+        for stochastic, seed in ((False, None), (True, 123)):
+            q, s = tq.quantize_rows(x, stochastic=stochastic, seed=seed)
+            qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic,
+                                           seed=seed)
+            if not (torch.equal(q, qr) and _same_floats(torch, s, sr)):
+                raise AssertionError(f"quantize_rows != plain on the edge "
+                                     f"rows (n={n}, stochastic={stochastic})")
+            if n > 1 and (q[0].any() or q[1].any() or q[3].any()):
+                raise AssertionError("a flushed row kept nonzero codes")
+            if not _same_floats(torch, tq.dequantize_rows(q, s),
+                                ref.dequantize_rows_ref(qr, sr)):
+                raise AssertionError(f"dequantize_rows != plain on the edge "
+                                     f"rows (n={n})")
+    q = torch.randint(-127, 128, (6, MAIN_N), dtype=torch.int8, device=dev)
+    scale = torch.tensor([3e-39, 2.0 ** -126, 0.0, float("nan"),
+                          float("inf"), 1e-3], device=dev)
+    got, want = tq.dequantize_rows(q, scale), ref.dequantize_rows_ref(q, scale)
+    if not _same_floats(torch, got, want) or got[0].any():
+        raise AssertionError("dequantize_rows != plain with subnormal, NaN "
+                             "and inf scales")
 
 
 def _graph_replay_check(torch, tt, tq, ref, main) -> None:
@@ -799,19 +873,20 @@ def _digits_dataset(num_users: int, size: int, per_class: int):
 def _session(pair, dataset, num_users, codec, stochastic, device,
              batch=64, rpj=16, eval_samples=256, approach="approach1",
              scheduler="full", cohort=None, fuse=False, ef=False,
-             combiner="max_abs", fcfg=None):
-    from repro_torch.core.approaches import DistGANConfig
+             combiner="max_abs", fcfg=None, backend=None, stage_rows=False):
     from repro_torch.core.session import FederationSession
-    from repro_torch.core.spec import (CombineSpec, CompressionSpec,
-                                       EngineSpec, FederationSpec,
-                                       ParticipationSpec)
+    from repro_torch.core.spec import (BackendSpec, CombineSpec,
+                                       CompressionSpec, EngineSpec,
+                                       FederationSpec, ParticipationSpec)
     spec = FederationSpec(
         approach, batch_size=batch, seed=0, eval_samples=eval_samples,
         engine=EngineSpec(kind="fused", rounds_per_jit=rpj,
                           fuse_store_rounds=fuse),
         participation=ParticipationSpec(scheduler, cohort_size=cohort),
+        backend=backend or BackendSpec(),
         combine=CombineSpec(combiner=combiner, compression=CompressionSpec(
-            codec=codec, error_feedback=ef, stochastic=stochastic)))
+            codec=codec, error_feedback=ef, stochastic=stochastic,
+            stage_rows=stage_rows)))
     return FederationSession(pair, fcfg or _fcfg(num_users), dataset, spec,
                              device=device)
 
@@ -1320,6 +1395,240 @@ def _cohort_cpu_agreement(torch, dev) -> dict:
         np.testing.assert_allclose(x, y, atol=2e-3, rtol=1e-3)
         diffs.append(float(np.max(np.abs(np.asarray(x, np.float64) - y))))
     return {"cohort_topk_int8_sr_ef": max(diffs)}
+
+
+# ---------------------------------------------------------------------------
+# Host streaming
+# ---------------------------------------------------------------------------
+
+HOST_C, HOST_US, HOST_ROUNDS, HOST_K = 8, (256, 1024), 64, 16
+# (a) synchronous stream, (b) without data prefetch, (c) one round in
+# flight (bounded staleness), (d) superbatch windows of HOST_K rounds,
+# (e) int8 row staging
+HOST_MODES = {"a_sync": {}, "b_no_prefetch": dict(prefetch=False),
+              "c_async1": dict(async_rounds=1),
+              "d_superbatch": dict(fuse=True),
+              "e_stage_rows": dict(stage_rows=True)}
+# the host stream against the device cohort engine, and the superbatch
+# against the stream: per round and on the final store
+HOST_ATOL = 1e-6
+
+
+def _max_diff(torch, a, b) -> float:
+    """max |a - b| in f32 on the card (either may be a host array)."""
+    dev = torch.device("cuda")
+    return float((torch.as_tensor(a).to(dev)
+                  - torch.as_tensor(b).to(dev)).abs().max())
+
+
+def _host_session(torch, pair, dataset, U, dev, mode_kw):
+    from repro_torch.core.spec import BackendSpec
+    backend = BackendSpec("host", async_rounds=mode_kw.get("async_rounds", 0),
+                          prefetch=mode_kw.get("prefetch", True),
+                          materialize_state=False)
+    return _session(pair, dataset, U, "topk_int8", False, dev,
+                    eval_samples=0, scheduler="uniform", cohort=HOST_C,
+                    ef=True, rpj=HOST_K, fuse=mode_kw.get("fuse", False),
+                    backend=backend,
+                    stage_rows=mode_kw.get("stage_rows", False))
+
+
+def _host_phase(torch, dev):
+    """The host streaming backend at the paper's MLP width: approach 1,
+    topk_int8 with error feedback, a uniform cohort of 8 of U = 256 and U =
+    1024 users whose (U, N) store (D, Adam moments, residual) lives in
+    pinned host memory, batch 64, 64 rounds in each mode of HOST_MODES.
+    Launch counts zeroed per run: one top-k, quantize and dequantize per
+    round in the graph, one more quantize and dequantize per round on the
+    int8 row legs.  (a) and (b) held to the device cohort engine on the
+    same schedule and (d) to (a), per round and on the final store, within
+    HOST_ATOL, ages and staleness bitwise; (c) ages by its lag.  Peak
+    device memory (above what was allocated before the run) must not grow
+    with U.  Returns (lines, launch totals, summary)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    pair = _paper_pair()
+    totals = dict.fromkeys(("topk_mask_rows", "quantize_rows",
+                            "dequantize_rows"), 0)
+    lines, summary = [], {"ms_per_round": {}, "stall_ms_per_round": {},
+                          "peak_device_gb": {}, "pinned_host_gb": {},
+                          "vs_device_cohort_max_abs": {},
+                          "superbatch_vs_sync_max_abs": {}}
+    for U in HOST_US:
+        dataset = _digits_dataset(U, 28, 400)
+        kept = {}
+        for mode, kw in HOST_MODES.items():
+            sess = _host_session(torch, pair, dataset, U, dev, kw)
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            res = sess.run(HOST_ROUNDS)
+            torch.cuda.synchronize()
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            counts = ops.launch_counts()
+            legs = HOST_ROUNDS if kw.get("stage_rows") else 0
+            want = dict.fromkeys(counts, 0)
+            want.update(topk_mask_rows=HOST_ROUNDS,
+                        quantize_rows=HOST_ROUNDS + legs,
+                        dequantize_rows=HOST_ROUNDS + legs)
+            if counts != want:
+                raise AssertionError(f"host {mode} U={U}: launches {counts} "
+                                     f"!= {want}")
+            for key in totals:
+                totals[key] += counts[key]
+            be = res.extra["host_backend"]
+            if not (np.all(np.isfinite(res.g_losses))
+                    and np.all(np.isfinite(res.d_losses))
+                    and res.d_losses.shape == (HOST_ROUNDS, HOST_C)):
+                raise AssertionError(f"host {mode} U={U}: losses")
+            if res.state is not None or not be.pinned or \
+                    res.extra["fused_store"] != kw.get("fuse", False):
+                raise AssertionError(f"host {mode} U={U}: state, pinning or "
+                                     f"fused_store")
+            last = np.zeros(U, np.int64)
+            for r, row in enumerate(res.extra["schedule"]):
+                last[row] = r + 1
+            if not np.array_equal(be.last_round.numpy(), last):
+                raise AssertionError(f"host {mode} U={U}: last_round")
+            ages = res.extra["mean_age"]
+            if mode == "c_async1" and not np.all(ages[1:] >= 0):
+                raise AssertionError("async ages")
+            key = f"{mode} U={U}"
+            summary["ms_per_round"][key] = res.extra["min_step_time_s"] * 1e3
+            summary["stall_ms_per_round"][key] = \
+                res.extra["host_stall_s_per_round"] * 1e3
+            summary["peak_device_gb"][key] = peak_gb
+            summary["pinned_host_gb"][key] = be.nbytes / 1e9
+            lines.append({
+                "run": f"host approach1 U={U} C={HOST_C} uniform topk_int8+EF"
+                       f" {mode}", "rounds": HOST_ROUNDS, "launches": counts,
+                "best_ms_per_round": res.extra["min_step_time_s"] * 1e3,
+                "steady_ms_per_round": res.step_time_s * 1e3,
+                "host_stall_ms_per_round":
+                    res.extra["host_stall_s_per_round"] * 1e3,
+                "first_round_s": res.extra["compile_s"],
+                "pinned_host_gb": be.nbytes / 1e9,
+                "peak_device_gb": peak_gb,
+                "mean_age_last": float(ages[-1]),
+                "g_loss_first_last": [float(res.g_losses[0]),
+                                      float(res.g_losses[-1])]})
+            if mode in ("a_sync", "b_no_prefetch", "d_superbatch"):
+                kept[mode] = (res, be)
+            if mode == "d_superbatch":
+                a, a_be = kept["a_sync"]
+                diff = max(_max_diff(torch, res.g_losses, a.g_losses),
+                           _max_diff(torch, res.d_losses, a.d_losses),
+                           _max_diff(torch, be.d_flat, a_be.d_flat),
+                           _max_diff(torch, be.residual, a_be.residual))
+                summary["superbatch_vs_sync_max_abs"][f"U={U}"] = diff
+                if diff > HOST_ATOL or not (
+                        np.array_equal(res.extra["mean_age"],
+                                       a.extra["mean_age"])
+                        and np.array_equal(res.extra["staleness"],
+                                           a.extra["staleness"])):
+                    raise AssertionError(f"superbatch != sync stream at "
+                                         f"U={U} (max |diff| {diff})")
+                del kept["d_superbatch"]
+            del sess, res, be
+        # the device cohort engine on the same schedule, after the host
+        # runs so its (U, N) store is not in their peak
+        gc.collect()
+        dsess = _session(pair, dataset, U, "topk_int8", False, dev,
+                         eval_samples=0, scheduler="uniform", cohort=HOST_C,
+                         ef=True, rpj=HOST_K, fuse=True)
+        want_res = dsess.run(HOST_ROUNDS)
+        store = dsess._driver.state.store
+        for mode, (res, be) in kept.items():
+            if not (np.array_equal(res.extra["schedule"],
+                                   want_res.extra["schedule"])
+                    and np.array_equal(res.extra["mean_age"],
+                                       want_res.extra["mean_age"])
+                    and np.array_equal(be.last_round.numpy(),
+                                       store.last_round.cpu().numpy())):
+                raise AssertionError(f"host {mode} U={U}: schedule or ages "
+                                     f"differ from the device cohort engine")
+            diff = max(_max_diff(torch, res.g_losses, want_res.g_losses),
+                       _max_diff(torch, res.d_losses, want_res.d_losses),
+                       *(_max_diff(torch, getattr(be, n), getattr(store, n))
+                         for n in ("d_flat", "opt_flat", "residual")))
+            summary["vs_device_cohort_max_abs"][f"{mode} U={U}"] = diff
+            if diff > HOST_ATOL:
+                raise AssertionError(f"host {mode} U={U} differs from the "
+                                     f"device cohort engine by {diff}")
+        del dsess, want_res, store, kept, dataset
+        gc.collect()
+        torch.cuda.empty_cache()
+    lo, hi = HOST_US
+    for mode in HOST_MODES:
+        p_lo = summary["peak_device_gb"][f"{mode} U={lo}"]
+        p_hi = summary["peak_device_gb"][f"{mode} U={hi}"]
+        if p_hi > 1.05 * p_lo + 0.064:
+            raise AssertionError(f"host {mode}: peak device memory grew with "
+                                 f"U ({p_lo:.3f} -> {p_hi:.3f} GB)")
+    ms = summary["ms_per_round"]
+    stall = summary["stall_ms_per_round"]
+    summary["u_ratio_ms_per_round"] = {
+        mode: ms[f"{mode} U={hi}"] / ms[f"{mode} U={lo}"]
+        for mode in HOST_MODES}
+    summary["stall_ratio_async_over_no_prefetch"] = {
+        f"U={u}": stall[f"c_async1 U={u}"] / stall[f"b_no_prefetch U={u}"]
+        for u in HOST_US}
+    return lines, totals, summary
+
+
+def _host_cpu_agreement(torch, dev) -> dict:
+    """A small host-backend session (U 6, C 3, topk_int8 with stochastic
+    rounding and error feedback), synchronous and with int8 row staging,
+    from one seed on the card (kernels) and on the CPU (plain versions), at
+    ``_cpu_agreement``'s tolerances; the schedule and ``last_round``
+    bitwise.  With int8 row staging the stored D rows are int8 codes times
+    a row scale: where the card and the CPU round a value an ULP apart
+    across a code boundary, a code flips by one, so the D rows are held to
+    one code step (the row's absmax / 127) more."""
+    import numpy as np
+
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.spec import BackendSpec
+    from repro_torch.kernels import ops
+
+    pair = make_mlp_pair(MLPGanConfig(data_dim=64, z_dim=16, g_hidden=32,
+                                      d_hidden=32))
+    dataset = _digits_dataset(6, 8, 60)
+    worst = {}
+    for stage in (False, True):
+        kw = dict(batch=16, rpj=4, eval_samples=0, scheduler="uniform",
+                  cohort=3, ef=True, combiner="staleness_max_abs",
+                  backend=BackendSpec("host"), stage_rows=stage)
+        codec = "int8" if stage else "topk_int8"
+        ops.reset_launch_counts()
+        a = _session(pair, dataset, 6, codec, True, dev, **kw).run(6)
+        if ops.launch_counts()["dequantize_rows"] != (12 if stage else 6):
+            raise AssertionError(f"card host session launches "
+                                 f"{ops.launch_counts()}")
+        b = _session(pair, dataset, 6, codec, True, "cpu", **kw).run(6)
+        np.testing.assert_array_equal(a.extra["schedule"], b.extra["schedule"])
+        np.testing.assert_allclose(a.g_losses, b.g_losses, atol=1e-3)
+        ba, bb = a.extra["host_backend"], b.extra["host_backend"]
+        np.testing.assert_array_equal(ba.last_round.numpy(),
+                                      bb.last_round.numpy())
+        diffs = []
+        for name in ("d_flat", "opt_flat", "residual"):
+            x, y = getattr(ba, name).numpy(), getattr(bb, name).numpy()
+            step = (np.abs(y).max(axis=1, keepdims=True) / 127
+                    if stage and name == "d_flat" else 0.0)
+            if np.any(np.abs(x - y) > 2e-3 + 1e-3 * np.abs(y) + step):
+                raise AssertionError(f"host {codec} stage_rows={stage}: "
+                                     f"{name} card vs CPU beyond tolerance")
+            diffs.append(float(np.max(np.abs(x.astype(np.float64) - y))))
+        worst[f"host_{codec}_sr_ef{'_stage_rows' if stage else ''}"] = \
+            max(diffs)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1849,6 +2158,18 @@ def main() -> int:
 
     worst = _cohort_cpu_agreement(torch, dev)
     print(f"[check] card vs CPU small cohort session, worst |diff|: "
+          f"{json.dumps(worst)}", flush=True)
+
+    t0 = time.perf_counter()
+    lines, host_totals, host_summary = _host_phase(torch, dev)
+    for line in lines:
+        print("[host] " + json.dumps(line), flush=True)
+    print("[host] " + json.dumps(host_summary), flush=True)
+    print(f"[host] {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in recs:
+        rec["launches"] += host_totals.get(rec["name"], 0)
+    worst = _host_cpu_agreement(torch, dev)
+    print(f"[check] card vs CPU small host sessions, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
 
     t0 = time.perf_counter()

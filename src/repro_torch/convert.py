@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.approaches import DistGANState
+from repro_torch.core.engine import CohortShared
 from repro_torch.models.common import dtype_of, tree_map
 
 _FIELDS = ("g", "g_opt", "ds", "d_opts", "server_d", "step")
@@ -42,6 +43,15 @@ def state_from_numpy(tree, device, *, seed: int = 0) -> DistGANState:
     conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))
             for name in _FIELDS}
     return DistGANState(**conv, generator=torch.Generator().manual_seed(seed))
+
+
+def shared_from_numpy(tree, device, *, seed: int = 0) -> CohortShared:
+    """Reference ``CohortShared`` (numpy leaves; a mapping or an object
+    with the same attributes) -> the port's, with a fresh host generator
+    seeded with ``seed``."""
+    conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))
+            for name in ("g", "g_opt", "server_d", "step")}
+    return CohortShared(**conv, generator=torch.Generator().manual_seed(seed))
 
 
 def state_to_numpy(state: DistGANState) -> dict:

@@ -1,5 +1,5 @@
 """Chunked round engines (port of the reference's ``core/engine.py:70-101,
-143-308``).
+143-308, 412-741``).
 
 ``make_engine`` returns ``chunk(state, reals, noise=None) -> (state,
 metrics)``: it runs one round per leading slice of a pre-staged ``(K, U,
@@ -60,6 +60,13 @@ own carry, into which a carry it did not return is copied: one copy of the
 place.  Both give the same values bitwise, and with C == U under the
 ``full`` scheduler both equal ``make_engine`` bitwise (the gather is an
 exact permutation).
+
+Streamed engines (``make_cohort_rows_engine``, ``make_superbatch_engine``):
+the rows live in a ``UserStateBackend`` outside the carry, which is only
+the shared state (``CohortShared``); a round (or a K-round window) takes
+the gathered rows as inputs and returns the updated ones, one CUDA graph
+replay per round (per window length) on the card.  They run the cohort
+round's operations, so a streamed run equals the cohort engines' bitwise.
 """
 
 from __future__ import annotations
@@ -68,14 +75,16 @@ import dataclasses
 import gc
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from repro_torch.core.approaches import (DistGANConfig, DistGANState,
+from repro_torch.core.approaches import (DistGANConfig, DistGANState, _opts,
                                          d_flat_layout, d_opt_flat_layout,
                                          init_state, state_template)
-from repro_torch.core.federated import (CohortStore, cohort_gather,
-                                        cohort_scatter, make_cohort_store)
-from repro_torch.core.spec import resolve_approach
+from repro_torch.core.federated import (CohortStore, HostStateBackend,
+                                        cohort_gather, cohort_scatter,
+                                        make_cohort_store)
+from repro_torch.core.spec import DEFAULT_ROUNDS_PER_JIT, resolve_approach
 from repro_torch.device import deterministic_convolutions
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_leaves, tree_map
@@ -483,3 +492,295 @@ def make_fused_store_engine(pair, fcfg: DistGANConfig, approach: str,
     scattered into the (U, N) store in place and no per-chunk copy is
     made.  The caller rebinds to the returned carry."""
     return _cohort_engine(pair, fcfg, approach, adaptive, copy_carry=False)
+
+
+# ---------------------------------------------------------------------------
+# Streamed cohort engines: the rows live in a UserStateBackend, not the carry
+# ---------------------------------------------------------------------------
+#
+# The cohort engines above keep the whole (U, N) store in the device carry.
+# The rows engines invert that: the store lives in a host (or device)
+# ``UserStateBackend`` and a dispatch consumes only gathered cohort rows,
+# (C, Nd) / (C, No) tensors that crossed the host -> device boundary.  Only
+# the shared training state (``CohortShared``) chains on the device, so the
+# driver (``core/session.py::stream_cohort_rounds``) can stage round k + 1
+# while round k runs, and under bounded staleness defer round k's scatter.
+
+@dataclasses.dataclass
+class CohortShared:
+    """Shared training state of a streamed run; the per-user rows are not
+    here, they enter each round as gathered-row arguments."""
+
+    g: Any
+    g_opt: Any
+    server_d: Any
+    step: torch.Tensor
+    generator: torch.Generator
+
+    def clone(self) -> "CohortShared":
+        """A deep copy (tensors and the host generator's position)."""
+        gen = torch.Generator()
+        gen.set_state(self.generator.get_state())
+        copy = lambda t: t.clone()
+        return CohortShared(tree_map(copy, self.g), tree_map(copy, self.g_opt),
+                            tree_map(copy, self.server_d), self.step.clone(),
+                            gen)
+
+
+def _rows_round_fn(pair, fcfg: DistGANConfig, approach: str) -> Callable:
+    """One round over gathered rows: ``round_fn(shared, d_rows, opt_rows,
+    res_rows, ages, w, real, noise) -> (nd, no, new_res, metrics)``, the
+    same unflatten -> body -> flatten as the store-resident cohort round,
+    so a streamed run gives the cohort engine's values (``shared`` updated
+    in place; ``new_res`` is None without error feedback)."""
+    appr = resolve_approach(approach)
+    assert appr.user_axis, f"{approach} has no user axis to virtualize"
+    body = appr.body_factory(pair, fcfg)
+    d_layout = d_flat_layout(pair)
+    o_layout = d_opt_flat_layout(pair, fcfg)
+    ef = _wants_residual(fcfg)
+
+    def round_fn(shared: CohortShared, d_rows, opt_rows, res_rows, ages, w,
+                 real, noise):
+        state = DistGANState(shared.g, shared.g_opt,
+                             d_layout.unflatten_stacked(d_rows),
+                             o_layout.unflatten_stacked(opt_rows),
+                             shared.server_d, shared.step, shared.generator)
+        if ef:
+            new_state, metrics, new_res = body(state, real, ages, w,
+                                               res_rows, **noise)
+        else:
+            new_state, metrics = body(state, real, ages, w, **noise)
+            new_res = None
+        return (d_layout.flatten_stacked(new_state.ds),
+                o_layout.flatten_stacked(new_state.d_opts), new_res,
+                dict(metrics, mean_age=torch.mean(ages.to(torch.float32))))
+
+    return round_fn
+
+
+def _rows_scratch(carry: CohortShared, inputs: dict):
+    return carry.clone(), {name: t[:1].clone() for name, t in inputs.items()}
+
+
+def make_cohort_rows_engine(pair, fcfg: DistGANConfig,
+                            approach: str) -> Callable:
+    """One-round engine over gathered cohort rows.
+
+    ``round(shared, d_rows, opt_rows, ages, wts, real, noise=None) ->
+    (shared, new_d_rows, new_opt_rows, metrics)``, with ``d_rows (C, Nd)`` /
+    ``opt_rows (C, No)`` the cohort's rows, ``ages (C,)`` int32, ``wts
+    (C,)`` f32 or None and ``real (C, B, ...)``; with error feedback the
+    residual rows come right after the optimizer rows and go back right
+    after them: ``round(shared, d_rows, opt_rows, res_rows, ages, wts,
+    real) -> (shared, nd, no, new_res, metrics)``.  ``noise`` is an
+    optional keyword dict of the round's draws.
+
+    On a CUDA carry a round is one CUDA graph replay over static input
+    buffers (``_ChunkGraphs`` with one-round chunks): the rows, ages,
+    weights and batch are copied into them, and the returned rows and
+    metrics are the graph's static outputs, which the next call
+    overwrites.  On a CPU carry it runs eagerly."""
+    round_fn = _rows_round_fn(pair, fcfg, approach)
+    ef = _wants_residual(fcfg)
+
+    def rounds(shared, inp: dict, noise=None) -> dict:
+        nd, no, nres, m = round_fn(
+            shared, inp["d_rows"][0], inp["opt_rows"][0],
+            inp["res_rows"][0] if ef else None, inp["ages"][0],
+            inp["wts"][0] if "wts" in inp else None, inp["reals"][0],
+            _round_noise(noise, 0))
+        out = dict(m, d_rows=nd, opt_rows=no)
+        if ef:
+            out["res_rows"] = nres
+        return out
+
+    graphs = _ChunkGraphs(rounds,
+                          resolve_approach(approach).noise_factory(pair,
+                                                                   fcfg),
+                          _rows_scratch)
+
+    def engine(shared: CohortShared, d_rows, opt_rows, *rest, noise=None):
+        if ef:
+            res_rows, ages, wts, real = rest
+        else:
+            (ages, wts, real), res_rows = rest, None
+        inp = {"reals": real[None], "d_rows": d_rows[None],
+               "opt_rows": opt_rows[None], "ages": ages[None]}
+        if ef:
+            inp["res_rows"] = res_rows[None]
+        if wts is not None:
+            inp["wts"] = wts[None]
+        if shared.step.device.type == "cuda":
+            shared, out = graphs(shared, inp, None if noise is None
+                                 else [noise])
+        else:
+            with deterministic_convolutions():
+                out = rounds(shared, inp, None if noise is None else [noise])
+        out = dict(out)
+        rows = (out.pop("d_rows"), out.pop("opt_rows"))
+        if ef:
+            rows += (out.pop("res_rows"),)
+        return (shared, *rows, out)
+
+    engine.graphs = graphs
+    return engine
+
+
+def make_superbatch_engine(pair, fcfg: DistGANConfig, approach: str,
+                           adaptive: bool = False) -> Callable:
+    """Windowed engine for host-resident stores: a whole K-round window over
+    ONE staged row block, one dispatch.
+
+    ``window(shared, blk_d, blk_o, fwd, ages, real, wts=None, noise=None)
+    -> (shared, blk_d, blk_o, metrics)`` (with error feedback ``window(
+    shared, blk_d, blk_o, blk_r, fwd, ages, real, ...) -> (shared, blk_d,
+    blk_o, blk_r, metrics)``):
+
+    * ``blk_d (K, C, Nd)`` / ``blk_o (K, C, No)`` (/ ``blk_r``) — the
+      scheduled rows, gathered before the window ran; row block r is
+      overwritten with round r's updated rows, so the returned blocks are
+      what the host scatters back, in round order.
+    * ``fwd (K, C)`` — ``core.federated.window_forwarding``'s plan: -1
+      reads the staged row, else the flat ``r' * C + c'`` position of the
+      same user's latest in-window write, whose updated bytes (and
+      residual) round r reads instead, exactly the row the per-round path
+      would have scattered and gathered again.
+    * ``ages (K, C)`` int32, exact under forwarding; ``wts (K, C)`` iff
+      built ``adaptive``.
+
+    On a CUDA carry a window is one CUDA graph replay, one graph per window
+    length K (the blocks are its static inputs, updated in place and
+    returned); on a CPU carry the blocks are updated in place eagerly.
+    Each round runs the rows engine's round verbatim."""
+    round_fn = _rows_round_fn(pair, fcfg, approach)
+    ef = _wants_residual(fcfg)
+    names = ("blk_d", "blk_o") + (("blk_r",) if ef else ())
+
+    def rounds(shared, inp: dict, noise=None) -> dict:
+        fwd = inp["fwd"].to(torch.int64)
+        k, c = fwd.shape
+        flat = {n: inp[n].view(k * c, -1) for n in names}
+        own = torch.arange(c, device=fwd.device)
+        metrics = []
+        for r in range(k):
+            # one gather serves both sources: a member not forwarded reads
+            # its own staged row r*C + c (earlier rounds wrote only their
+            # own rows), a forwarded one its latest in-window write
+            src = torch.where(fwd[r] >= 0, fwd[r], r * c + own)
+            rows = [flat[n].index_select(0, src) for n in names]
+            nd, no, nres, m = round_fn(
+                shared, rows[0], rows[1], rows[2] if ef else None,
+                inp["ages"][r], inp["wts"][r] if "wts" in inp else None,
+                inp["reals"][r], _round_noise(noise, r))
+            for n, new in zip(names, (nd, no, nres)):
+                inp[n][r].copy_(new)
+            metrics.append(m)
+        return dict(_stack_metrics(metrics), **{n: inp[n] for n in names})
+
+    graphs = _ChunkGraphs(rounds,
+                          resolve_approach(approach).noise_factory(pair,
+                                                                   fcfg),
+                          _rows_scratch)
+
+    def window(shared: CohortShared, *args, wts=None, noise=None):
+        assert (wts is not None) == adaptive, \
+            "wts must be supplied iff the engine was built adaptive=True"
+        blocks, (fwd, ages, real) = args[:len(names)], args[len(names):]
+        inp = dict(zip(names, blocks), reals=real, fwd=fwd, ages=ages)
+        if wts is not None:
+            inp["wts"] = wts
+        if shared.step.device.type == "cuda":
+            shared, out = graphs(shared, inp, noise)
+        else:
+            with deterministic_convolutions():
+                out = rounds(shared, inp, noise)
+        out = dict(out)
+        blocks = tuple(out.pop(n) for n in names)
+        return (shared, *blocks, out)
+
+    window.graphs = graphs
+    return window
+
+
+def init_host_backend(pair, fcfg: DistGANConfig, seed: int, device, *,
+                      sync_ds: bool = False):
+    """Host-resident analogue of ``init_cohort_state``: ``(CohortShared on
+    device, HostStateBackend)`` with the SAME values (bitwise), drawn from
+    the same host generator in the same order as ``init_state``, each
+    user's D straight into its host row, so no (U, N) buffer is ever on
+    the device.  The store is pinned for a CUDA ``device``.  Optimizer
+    rows are the zero init, built once and broadcast."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    g_opt_def, d_opt_def = _opts(fcfg)
+    g, d0 = pair.init(gen, device)
+    dl = d_flat_layout(pair)
+    ol = d_opt_flat_layout(pair, fcfg)
+    u = fcfg.num_users
+    d_flat = torch.empty((u, dl.n), dtype=torch.float32, pin_memory=pin)
+    if sync_ds:
+        d_flat.copy_(dl.flatten(d0).cpu().expand(u, dl.n))
+    else:
+        for i in range(u):
+            d_flat[i] = dl.flatten(pair.init(gen, "cpu")[1])
+    d0_cpu = tree_map(lambda t: t.cpu(), d0)
+    o_row = ol.flatten(d_opt_def.init(d0_cpu))
+    opt_flat = torch.empty((u, ol.n), dtype=torch.float32, pin_memory=pin)
+    opt_flat.copy_(o_row.expand(u, ol.n))
+    residual = None
+    if _wants_residual(fcfg):
+        residual = torch.zeros((u, dl.n), dtype=torch.float32,
+                               pin_memory=pin)
+    backend = HostStateBackend.adopt(
+        d_flat, opt_flat,
+        torch.zeros((u,), dtype=torch.int32, pin_memory=pin), residual)
+    shared = CohortShared(g, g_opt_def.init(g), d0,
+                          torch.zeros((), dtype=torch.int32, device=device),
+                          gen)
+    return shared, backend
+
+
+def shared_template(pair, fcfg: DistGANConfig) -> CohortShared:
+    """``init_host_backend``'s shared state as meta tensors (nothing
+    drawn)."""
+    st = state_template(pair, fcfg)
+    return CohortShared(st.g, st.g_opt, st.server_d, st.step, st.generator)
+
+
+# ---------------------------------------------------------------------------
+# Chunked drivers
+# ---------------------------------------------------------------------------
+
+def _pad_to(arr: np.ndarray, k: int):
+    """Pad ``arr`` on the leading axis to length ``k`` by repeating its last
+    entry (the reference pads a remainder chunk with masked rounds; the
+    port's engines take a short chunk as it is, so no driver of the port
+    pads: this is the reference's helper for code that mirrors it)."""
+    short = k - arr.shape[0]
+    if short <= 0:
+        return arr
+    fill = np.broadcast_to(arr[-1:], (short,) + arr.shape[1:])
+    return np.concatenate([arr, fill], axis=0)
+
+
+def run_scanned(engine: Callable, state, reals,
+                rounds_per_jit: int = DEFAULT_ROUNDS_PER_JIT):
+    """Drive a ``make_engine`` chunk over ``reals`` (leading axis = rounds)
+    in chunks of ``rounds_per_jit``, the last one shorter (on the card a
+    graph of its own length, where the reference pads it with masked
+    rounds).  Returns ``(state, metrics)``, metrics numpy-concatenated over
+    the rounds."""
+    reals = torch.as_tensor(np.asarray(reals, np.float32)).to(
+        state.step.device)
+    total = reals.shape[0]
+    rpj = min(rounds_per_jit, total)
+    chunks, i = [], 0
+    while i < total:
+        k = min(rpj, total - i)
+        state, m = engine(state, reals[i:i + k])
+        chunks.append({key: v.cpu().numpy() for key, v in m.items()})
+        i += k
+    return state, {key: np.concatenate([c[key] for c in chunks])
+                   for key in chunks[0]}

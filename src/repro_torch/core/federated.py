@@ -13,8 +13,12 @@ Cohort virtualization keeps U logical users' rows in a resident
 ``CohortStore`` of flat ``(U, N)`` buffers; each round the scheduled cohort
 of C rows is gathered, trained and scattered back.  The participation
 schedulers are numpy, so a seed gives the reference's schedule bitwise.
-The host backend's ``UserStateBackend`` and ``window_forwarding`` wait for
-ROADMAP queue A item 8.
+
+The streaming drivers (``core/session.py``) keep the rows behind a
+``UserStateBackend`` instead: ``HostStateBackend`` holds the (U, N)
+buffers in host memory (pinned for a CUDA run), so U is bounded by host
+RAM; ``DeviceStateBackend`` wraps a device ``CohortStore``.
+``window_forwarding`` plans a superbatch window's in-window repeats.
 """
 
 from __future__ import annotations
@@ -193,6 +197,190 @@ def cohort_scatter(store: CohortStore, idx: torch.Tensor, ds, d_opts,
 
 
 # ---------------------------------------------------------------------------
+# Residency backends for the streaming drivers
+# ---------------------------------------------------------------------------
+#
+# ``gather_rows`` returns copies of the cohort's rows; ``scatter_rows``
+# writes updated rows back (row replacement, last writer wins) and stamps
+# ``last_round``.  A host backend hands back CPU tensors (the drivers
+# compute ages on the host); a ``device_resident`` backend hands back
+# device tensors for all three, and the driver keeps the round path on the
+# device.  Under the async bounded-staleness driver a round's scatter may
+# land after later rounds launched (async parameter-server semantics,
+# staleness bounded by ``async_rounds`` and surfaced through the ages).
+
+class UserStateBackend:
+    """Residency contract for per-user D/optimizer rows.  ``gather_rows``
+    is a 3-tuple whatever the compression; a backend that holds an
+    error-feedback residual exposes it through ``gather_residual`` and
+    takes updated rows back through ``scatter_rows(..., residual=)``
+    (drivers probe ``has_residual``)."""
+
+    num_users: int
+    # gather/scatter exchange device tensors: the driver keeps ages and
+    # rows on the device and blocks the host only on the metrics fetch
+    device_resident: bool = False
+
+    def gather_rows(self, idx):
+        raise NotImplementedError
+
+    def scatter_rows(self, idx, d_rows, opt_rows, round_idx, *,
+                     residual=None) -> None:
+        raise NotImplementedError
+
+    @property
+    def has_residual(self) -> bool:
+        return False
+
+    def gather_residual(self, idx):
+        raise NotImplementedError
+
+    def snapshot(self) -> CohortStore:
+        raise NotImplementedError
+
+
+class DeviceStateBackend(UserStateBackend):
+    """Device-resident rows: a ``CohortStore`` behind the backend API.  The
+    store is OWNED by the backend and scattered in place (the reference
+    replaces its functional store); ``snapshot`` returns a copy."""
+
+    device_resident = True
+
+    def __init__(self, store: CohortStore):
+        self.store = store
+
+    @property
+    def num_users(self) -> int:
+        return self.store.num_users
+
+    def _idx(self, idx) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64)).to(
+            self.store.d_flat.device)
+
+    def gather_rows(self, idx):
+        i = self._idx(idx)
+        s = self.store
+        return (s.d_flat.index_select(0, i), s.opt_flat.index_select(0, i),
+                s.last_round.index_select(0, i))
+
+    def scatter_rows(self, idx, d_rows, opt_rows, round_idx, *,
+                     residual=None) -> None:
+        i = self._idx(idx)
+        s = self.store
+        assert (residual is None) == (s.residual is None)
+        s.d_flat.index_copy_(0, i, d_rows)
+        s.opt_flat.index_copy_(0, i, opt_rows)
+        stamp = torch.as_tensor(round_idx, dtype=torch.int32,
+                                device=s.last_round.device)
+        s.last_round.index_copy_(0, i, stamp.expand(i.shape[0]))
+        if residual is not None:
+            s.residual.index_copy_(0, i, residual)
+
+    @property
+    def has_residual(self) -> bool:
+        return self.store.residual is not None
+
+    def gather_residual(self, idx):
+        return self.store.residual.index_select(0, self._idx(idx))
+
+    def snapshot(self) -> CohortStore:
+        return self.store.clone()
+
+
+def _own(a, dtype, pin: bool) -> torch.Tensor:
+    """``a`` (numpy or a tensor) as a fresh contiguous CPU tensor of
+    ``dtype``, in pinned memory when ``pin``: the store owns its memory,
+    since scatters write it in place (``torch.from_numpy`` would alias the
+    caller's array)."""
+    t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                        else a).to(dtype)
+    out = torch.empty(tuple(t.shape), dtype=dtype, pin_memory=pin)
+    return out.copy_(t)
+
+
+class HostStateBackend(UserStateBackend):
+    """Host-resident rows: (U, N) CPU tensors, pinned when ``pin`` (a run
+    on the card), so the C rows of a round are gathered into pinned staging
+    and copied to the device asynchronously.  U sizes nothing on the
+    accelerator."""
+
+    def __init__(self, d_flat, opt_flat, last_round, residual=None, *,
+                 pin: bool = False):
+        u = d_flat.shape[0]
+        assert opt_flat.shape[0] == u and tuple(last_round.shape) == (u,)
+        self.pinned = pin
+        self.d_flat = _own(d_flat, torch.float32, pin)
+        self.opt_flat = _own(opt_flat, torch.float32, pin)
+        self.last_round = _own(last_round, torch.int32, pin)
+        self.residual = (None if residual is None
+                         else _own(residual, torch.float32, pin))
+
+    @classmethod
+    def adopt(cls, d_flat, opt_flat, last_round,
+              residual=None) -> "HostStateBackend":
+        """A backend that takes ownership of these CPU tensors as they are
+        (no copy: the caller must not keep using them)."""
+        self = cls.__new__(cls)
+        self.pinned = d_flat.is_pinned()
+        self.d_flat, self.opt_flat = d_flat, opt_flat
+        self.last_round, self.residual = last_round, residual
+        return self
+
+    @property
+    def num_users(self) -> int:
+        return self.d_flat.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the store's buffers."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.d_flat, self.opt_flat, self.last_round, self.residual)
+            if t is not None)
+
+    @classmethod
+    def from_store(cls, store: CohortStore, *,
+                   pin: bool = False) -> "HostStateBackend":
+        return cls(*(None if t is None else t.cpu() for t in (
+            store.d_flat, store.opt_flat, store.last_round,
+            store.residual)), pin=pin)
+
+    @staticmethod
+    def _idx(idx) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64))
+
+    def gather_rows(self, idx, out=None):
+        """Copies of rows ``idx`` (into ``out = (d, opt)`` when given)."""
+        i = self._idx(idx)
+        od, oo = out if out is not None else (None, None)
+        return (torch.index_select(self.d_flat, 0, i, out=od),
+                torch.index_select(self.opt_flat, 0, i, out=oo),
+                self.last_round.index_select(0, i))
+
+    def scatter_rows(self, idx, d_rows, opt_rows, round_idx, *,
+                     residual=None) -> None:
+        i = self._idx(idx)
+        self.d_flat.index_copy_(0, i, torch.as_tensor(d_rows))
+        self.opt_flat.index_copy_(0, i, torch.as_tensor(opt_rows))
+        self.last_round.index_fill_(0, i, int(round_idx))
+        assert (residual is None) == (self.residual is None)
+        if residual is not None:
+            self.residual.index_copy_(0, i, torch.as_tensor(residual))
+
+    @property
+    def has_residual(self) -> bool:
+        return self.residual is not None
+
+    def gather_residual(self, idx, out=None):
+        return torch.index_select(self.residual, 0, self._idx(idx), out=out)
+
+    def snapshot(self) -> CohortStore:
+        """A copy of the store (never a view: later scatters write the
+        live buffers in place, which a view would follow)."""
+        return CohortStore(*(None if t is None else t.clone() for t in (
+            self.d_flat, self.opt_flat, self.last_round, self.residual)))
+
+
+# ---------------------------------------------------------------------------
 # Participation schedulers (host-side numpy: they decide whose data is
 # sampled, so they run before anything reaches the device)
 # ---------------------------------------------------------------------------
@@ -264,6 +452,42 @@ def make_schedule_source(participation: str, num_users: int, cohort: int,
     return schedule_window
 
 
+def window_forwarding(schedule: np.ndarray, last_round: np.ndarray,
+                      round_base: int):
+    """Host-side plan for one ``(K, C)`` superbatch window: write-after-read
+    forwarding indices and exact participation ages.
+
+    The window's ``(K, C, N)`` row block is gathered before the window
+    runs, so a user drawn twice inside it would read a stale staged row in
+    its later round.  ``fwd[r, c]`` is the flat position ``r' * C + c'`` of
+    user ``schedule[r, c]``'s most recent EARLIER occurrence in the window
+    (the row the engine reads from its output block instead), or -1 when
+    the staged row is current; a schedule row never repeats a user, so a
+    forward source is always from a strictly earlier round.  ``ages[r, c]``
+    is the age the per-round path computes, in-window repeats included: a
+    member drawn again sees ``last_round == round_base + r' + 1`` (the
+    re-zeroed age convention), so its age is ``r - r' - 1``.
+    ``last_round`` is not changed.  Returns ``(fwd (K, C) int32, ages (K,
+    C) int32)``."""
+    K, C = schedule.shape
+    fwd = np.full((K, C), -1, np.int32)
+    ages = np.empty((K, C), np.int32)
+    seen: dict = {}          # user -> (flat position, stamped last_round)
+    for r in range(K):
+        for c in range(C):
+            u = int(schedule[r, c])
+            if u in seen:
+                pos, stamp = seen[u]
+                fwd[r, c] = pos
+                ages[r, c] = round_base + r - stamp
+            else:
+                ages[r, c] = round_base + r - int(last_round[u])
+        for c in range(C):
+            u = int(schedule[r, c])
+            seen[u] = (r * C + c, round_base + r + 1)
+    return fwd, ages
+
+
 def participation_weights(schedule: np.ndarray, num_users: int, *,
                           counts: np.ndarray | None = None,
                           start_round: int = 0) -> np.ndarray:
@@ -294,15 +518,19 @@ def topk_mask(rows: torch.Tensor, frac: float) -> torch.Tensor:
     """The reference's non-kernel ``topk_mask``, row-wise: ``|x| >=`` the
     k-th largest ``|x|`` of the row by value (ties kept).  A NaN compares
     false, so it is never kept, unlike the kernels' bit-pattern order
-    (``kernels/ref.py::topk_mask_global_ref``)."""
-    mag = torch.abs(rows)
+    (``kernels/ref.py::topk_mask_global_ref``).  Subnormal magnitudes
+    count as 0, as in the reference's f32 compare: a subnormal k-th
+    magnitude keeps every entry but NaN."""
+    mag = kref.flush_subnormals(torch.abs(rows))
     kth = torch.topk(mag, kref.topk_k(rows.shape[-1], frac), dim=-1
                      ).values[..., -1:]
     return mag >= kth
 
 
 def threshold_mask(rows: torch.Tensor, tau: float) -> torch.Tensor:
-    return torch.abs(rows) > tau
+    """``|x| > tau`` with subnormal magnitudes as 0, as the reference's f32
+    compare takes them (at ``tau = 0`` a subnormal entry is dropped)."""
+    return kref.flush_subnormals(torch.abs(rows)) > tau
 
 
 def random_uniforms(shape, generator: torch.Generator) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 D emits logits; BCE-with-logits is written in the reference's form
 ``max(l, 0) - l*t + log1p(exp(-|l|))``.  Approach 2 averages the users'
-D probabilities before its criterion (``g_loss_avg_probs``).  The WGAN
-losses are not ported yet (ROADMAP queue A item 5).  Losses reduce over
-the LAST axis, so a ``(U, B)`` stack of per-user logits gives ``(U,)``
-per-user losses.
+D probabilities before its criterion (``g_loss_avg_probs``).  The W-GAN
+critic and generator losses (``wgan_d_loss``, ``wgan_g_loss``,
+``wgan_g_loss_avg``; the critic's weights clipped by ``clip_params``) serve
+``loss_type="wgan"``.  Losses reduce over the LAST axis, so a ``(U, B)``
+stack of per-user logits gives ``(U,)`` per-user losses.
 """
 
 from __future__ import annotations

@@ -15,9 +15,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.approaches import DistGANConfig, _d_update_fn, _opts
-from repro_torch.core.session import FederationSession, RunResult
-from repro_torch.core.spec import (DEFAULT_ROUNDS_PER_JIT, CombineSpec,
-                                   CompressionSpec, EngineSpec,
+# the streaming driver re-exported from here, as the reference's protocol
+# module does
+from repro_torch.core.session import (FederationSession, RunResult,
+                                      StreamStats, stream_cohort_rounds)
+from repro_torch.core.spec import (DEFAULT_ROUNDS_PER_JIT, BackendSpec,
+                                   CombineSpec, CompressionSpec, EngineSpec,
                                    FederationSpec, ParticipationSpec)
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import deterministic_convolutions, resolve_device
@@ -40,10 +43,14 @@ def run_distgan(
     participation: str = "full",
     cohort_size: int | None = None,
     state_backend: str = "device",
+    async_rounds: int = 0,
+    prefetch: bool = True,
     adaptive_server_scale: bool = False,
+    materialize_state: bool = True,
     codec: str = "none",
     error_feedback: bool = True,
     codec_stochastic: bool = False,
+    stage_rows: bool = False,
     device=None,
 ) -> RunResult:
     """Train with a registered approach (approach1/2/3, baseline,
@@ -51,16 +58,13 @@ def run_distgan(
     :class:`FederationSpec` + :class:`FederationSession`; the kwargs keep
     the reference's names and meanings).  ``participation`` /
     ``cohort_size`` run a cohort-virtualized federation of
-    ``fcfg.num_users`` logical users; ``state_backend`` is ``"device"``
-    (the host, SPMD and multihost backends are not ported).  ``device`` is
-    CUDA unless ``"cpu"`` is passed.  ``sample_fn`` is accepted for the
+    ``fcfg.num_users`` logical users; ``state_backend`` is ``"device"`` or
+    ``"host"`` with its streaming knobs ``async_rounds``, ``prefetch``,
+    ``materialize_state`` and ``stage_rows`` (the SPMD and multihost
+    backends are not ported: ROADMAP queue A items 9 and 10).  ``device``
+    is CUDA unless ``"cpu"`` is passed.  ``sample_fn`` is accepted for the
     reference's signature and never consumed, as there."""
     del sample_fn
-    if state_backend != "device":
-        raise NotImplementedError(
-            f"state_backend={state_backend!r} is not ported to repro_torch "
-            f"yet (ROADMAP queue A item 8: the host streaming backend; "
-            f"items 9 and 10: SPMD and multihost)")
     if (cohort_size is not None and participation == "full"
             and cohort_size != fcfg.num_users):
         warnings.warn(
@@ -70,6 +74,13 @@ def run_distgan(
             f"explicit ParticipationSpec instead.",
             DeprecationWarning, stacklevel=2)
         participation = "uniform"
+    if not prefetch and state_backend == "device":
+        warnings.warn(
+            "run_distgan: prefetch=False has no effect on the device "
+            "backend (it pre-stages whole chunks); ignoring.  Build a "
+            "FederationSpec with an explicit BackendSpec instead.",
+            DeprecationWarning, stacklevel=2)
+        prefetch = True
     if engine == "per_step" and rounds_per_jit != DEFAULT_ROUNDS_PER_JIT:
         warnings.warn(
             "run_distgan: rounds_per_jit is ignored by the per_step "
@@ -91,12 +102,16 @@ def run_distgan(
                           fuse_store_rounds=fuse_store_rounds),
         participation=ParticipationSpec(scheduler=participation,
                                         cohort_size=cohort_size),
+        backend=BackendSpec(kind=state_backend, async_rounds=async_rounds,
+                            prefetch=prefetch,
+                            materialize_state=materialize_state),
         combine=CombineSpec(combiner=fcfg.combiner,
                             staleness_decay=fcfg.staleness_decay,
                             adaptive_server_scale=adaptive_server_scale,
                             compression=CompressionSpec(
                                 codec=codec, error_feedback=error_feedback,
-                                stochastic=codec_stochastic)))
+                                stochastic=codec_stochastic,
+                                stage_rows=stage_rows)))
     return FederationSession(pair, fcfg, dataset, spec,
                              device=device).run(steps)
 

@@ -12,9 +12,14 @@ trajectory (``run(5); run(6)`` equals ``run(11)`` bitwise).
 The port has the ``device`` backend in its ``fused`` and ``per_step``
 modes under full participation and, for a cohort-virtualized spec, its
 ``cohort`` mode: U logical users' rows live in a resident store on the
-device and each round a scheduled cohort of C users trains.  On a CUDA
-device every mode replays CUDA graphs (``core/engine.py``): ``fused`` and
-``cohort`` one per chunk, ``per_step`` one per round.
+device and each round a scheduled cohort of C users trains.  The ``host``
+backend (``HostStreamDriver``) keeps the (U, N) store in host memory and
+streams the cohort's rows each round (``stream_cohort_rounds``: data
+prefetch, bounded staleness, int8 row staging) or each window
+(``superbatch_cohort_rounds``).  On a CUDA device every mode replays CUDA
+graphs (``core/engine.py``): ``fused`` and ``cohort`` one per chunk,
+``per_step`` and the host stream one per round, the superbatch one per
+window.
 
 ``save(path)`` / ``restore(path, ...)`` checkpoint the whole session in
 the reference's layout: ``step_<round>.msgpack`` holds the training
@@ -22,12 +27,12 @@ state's arrays in the reference's leaf order, ``session.json`` the spec,
 the round, the numpy data and scheduler streams and the participation
 counts; ``run(rounds, autosave_every=, autosave_path=)`` saves at
 internal round boundaries.  The reference's PRNG key slot holds the
-port's round-noise generator state (a uint8 tensor) instead.  The host
-and streaming drivers come in a later slice (ROADMAP queue A item 8).
+port's round-noise generator state (a uint8 tensor) instead.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -41,18 +46,24 @@ from repro_torch.checkpoint.msgpack_ckpt import (check_leaves, latest_step,
                                                  read_leaves, save_checkpoint,
                                                  tree_flatten, tree_unflatten)
 from repro_torch.core.approaches import (DistGANConfig, DistGANState,
-                                         d_flat_layout, init_state,
-                                         state_template)
-from repro_torch.core.engine import (CohortState, cohort_state_template,
+                                         d_flat_layout, d_opt_flat_layout,
+                                         init_state, state_template)
+from repro_torch.core.engine import (CohortShared, CohortState,
+                                     _wants_residual, cohort_state_template,
                                      cohort_state_to_full, init_cohort_state,
-                                     make_cohort_engine, make_engine,
-                                     make_fused_store_engine)
-from repro_torch.core.federated import (CohortStore, make_schedule_source,
+                                     init_host_backend,
+                                     make_cohort_engine,
+                                     make_cohort_rows_engine, make_engine,
+                                     make_fused_store_engine,
+                                     make_superbatch_engine, shared_template)
+from repro_torch.core.federated import (CohortStore, HostStateBackend,
+                                        make_schedule_source,
                                         participation_weights,
-                                        upload_bytes_flat)
+                                        upload_bytes_flat, window_forwarding)
 from repro_torch.core.spec import (FederationSpec, register_backend,
                                    resolve_approach, resolve_backend)
 from repro_torch.device import deterministic_convolutions, resolve_device
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_map
 
 # pre-stage a whole window's batches on the device when below this (else
@@ -233,7 +244,7 @@ class _Stager:
 
 
 def _upload_accounting(pair, fcfg: DistGANConfig, approach, C: int,
-                       kept_frac: float) -> dict:
+                       kept_frac: float, *, stage_rows: bool = False) -> dict:
     """Per-round upload bytes for delta-uploading approaches: C members
     upload per round; the codec reprices the payload
     (``upload_bytes_flat``)."""
@@ -250,12 +261,390 @@ def _upload_accounting(pair, fcfg: DistGANConfig, approach, C: int,
                 "codec": fcfg.codec,
                 "error_feedback": bool(lossy and fcfg.error_feedback),
                 "stochastic": bool(lossy and fcfg.codec_stochastic),
-                "stage_rows": False}}
+                "stage_rows": bool(stage_rows)}}
 
 
 def _fetch(metrics: dict) -> dict:
     """Device metrics -> numpy (one host sync for the whole dict)."""
     return {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+def _tree_to(tree, device):
+    """A checkpoint tree (dicts, lists, None) with every tensor moved to
+    ``device``."""
+    return tree_unflatten(tree, [t.to(device) for t in tree_flatten(tree)])
+
+
+# ---------------------------------------------------------------------------
+# Streaming drivers (rows engines over a UserStateBackend)
+# ---------------------------------------------------------------------------
+
+def _np_quantize_rows(x: np.ndarray):
+    """Host-side per-row absmax int8, the numpy mirror of the plain codec's
+    deterministic path, used by the ``stage_rows`` transport to ship 1 byte
+    an element host -> device.  It is numpy and does not flush subnormals,
+    bit for bit the reference's (``session.py:239-248``); the device codec
+    flushes them, as the reference's f32 does."""
+    x = np.asarray(x, np.float32)
+    scale = (np.abs(x).max(axis=1) / np.float32(127.0)).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):   # where() drops
+        inv = np.where(scale > 0, np.float32(1.0) / scale,   # 1 / 0
+                       np.float32(0.0)).astype(np.float32)
+        q = np.clip(np.rint(x * inv[:, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _np_dequantize_rows(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * scale[:, None].astype(np.float32)
+
+
+class StreamStats(typing.NamedTuple):
+    retire_t: list    # perf_counter stamp when round r's scatter landed
+    stall_s: list     # host seconds blocked on the device for round r
+
+
+class _Leg:
+    """One leg of the stream's staging on a CUDA device: ``n`` slots used
+    in turn (round r takes slot r % n), each a set of named pairs of a
+    pinned host buffer and a device buffer (allocated at first use), copied
+    on the leg's own stream.
+
+    * ``host(r, name, shape, dtype)``: slot r's host buffer, once the
+      slot's last copy has run (the host may then overwrite it);
+    * ``up(r)``: copies slot r's host buffers to its device buffers, after
+      the main stream's last read of them (``read(r)``);
+    * ``down(r, tensors)``: snapshots device tensors into slot r's device
+      buffers on the main stream (a graph's outputs are overwritten by its
+      next replay), then copies them to its host buffers.
+    ``up`` and ``down`` return the event after their copies."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.bufs: list[dict] = [{} for _ in range(n)]
+        self.copied: list = [None] * n
+        self.reads: list = [None] * n
+
+    def _pair(self, r: int, name: str, shape, dtype):
+        slot = self.bufs[r % len(self.bufs)]
+        pair = slot.get(name)
+        if pair is None or tuple(pair[0].shape) != tuple(shape) \
+                or pair[0].dtype != dtype:
+            pair = slot[name] = (
+                torch.empty(shape, dtype=dtype, pin_memory=True),
+                torch.empty(shape, dtype=dtype, device=self.device))
+        return pair
+
+    def _free(self, r: int) -> None:
+        ev = self.copied[r % len(self.copied)]
+        if ev is not None:
+            ev.synchronize()
+
+    def host(self, r: int, name: str, shape, dtype) -> torch.Tensor:
+        self._free(r)
+        return self._pair(r, name, shape, dtype)[0]
+
+    def _record(self, r: int):
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        self.copied[r % len(self.copied)] = ev
+        return ev
+
+    def up(self, r: int) -> tuple[dict, typing.Any]:
+        i = r % len(self.bufs)
+        with torch.cuda.stream(self.stream):
+            if self.reads[i] is not None:
+                self.stream.wait_event(self.reads[i])
+            for host, dev in self.bufs[i].values():
+                dev.copy_(host, non_blocking=True)
+            ev = self._record(r)
+        return {k: dev for k, (_, dev) in self.bufs[i].items()}, ev
+
+    def read(self, r: int) -> None:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self.reads[r % len(self.reads)] = ev
+
+    def down(self, r: int, tensors: dict) -> tuple[dict, typing.Any]:
+        self._free(r)
+        pairs = {k: self._pair(r, k, t.shape, t.dtype)
+                 for k, t in tensors.items()}
+        for k, t in tensors.items():
+            pairs[k][1].copy_(t)
+        made = torch.cuda.Event()
+        made.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(made)
+            for host, dev in pairs.values():
+                host.copy_(dev, non_blocking=True)
+            ev = self._record(r)
+        return {k: host for k, (host, _) in pairs.items()}, ev
+
+
+_ROWS = ("d", "o", "res", "q", "s")     # the row entries of a round's I/O
+
+
+def stream_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
+                         batch_fn, *, async_rounds: int = 0,
+                         prefetch: bool = True, wts: np.ndarray | None = None,
+                         round_base: int = 0, stage_codec: str = "none"):
+    """Double-buffered streaming driver over a rows engine
+    (``make_cohort_rows_engine``), one dispatch per round; the per-user
+    rows live in ``backend`` and only the scheduled cohort's C rows cross
+    the host <-> device boundary.
+
+    ``round_base`` is the GLOBAL index of ``schedule[0]``'s round: ages are
+    computed, and ``last_round`` stamped, against global rounds (a member
+    that trained through round r has ``last_round == r + 1``, 0 = never).
+
+    * ``prefetch``: round k+1's data is sampled and sent while round k
+      computes; else after round k retires.
+    * ``async_rounds == 0``: round k's rows are fetched and scattered back
+      before round k+1's are gathered, so every gather sees the whole
+      store.  ``async_rounds == S > 0`` (bounded staleness): up to S rounds
+      stay in flight, round k+1's rows are gathered from the store as it
+      is, scatter is last-writer-wins, and ``last_round`` stamps landed
+      rounds only, so the ages include the pipeline lag.
+    * ``stage_codec="int8"`` (``stage_rows``): the D rows cross quantized,
+      int8 plus a per-row scale each way: host numpy quantizer, device
+      dequantize (B2) on the way in; device quantize (B2), host numpy
+      dequantizer on the way out.  Optimizer and residual rows stay f32.
+
+    On a CUDA device with a host store, the rows and the batch go up, and
+    the updated rows and metrics come down, through pinned slots on copy
+    streams of their own (``_Leg``, ``async_rounds + 2`` slots each), so no
+    slot is rewritten while a copy or a round that reads it is in flight;
+    the host waits only on events.  A device store's rows stay on the
+    device.
+
+    Returns ``(shared, metrics, stats)``: per-round numpy metric dicts and
+    a ``StreamStats``: ``retire_t[r]`` when round r's scatter landed,
+    ``stall_s[r]`` the host seconds spent waiting for round r's outputs."""
+    steps = len(schedule)
+    metrics_out: list = [None] * steps
+    stats = StreamStats([0.0] * steps, [0.0] * steps)
+    inflight: collections.deque = collections.deque()
+    dev = shared.step.device
+    cuda = dev.type == "cuda"
+    has_res = backend.has_residual
+    resident = backend.device_resident
+    if stage_codec != "none":
+        assert stage_codec == "int8", stage_codec
+    # a device store's rows never cross the boundary: nothing to shrink
+    stage_q = stage_codec != "none" and not resident
+    legs = None
+    if cuda and not resident:
+        n = async_rounds + 2
+        legs = {"rows": _Leg(n, dev), "data": _Leg(n, dev), "down": _Leg(
+            n, dev)}
+
+    def stage_rows(r):
+        """Round r's rows, ages and weights on the device, and the event
+        after their copy (None where nothing is copied)."""
+        idx = schedule[r]
+        if legs is None:
+            d, o, last = backend.gather_rows(idx)
+            out = {"d": d, "o": o,
+                   "ages": (round_base + r - last).to(torch.int32)}
+            if has_res:
+                out["res"] = backend.gather_residual(idx)
+            if stage_q:
+                q, s = _np_quantize_rows(out.pop("d").numpy())
+                out["q"], out["s"] = torch.from_numpy(q), torch.from_numpy(s)
+            if wts is not None:
+                out["w"] = torch.from_numpy(np.asarray(wts[r], np.float32))
+            return {k: v.to(dev) for k, v in out.items()}, None
+        leg = legs["rows"]
+        c, (nd, no) = len(idx), (backend.d_flat.shape[1],
+                                 backend.opt_flat.shape[1])
+        host = lambda name, shape, dt=torch.float32: leg.host(r, name, shape,
+                                                              dt)
+        ho = host("o", (c, no))
+        if stage_q:
+            d, _, last = backend.gather_rows(idx, out=(None, ho))
+            q, s = _np_quantize_rows(d.numpy())
+            host("q", (c, nd), torch.int8).copy_(torch.from_numpy(q))
+            host("s", (c,)).copy_(torch.from_numpy(s))
+        else:
+            _, _, last = backend.gather_rows(idx,
+                                             out=(host("d", (c, nd)), ho))
+        if has_res:
+            backend.gather_residual(idx, out=host("res", (c, nd)))
+        host("ages", (c,), torch.int32).copy_(round_base + r - last)
+        if wts is not None:
+            host("w", (c,)).copy_(torch.from_numpy(
+                np.asarray(wts[r], np.float32)))
+        return leg.up(r)
+
+    def stage_data(r):
+        batch = np.asarray(batch_fn(r), np.float32)
+        if legs is None:
+            return torch.from_numpy(batch).to(dev), None
+        legs["data"].host(r, "x", batch.shape, torch.float32).numpy()[...] \
+            = batch
+        out, ev = legs["data"].up(r)
+        return out["x"], ev
+
+    def retire(keep: int):
+        while len(inflight) > keep:
+            rr, idx, (out, ev) = inflight.popleft()
+            t0 = time.perf_counter()
+            if ev is not None:
+                ev.synchronize()
+            mets = {k: v.cpu().numpy().copy() for k, v in out.items()
+                    if k not in _ROWS}
+            stats.stall_s[rr] = time.perf_counter() - t0
+            d = out.get("d")
+            if stage_q:
+                d = torch.from_numpy(_np_dequantize_rows(out["q"].numpy(),
+                                                         out["s"].numpy()))
+            backend.scatter_rows(idx, d, out["o"], round_base + rr + 1,
+                                 residual=out.get("res"))
+            metrics_out[rr] = mets
+            stats.retire_t[rr] = time.perf_counter()
+
+    rows, rows_ev = stage_rows(0)
+    data, data_ev = stage_data(0)
+    for r in range(steps):
+        if cuda:
+            for ev in (rows_ev, data_ev):
+                if ev is not None:
+                    torch.cuda.current_stream(dev).wait_event(ev)
+        d_in = (kops.dequantize_rows(rows["q"], rows["s"]) if stage_q
+                else rows["d"])
+        extra = (rows["res"],) if has_res else ()
+        shared, nd, no, *rest = eng(shared, d_in, rows["o"], *extra,
+                                    rows["ages"], rows.get("w"), data)
+        if legs is not None:
+            legs["rows"].read(r)
+            legs["data"].read(r)
+        out = dict(rest[-1], o=no)
+        if stage_q:
+            out["q"], out["s"] = kops.quantize_rows(nd)
+        else:
+            out["d"] = nd
+        if has_res:
+            out["res"] = rest[0]
+        if legs is not None:
+            pending = legs["down"].down(r, out)
+        elif cuda:       # a device store on the card: the graph's outputs
+            pending = ({k: v.clone() for k, v in out.items()}, None)
+        else:            # are overwritten by its next replay
+            pending = (out, None)
+        inflight.append((r, np.asarray(schedule[r]), pending))
+        last = r + 1 == steps
+        if prefetch and not last:
+            data, data_ev = stage_data(r + 1)   # overlaps round r's compute
+        # sync: waits for round r itself, so the gather below sees the
+        # whole store; async (S > 0): waits only for rounds <= r - S
+        retire(async_rounds)
+        if not last:
+            rows, rows_ev = stage_rows(r + 1)
+        if not prefetch and not last:
+            data, data_ev = stage_data(r + 1)   # serialized staging
+    retire(0)
+    return shared, metrics_out, stats
+
+
+class SuperbatchStats(typing.NamedTuple):
+    win_retire_t: list   # perf_counter stamp when window w's scatter landed
+    win_stall_s: list    # host seconds blocked on the device for window w
+    win_rounds: list     # rounds in window w
+
+
+def superbatch_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
+                             batch_fn, *, rounds_per_jit: int,
+                             wts: np.ndarray | None = None,
+                             round_base: int = 0, prefetch: bool = True):
+    """Windowed driver over ``make_superbatch_engine``: per window of up to
+    ``rounds_per_jit`` rounds, gather the scheduled rows as one ``(K, C,
+    N)`` block, plan the in-window repeats (``window_forwarding``, from the
+    current ``last_round``: every earlier window's scatter has landed),
+    dispatch the window once, wait once for its blocks and scatter them
+    back in round order (last writer wins, ``last_round`` stamped per
+    round).  With ``prefetch`` the next window's batches are sampled while
+    this one runs.  The last window may be shorter (on the card a graph of
+    its own length); a repeat across windows reads from the host the bytes
+    the in-window forward would have read, so windowing does not change
+    the trajectory.
+
+    On a CUDA device the blocks are gathered into pinned buffers (one set
+    per window length), copied up as the graph's inputs and copied back
+    into the same buffers after the replay on the same stream.  Returns
+    ``(shared, metrics, stats)`` with per-window ``SuperbatchStats`` (the
+    stall is the one wait for a window's blocks)."""
+    steps = len(schedule)
+    metrics_out: list = [None] * steps
+    stats = SuperbatchStats([], [], [])
+    dev = shared.step.device
+    cuda = dev.type == "cuda"
+    has_res = backend.has_residual
+    widths = [backend.d_flat.shape[1], backend.opt_flat.shape[1]]
+    if has_res:
+        widths.append(backend.d_flat.shape[1])
+    blocks_of: dict = {}
+    data_bufs: dict = {}
+
+    def blocks(k, c):
+        if k not in blocks_of:
+            blocks_of[k] = [torch.empty((k, c, w), dtype=torch.float32,
+                                        pin_memory=cuda) for w in widths]
+        return blocks_of[k]
+
+    def stage_data(start, k, turn):
+        first = np.asarray(batch_fn(start), np.float32)
+        key = (k, turn % 2)
+        if key not in data_bufs:
+            data_bufs[key] = torch.empty((k,) + first.shape,
+                                         dtype=torch.float32, pin_memory=cuda)
+        buf = data_bufs[key]
+        host = buf.numpy()
+        host[0] = first
+        for j in range(1, k):
+            host[j] = batch_fn(start + j)
+        return buf
+
+    data, i, turn = None, 0, 0
+    while i < steps:
+        k = min(rounds_per_jit, steps - i)
+        sched = np.asarray(schedule[i:i + k])
+        fwd, ages = window_forwarding(sched, backend.last_round.numpy(),
+                                      round_base + i)
+        blks = blocks(k, sched.shape[1])
+        for r in range(k):
+            backend.gather_rows(sched[r], out=(blks[0][r], blks[1][r]))
+            if has_res:
+                backend.gather_residual(sched[r], out=blks[2][r])
+        if data is None:
+            data = stage_data(i, k, turn)
+        w = None if wts is None else torch.from_numpy(
+            np.asarray(wts[i:i + k], np.float32))
+        shared, *outs, m = eng(shared, *blks, torch.from_numpy(fwd),
+                               torch.from_numpy(ages), data, wts=w)
+        if cuda:
+            for host, out in zip(blks, outs):
+                host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        turn += 1
+        data = None
+        if prefetch and i + k < steps:
+            data = stage_data(i + k, min(rounds_per_jit, steps - i - k), turn)
+        t0 = time.perf_counter()
+        if cuda:
+            done.synchronize()             # THE stall
+        mets = _fetch(m)
+        stats.win_stall_s.append(time.perf_counter() - t0)
+        for r in range(k):
+            backend.scatter_rows(sched[r], blks[0][r], blks[1][r],
+                                 round_base + i + r + 1,
+                                 residual=blks[2][r] if has_res else None)
+            metrics_out[i + r] = {key: v[r] for key, v in mets.items()}
+        stats.win_retire_t.append(time.perf_counter())
+        stats.win_rounds.append(k)
+        i += k
+    return shared, metrics_out, stats
+
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +708,10 @@ class DeviceBackendDriver:
 
     def load_arrays(self, tree: list, generator: torch.Generator) -> None:
         """Build the deferred state from restored arrays (``arrays()``'s
-        structure on the session's device, the key slot left out) and the
+        structure, CPU tensors; the key slot is not read) and the
         round-noise generator."""
         assert self.state is None, "load_arrays builds a deferred state"
+        tree = _tree_to(tree[:-1], self.sess.device)
         if self.mode == "cohort":
             g, g_opt, store, server_d, step = tree
             self.state = CohortState(g, g_opt, CohortStore(*store), server_d,
@@ -467,6 +857,180 @@ class DeviceBackendDriver:
 
 
 register_backend("device", DeviceBackendDriver, streams=False)
+
+
+class HostStreamDriver:
+    """Host-resident streamed state: the (U, N) store lives in host memory
+    (``HostStateBackend``, pinned on the card) and every round moves
+    exactly C rows each way, so a round's cost does not depend on U, which
+    host RAM bounds instead of device memory.
+
+    ``fuse_store_rounds`` runs the superbatch engine (one dispatch per
+    window of ``rounds_per_jit`` rounds) where the stream is synchronous;
+    under ``async_rounds > 0`` or ``stage_rows`` the request falls back to
+    the per-round stream and ``extra["fused_store"]`` is False, as in the
+    reference.  ``arrays()`` is the reference's checkpoint layout: a dict
+    of ``shared`` (the ``CohortShared`` fields, the PRNG slot last holding
+    the round-noise generator's state), ``d_flat``, ``opt_flat``,
+    ``last_round`` and, with error feedback, ``residual``."""
+
+    backend_name = "host"
+
+    def __init__(self, sess, defer_state: bool = False):
+        self.sess = sess
+        pair, fcfg, sp = sess.pair, sess.fcfg, sess.spec
+        self.shared, self.backend = (None, None) if defer_state else \
+            init_host_backend(pair, fcfg, sp.seed, sess.device,
+                              sync_ds=sess.approach.sync_ds)
+        self.eng = make_cohort_rows_engine(pair, fcfg, sp.approach)
+        self.stage_rows = sp.combine.compression.stage_rows
+        self.fused_store = (sp.engine.fuse_store_rounds
+                            and sp.backend.async_rounds == 0
+                            and not self.stage_rows)
+        self.win_eng = None
+        if self.fused_store:
+            self.win_eng = make_superbatch_engine(
+                pair, fcfg, sp.approach,
+                adaptive=sp.combine.adaptive_server_scale)
+
+    # -- checkpoint state --------------------------------------------------
+
+    def arrays(self) -> dict:
+        pair, fcfg = self.sess.pair, self.sess.fcfg
+        if self.backend is None:
+            sh = shared_template(pair, fcfg)
+            u = fcfg.num_users
+            nd, no = d_flat_layout(pair).n, d_opt_flat_layout(pair, fcfg).n
+            meta = lambda *shape, dt=torch.float32: torch.empty(
+                shape, dtype=dt, device="meta")
+            store = [meta(u, nd), meta(u, no), meta(u, dt=torch.int32),
+                     meta(u, nd) if _wants_residual(fcfg) else None]
+        else:
+            sh, b = self.shared, self.backend
+            store = [b.d_flat, b.opt_flat, b.last_round, b.residual]
+        out = {"shared": [sh.g, sh.g_opt, sh.server_d, sh.step,
+                          sh.generator.get_state()],
+               "d_flat": store[0], "opt_flat": store[1],
+               "last_round": store[2]}
+        if store[3] is not None:
+            out["residual"] = store[3]
+        return out
+
+    def load_arrays(self, tree: dict, generator: torch.Generator) -> None:
+        assert self.backend is None, "load_arrays builds a deferred state"
+        g, g_opt, server_d, step = _tree_to(tree["shared"][:-1],
+                                            self.sess.device)
+        self.shared = CohortShared(g, g_opt, server_d, step, generator)
+        self.backend = HostStateBackend(
+            tree["d_flat"], tree["opt_flat"], tree["last_round"],
+            tree.get("residual"), pin=self.sess.device.type == "cuda")
+
+    def generator_params(self):
+        return self.shared.g
+
+    def user_d_flat(self, user_id: int) -> np.ndarray:
+        return self.backend.gather_rows([user_id])[0][0].numpy()
+
+    # -- execution ---------------------------------------------------------
+
+    def run(self, rounds: int) -> RunResult:
+        sess = self.sess
+        sp = sess.spec
+        U, C = sess.fcfg.num_users, sess.cohort_size
+        schedule = sess._next_schedule(rounds)
+        wts = sess._next_weights(schedule)
+        batch_round = lambda r: sess._batch_cohort(schedule[r])
+        t0 = time.perf_counter()
+        if self.fused_store:
+            rpj = sp.engine.rounds_per_jit
+            self.shared, mets, ws = superbatch_cohort_rounds(
+                self.win_eng, self.shared, self.backend, schedule,
+                batch_round, rounds_per_jit=rpj, wts=wts,
+                round_base=sess.round, prefetch=sp.backend.prefetch)
+            # the first window carries the graphs' capture; full windows
+            # after it give the steady rate; a round's stall is its
+            # window's one wait over the window's rounds
+            wr = ws.win_retire_t
+            compile_s = wr[0] - t0
+            steady = wr[-1] - wr[0] if len(wr) > 1 else 0.0
+            step_denom = max(rounds - ws.win_rounds[0], 1)
+            rates = [(wr[j] - wr[j - 1]) / ws.win_rounds[j]
+                     for j in range(1, len(wr)) if ws.win_rounds[j] == rpj]
+            min_step_s = min(rates) if rates else steady / step_denom
+            post = [s / k for s, k in zip(ws.win_stall_s[1:],
+                                          ws.win_rounds[1:])]
+            host_stall = (float(np.mean(post)) if post
+                          else ws.win_stall_s[0] / ws.win_rounds[0])
+        else:
+            self.shared, mets, st = stream_cohort_rounds(
+                self.eng, self.shared, self.backend, schedule, batch_round,
+                async_rounds=sp.backend.async_rounds,
+                prefetch=sp.backend.prefetch, wts=wts,
+                round_base=sess.round,
+                stage_codec="int8" if self.stage_rows else "none")
+            rt = st.retire_t
+            compile_s = rt[0] - t0
+            steady = rt[-1] - rt[0] if rounds > 1 else 0.0
+            step_denom = max(rounds - 1, 1)
+            # steady per-round: the least mean over sliding windows of
+            # retire stamps (robust to the first round and to load spikes)
+            W = max(1, min(8, (rounds - 1) // 2))
+            rates = [(rt[i + W] - rt[i]) / W for i in range(1, rounds - W)]
+            min_step_s = min(rates) if rates else steady / step_denom
+            # host seconds blocked on the device per steady round: the
+            # first round and the end-of-run drain (the last async_rounds
+            # retires wait by construction) left out
+            host_stall = (float(np.mean(
+                st.stall_s[1:max(rounds - sp.backend.async_rounds, 2)]))
+                if rounds > 1 else 0.0)
+
+        kept = np.asarray([float(m["kept_frac"]) for m in mets])
+        state = None
+        if sp.backend.materialize_state:
+            # the (U, N) store unpacked into the stacked layout on the
+            # session's device: opt out where U exceeds device memory
+            store = CohortStore(*(None if t is None else t.to(sess.device)
+                                  for t in dataclasses.astuple(
+                                      self.backend.snapshot())))
+            state = cohort_state_to_full(sess.pair, sess.fcfg, CohortState(
+                self.shared.g, self.shared.g_opt, store,
+                self.shared.server_d, self.shared.step,
+                self.shared.generator))
+        res = RunResult(
+            g_losses=np.asarray([float(m["g_loss"]) for m in mets]),
+            d_losses=np.stack([np.asarray(m["d_loss"]) for m in mets]),
+            wall_time_s=compile_s + steady,
+            step_time_s=steady / step_denom,
+            samples=sess._eval_samples(self.shared.g),
+            state=state,
+            extra={"compile_s": compile_s, "kept_frac": float(kept[-1]),
+                   "engine": "fused", "min_step_time_s": min_step_s,
+                   "device": str(sess.device),
+                   "participation": sp.participation.scheduler,
+                   "cohort_size": C, "schedule": schedule,
+                   "participation_counts": np.bincount(schedule.ravel(),
+                                                       minlength=U),
+                   "staleness": (sess.round + rounds
+                                 - self.backend.last_round.numpy()),
+                   "mean_age": np.asarray([float(m["mean_age"])
+                                           for m in mets]),
+                   "state_backend": self.backend_name,
+                   "host_backend": self.backend,
+                   "async_rounds": sp.backend.async_rounds,
+                   "prefetch": sp.backend.prefetch,
+                   "fused_store": self.fused_store,
+                   "host_stall_s_per_round": host_stall,
+                   "adaptive_server_scale":
+                       sp.combine.adaptive_server_scale,
+                   **({"participation_weights": wts}
+                      if wts is not None else {}),
+                   **_upload_accounting(sess.pair, sess.fcfg, sp.approach,
+                                        C, float(np.mean(kept)),
+                                        stage_rows=self.stage_rows)})
+        return res
+
+
+register_backend("host", HostStreamDriver, streams=True)
 
 
 # ---------------------------------------------------------------------------
@@ -727,9 +1291,11 @@ class FederationSession:
             gen.set_state(stored[key])
         else:                                      # a jax key
             gen.manual_seed(resume_generator_seed(spec.seed, step))
-        arrays = [s.to(device=sess.device, dtype=t.dtype)
-                  for s, t in zip(stored[:key], targets[:key])]
-        sess._driver.load_arrays(tree_unflatten(template[:-1], arrays), gen)
+        # on the CPU: each driver moves what lives on the device
+        arrays = [s.to(dtype=t.dtype) for s, t in zip(stored[:key],
+                                                      targets[:key])]
+        sess._driver.load_arrays(
+            tree_unflatten(template, arrays + [stored[key]]), gen)
         sess.round = step
         sess.data_rng.bit_generator.state = meta["data_rng"]
         sess.sched_rng.bit_generator.state = meta["sched_rng"]

@@ -9,8 +9,8 @@ construction and the whole spec round-trips through ``to_dict`` /
 describes a run of either package.
 
 The registries hold only what the port has.  A manifest that names a
-part of the reference not yet ported (the host/spmd/multihost backends,
-the serve and decode sections) raises ``NotImplementedError`` naming the
+part of the reference not yet ported (the spmd/multihost backends, the
+serve and decode sections) raises ``NotImplementedError`` naming the
 ROADMAP item that brings it; an unknown name raises ``KeyError`` as in the
 reference.
 """
@@ -27,7 +27,6 @@ _ENGINE_KINDS = ("fused", "per_step")
 
 # reference features this slice does not run yet -> the ROADMAP item
 _LATER = {
-    "host": "the host streaming backend (ROADMAP queue A item 8)",
     "spmd": "the SPMD backend (ROADMAP queue A item 9)",
     "multihost": "the multihost backend (ROADMAP queue A item 10)",
     "serve": "the serve section (ROADMAP queue A item 11)",
@@ -39,7 +38,7 @@ def _not_ported(name: str):
     return NotImplementedError(
         f"{_LATER[name]} is not ported to repro_torch yet; the port runs "
         f"federation (full or cohort-virtualized participation) on the "
-        f"device backend")
+        f"device and host backends")
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +59,7 @@ def _load_builtins() -> None:
     try:
         import repro_torch.core.approaches  # noqa: F401  (approaches)
         import repro_torch.core.federated   # noqa: F401  (combiners etc.)
-        import repro_torch.core.session     # noqa: F401  (device backend)
+        import repro_torch.core.session     # noqa: F401  (backends)
     except BaseException:
         _builtins_state = "unloaded"
         raise
@@ -231,9 +230,14 @@ class ParticipationSpec:
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """Where the per-user rows live.  The port has the ``device`` backend;
-    the streaming knobs keep the reference's fields and checks so
-    manifests stay interchangeable."""
+    """Where the per-user rows live: ``device`` keeps the (U, N) store on
+    the accelerator; ``host`` keeps it in host memory and streams the
+    scheduled cohort's C rows per round (U bounded by host RAM), with
+    ``async_rounds`` bounded-staleness rounds in flight, ``prefetch``
+    (stage round k+1's data under round k's compute) and
+    ``materialize_state=False`` (skip the final (U, N) unpack onto the
+    device).  The multihost fields keep the reference's names and checks
+    so manifests stay interchangeable."""
 
     kind: str = "device"
     async_rounds: int = 0
@@ -288,7 +292,8 @@ class CompressionSpec:
     keeps a per-user residual of what compression dropped (it lives in the
     cohort store, so it needs a cohort-virtualized run);
     ``stochastic`` selects counter-hash stochastic rounding;
-    ``stage_rows`` belongs to the host/SPMD backends."""
+    ``stage_rows`` also moves the host backend's D rows as int8 plus a
+    per-row scale each way (a lossy store transport)."""
 
     codec: str = "none"
     error_feedback: bool = True
@@ -417,7 +422,8 @@ class FederationSpec:
                     "error feedback keeps a per-user residual row in the "
                     "cohort store; run a cohort-virtualized configuration "
                     "or set compression.error_feedback=False")
-        if comp.stage_rows:
+        if comp.stage_rows and self.backend.kind not in ("host", "spmd",
+                                                         "multihost"):
             raise ValueError(
                 f"stage_rows compresses the host<->device / cross-mesh "
                 f"row movement; the {self.backend.kind!r} backend's store "

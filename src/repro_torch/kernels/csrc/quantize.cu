@@ -12,6 +12,11 @@
 //   or, stochastic: y = clip(y), f = floor(y), u = hash_u01(r, col, seed),
 //                   q = clip(f + (u < y - f))
 //   dequantize: out = float(q) * scale[r]
+// with the reference's f32 semantics on the edges (XLA on the CPU and the
+// TPU flushes subnormals to zero; XLA converts NaN to the integer 0): a
+// subnormal entry, scale or y counts as 0, and a NaN y (a NaN entry, or an
+// inf one times inv = 0) codes as 0.  Each is an explicit select: the file
+// is not built with -ftz=true.
 // Every float operation is spelled with an _rn intrinsic and the file is
 // built with -fmad=false, so nvcc contracts nothing into an FMA.
 //
@@ -85,14 +90,25 @@ __device__ __forceinline__ uint32_t mag_bits(float v) {
 // the FP32 pipe, where rintf, floorf and the float-to-int conversion would
 // take the slower conversion unit.
 constexpr float kRound = 12582912.0f;
+constexpr float kMinNormal = 1.17549435e-38f;   // 2^-126
+
+// v, or a zero of its sign where v is subnormal (NaN and inf pass)
+__device__ __forceinline__ float flush_subnormal(float v) {
+  return fabsf(v) < kMinNormal ? copysignf(0.0f, v) : v;
+}
 
 // The code of x[r, col] in the low byte: clip(rint(y)), or with stochastic
 // rounding clip(floor(y) + (u < y - floor(y))) for u = hash_u01(r, col,
 // seed), with y = x * inv.  Clipping y before rounding gives the same codes
-// as clipping after, as the reference does.
+// as clipping after, as the reference does.  y is 0 where x is subnormal
+// (or 0 or NaN) and where x * inv is subnormal or NaN (an inf x times inv
+// = 0): two compares of magnitudes, both false for NaN, and one select.
+// The sign of such a zero does not reach the code.
 template <bool kStochastic>
 __device__ __forceinline__ uint32_t code(float xv, float inv, float u) {
-  const float y = fminf(fmaxf(__fmul_rn(xv, inv), -127.0f), 127.0f);
+  const float p = __fmul_rn(xv, inv);
+  const bool keep = fabsf(xv) >= kMinNormal && fabsf(p) >= kMinNormal;
+  const float y = fminf(fmaxf(keep ? p : 0.0f, -127.0f), 127.0f);
   if (kStochastic) {
     const float t = __fadd_rd(y, kRound);                 // floor(y) + kRound
     const float d = __fsub_rn(y, __fsub_rn(t, kRound));   // y - floor(y)
@@ -166,7 +182,7 @@ quantize_cluster(const float* __restrict__ x, long long n,
   ROW_CLUSTER_STAMP(2);                         // pushed, barrier passed
   m = 0u;
   for (int r = 0; r < kCluster; ++r) m = max(m, cta_max[r]);
-  const float scale = __fdiv_rn(__uint_as_float(m), 127.0f);
+  const float scale = flush_subnormal(__fdiv_rn(__uint_as_float(m), 127.0f));
   const float inv = scale > 0.0f ? __fdiv_rn(1.0f, scale) : 0.0f;
   if (rank == 0 && tid == 0) scale_out[row] = scale;
   ROW_CLUSTER_STAMP(3);                         // scale and inv
@@ -202,7 +218,8 @@ __global__ void dequantize(const signed char* __restrict__ q, long long n,
                            const float* __restrict__ scale,
                            float* __restrict__ out) {
   const int row = blockIdx.y;
-  const float s = scale[row];
+  // a subnormal scale is 0; for |q| >= 1 nothing else underflows
+  const float s = flush_subnormal(scale[row]);
   const long long base = static_cast<long long>(row) * n;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x

@@ -20,6 +20,7 @@ import math
 import torch
 
 _M32 = 0xFFFFFFFF
+MIN_NORMAL = 2.0 ** -126           # f32's least normal magnitude
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -54,13 +55,20 @@ def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
     """(R, N) f32 -> (q int8 (R, N), scale f32 (R,)):
     ``scale = max|x[r]| / 127``, ``inv = where(scale > 0, 1/scale, 0)``,
     ``q = clip(round(x * inv), -127, 127)`` (or stochastic rounding keyed
-    by the counter hash on ``seed``, an int or a one-element tensor)."""
-    x = x.to(torch.float32)
+    by the counter hash on ``seed``, an int or a one-element tensor).
+
+    As the reference's f32 does (XLA on the CPU and the TPU flush
+    subnormals to zero), subnormal entries, a subnormal scale (an absmax
+    below ``127 * 2**-126``) and a subnormal ``x * inv`` count as 0, and a
+    NaN ``x * inv`` (a NaN entry, or an inf one times ``inv = 0``) codes as
+    0, as XLA converts NaN to an integer."""
+    x = flush_subnormals(x.to(torch.float32))
     absmax = torch.amax(torch.abs(x), dim=1)
-    scale = absmax / torch.full_like(absmax, 127.0)
+    scale = flush_subnormals(absmax / torch.full_like(absmax, 127.0))
     inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
                       torch.zeros_like(scale))
-    y = x * inv[:, None]
+    y = flush_subnormals(x * inv[:, None])
+    y = torch.where(torch.isnan(y), torch.zeros_like(y), y)
     if stochastic:
         assert seed is not None, "stochastic rounding needs a seed"
         y = torch.clamp(y, -127.0, 127.0)
@@ -74,8 +82,11 @@ def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
 
 
 def dequantize_rows_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``q * scale[r]`` as f32."""
-    return q.to(torch.float32) * scale.to(torch.float32)[:, None]
+    """``q * scale[r]`` as f32, a subnormal scale taken as 0 as the
+    reference's f32 takes it.  Nothing else can underflow: for ``|q| >= 1``
+    the product's magnitude is at least the scale's."""
+    return q.to(torch.float32) * flush_subnormals(
+        scale.to(torch.float32))[:, None]
 
 
 def topk_k(n: int, frac: float) -> int:
@@ -86,7 +97,6 @@ def topk_k(n: int, frac: float) -> int:
 
 BLOCK = 8 * 128 * 8      # the block-local top-k's slice (topk_select.py:40)
 _BISECT_ITERS = 32
-_MIN_NORMAL = 2.0 ** -126           # f32's least normal magnitude
 _INF_BITS = 0x7F800000
 
 
@@ -97,10 +107,11 @@ def mag_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
 
 
-def _flushed(v: torch.Tensor) -> torch.Tensor:
-    """``v >= 0`` with its subnormals as 0, as the reference's f32 takes
-    them (XLA on the CPU and the TPU flush subnormals to zero)."""
-    return torch.where(v < _MIN_NORMAL, torch.zeros_like(v), v)
+def flush_subnormals(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with its subnormals as zeros of their sign, as the reference's
+    f32 takes them (XLA on the CPU and the TPU flush subnormals to zero);
+    NaN and inf pass."""
+    return torch.where(torch.abs(v) < MIN_NORMAL, v * 0, v)
 
 
 def topk_mask_block_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
@@ -116,13 +127,13 @@ def topk_mask_block_ref(x: torch.Tensor, frac: float) -> torch.Tensor:
         return topk_mask_block_ref(x[None], frac)[0]
     rows, n = x.shape
     k = topk_k(BLOCK, frac)
-    mag = _flushed(torch.abs(x.to(torch.float32)))
+    mag = flush_subnormals(torch.abs(x.to(torch.float32)))
     mag = torch.nn.functional.pad(mag, (0, (-n) % BLOCK)).reshape(-1, BLOCK)
     hi = torch.amax(mag, dim=1)
     lo = torch.zeros_like(hi)
     half = torch.full_like(hi, 0.5)
     for _ in range(_BISECT_ITERS):
-        mid = _flushed(half * (lo + hi))
+        mid = flush_subnormals(half * (lo + hi))
         take = torch.sum(mag >= mid[:, None], dim=1) >= k
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     return (mag >= lo[:, None]).reshape(rows, -1)[:, :n]
@@ -155,7 +166,7 @@ def topk_mask_block_select(x: torch.Tensor, frac: float) -> torch.Tensor:
     lo = torch.zeros_like(hi)
     half = torch.full_like(hi, 0.5)
     for _ in range(_BISECT_ITERS):
-        mid = _flushed(half * (lo + hi))
+        mid = flush_subnormals(half * (lo + hi))
         take = select & (vk >= mid)
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     mag = bits.view(torch.float32)

@@ -4,6 +4,7 @@ engine and through the eager chunk.
     PYTHONPATH=src python -m repro_torch.profile_round [--rounds 16]
         [--codec topk_int8] [--stochastic] [--conv]
         [--trace chiprun_out/round.json]
+    PYTHONPATH=src python -m repro_torch.profile_round --host [--users 256]
 
 Runs approach-1 federation at the paper's full MLP width (784/256/256,
 z 64; 8 users of Dirichlet-split 28x28 digit-like data; batch 64; fused
@@ -24,7 +25,15 @@ host operations by self CPU time.  For the graph it also takes
 one chunk apart (``breakdown``, per round, best of 5): the host's noise
 draws, loading them and the reals into the graph's buffers, the
 ``replay()`` call, and the replay's device time between CUDA events.
-``--trace`` writes the graph run's Chrome trace.  Needs a CUDA device.
+``--trace`` writes the graph run's Chrome trace.
+
+``--host`` profiles the host streaming backend instead (``--users``
+logical users, default 256, a uniform cohort of 8, ``topk_int8`` with
+error feedback, the store in pinned host memory), in each of its modes
+(sync, no prefetch, one round in flight, superbatch windows of
+``--rounds``, int8 row staging), with the same window, plus host clocks
+around the stream's host stages: the store's gathers and scatters and the
+batch sampling, ms per round over every round run.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,8 +51,9 @@ from repro_torch.core.engine import make_eager_engine
 from repro_torch.core.gan import (ConvGanConfig, MLPGanConfig,
                                   make_conv_pair, make_mlp_pair)
 from repro_torch.core.session import FederationSession
-from repro_torch.core.spec import (CombineSpec, CompressionSpec, EngineSpec,
-                                   FederationSpec)
+from repro_torch.core.spec import (BackendSpec, CombineSpec,
+                                   CompressionSpec, EngineSpec,
+                                   FederationSpec, ParticipationSpec)
 from repro_torch.data import digits_like_mixture, dirichlet_partition
 
 # the kernels of csrc/topk_select.cu and csrc/quantize.cu (B1, B2)
@@ -173,15 +183,73 @@ def _replay_breakdown(sess, rounds: int, reps: int = 5) -> dict:
     return out
 
 
+HOST_MODES = ("sync", "no_prefetch", "async", "superbatch", "stage_rows")
+
+
+def _host_spec(mode: str, rounds: int) -> FederationSpec:
+    return FederationSpec(
+        "approach1", batch_size=64, eval_samples=0,
+        engine=EngineSpec(rounds_per_jit=rounds,
+                          fuse_store_rounds=mode == "superbatch"),
+        participation=ParticipationSpec("uniform", cohort_size=8),
+        backend=BackendSpec("host", async_rounds=int(mode == "async"),
+                            prefetch=mode != "no_prefetch",
+                            materialize_state=False),
+        combine=CombineSpec("staleness_max_abs", compression=CompressionSpec(
+            "topk_int8", stage_rows=mode == "stage_rows")))
+
+
+def _host_stages(sess) -> dict:
+    """Host clocks around the host stream's stages: the store's gathers
+    (rows and residuals) and scatters, and the batch sampling.  Returns
+    the accumulator (seconds), which the session's runs fill."""
+    acc = dict.fromkeys(("gather", "scatter", "sample"), 0.0)
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return run
+
+    be = sess._driver.backend
+    be.gather_rows = timed(be.gather_rows, "gather")
+    be.gather_residual = timed(be.gather_residual, "gather")
+    be.scatter_rows = timed(be.scatter_rows, "scatter")
+    sess._batch_cohort = timed(sess._batch_cohort, "sample")
+    return acc
+
+
+def _host_main(args, pair) -> dict:
+    fcfg = DistGANConfig(num_users=args.users, upload_frac=0.1)
+    dataset = _dataset(args.users)
+    out = {}
+    for mode in HOST_MODES:
+        sess = FederationSession(pair, fcfg, dataset,
+                                 _host_spec(mode, args.rounds))
+        acc = _host_stages(sess)
+        out[mode] = _profile(sess, args.rounds, None)
+        run = 6 * args.rounds       # warm-up, window of 4, profiled chunk
+        out[mode].update({f"host_{k}_ms_per_round": v * 1e3 / run
+                          for k, v in acc.items()})
+        del sess
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=16)
-    ap.add_argument("--users", type=int, default=8)
+    ap.add_argument("--users", type=int, default=None,
+                    help="users (default 8; 256 with --host)")
     ap.add_argument("--codec", default="topk_int8")
     ap.add_argument("--stochastic", action="store_true")
     ap.add_argument("--conv", action="store_true",
                     help="the DCGAN pair at 64 x 64 x 3, 64 base filters")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--host", action="store_true",
+                    help="the host streaming backend, in each of its modes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA device")
@@ -190,12 +258,19 @@ def main() -> None:
                                          base_filters=64)) if args.conv else
             make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
                                        d_hidden=256)))
+    if args.host:
+        args.users = args.users or 256
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "users": args.users, "rounds": args.rounds,
+                          "host": _host_main(args, pair)}))
+        return
     spec = FederationSpec(
         "approach1", batch_size=64, eval_samples=0,
         engine=EngineSpec(kind="fused", rounds_per_jit=args.rounds),
         combine=CombineSpec(compression=CompressionSpec(
             codec=args.codec, error_feedback=False,
             stochastic=args.stochastic)))
+    args.users = args.users or 8
     fcfg = DistGANConfig(num_users=args.users, upload_frac=0.1)
     dataset = _dataset(args.users, args.conv)
     out = {"device": torch.cuda.get_device_name(0), "rounds": args.rounds,

@@ -598,3 +598,114 @@ def test_save_restore_resumes_bitwise_under_graphs(cuda, kind, tmp_path):
                                   want.d_losses)
     np.testing.assert_array_equal(w2.samples, want.samples)
     assert _equal_carries(second._driver.state, full._driver.state)
+
+
+# ---------------------------------------------------------------------------
+# The int8 codec where the reference's f32 flushes subnormals
+# ---------------------------------------------------------------------------
+
+def _edge_rows(n, seed):
+    """An absmax below 127 * 2^-126 (scale 0), subnormal entries under a
+    subnormal and under a normal scale, inf entries (inf times inv = 0 is
+    NaN: coded 0), a NaN, magnitudes just above the least normal scale."""
+    x = _rows((7, n), seed)
+    tiny = 127 * 2.0 ** -126
+    x[0] *= 1e-37
+    x[1] = 5e-39
+    x[1, 0] = 1e-36
+    x[2] *= 1e-38
+    x[2, 0] = 3 * tiny
+    x[3, ::7] = float("inf")
+    x[3, 1::11] = float("-inf")
+    x[4, n // 2] = float("nan")
+    x[5] = x[5].abs() * 2.0 ** -126 + tiny
+    return x
+
+
+def _same_floats(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("n", [1, 77, 4096, 267009, 1_000_003])
+def test_codec_kernels_flush_subnormals_like_plain(cuda, stochastic, n):
+    """B2 on the flushed edges equals the repaired plain versions bitwise,
+    signed zeros and NaN scales included; the flushed rows code to 0."""
+    x = _edge_rows(n, n).to(cuda)
+    seed = 123 if stochastic else None
+    q, s = tquant.quantize_rows(x, stochastic=stochastic, seed=seed)
+    qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
+    assert torch.equal(q, qr) and _same_floats(s, sr)
+    if n > 1:
+        assert not (q[0].any() or q[1].any() or q[3].any())
+    assert _same_floats(tquant.dequantize_rows(q, s),
+                        ref.dequantize_rows_ref(qr, sr))
+
+
+def test_dequantize_kernel_takes_a_subnormal_scale_as_zero(cuda):
+    q = torch.randint(-127, 128, (6, 5000), dtype=torch.int8, device=cuda)
+    scale = torch.tensor([3e-39, 2.0 ** -126, 0.0, float("nan"),
+                          float("inf"), 1e-3], device=cuda)
+    got = tquant.dequantize_rows(q, scale)
+    assert _same_floats(got, ref.dequantize_rows_ref(q, scale))
+    assert not got[0].any()
+
+
+# ---------------------------------------------------------------------------
+# The host streaming backend on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["sync", "no_prefetch", "async",
+                                  "superbatch", "stage_rows"])
+def test_host_stream_on_the_card(cuda, mode):
+    """A host-backend session on the card (pinned store, copy streams, one
+    graph per round or per window): the sync modes equal the device cohort
+    engine on the same schedule within 1e-6 (ages bitwise), async stays
+    finite with its lag, and the int8 row legs add one quantize and one
+    dequantize launch per round."""
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    from repro_torch.core.protocol import run_distgan
+    from repro_torch.data import digits_like_mixture, dirichlet_partition
+    rng = np.random.default_rng(0)
+    _, sample = digits_like_mixture(list(range(10)), size=8)
+    data = sample(rng, 400).reshape(400, -1)
+    dataset = dirichlet_partition(data, rng.integers(0, 10, 400), 6, 0.5)
+    pair = make_mlp_pair(MLPGanConfig(**_SMALL))
+    kw = dict(steps=9, batch_size=16, eval_samples=0, rounds_per_jit=4,
+              participation="uniform", cohort_size=3, codec="topk_int8",
+              device=cuda)
+    fcfg = DistGANConfig(num_users=6, combiner="staleness_max_abs")
+    dev = run_distgan(pair, fcfg, dataset, "approach1",
+                      fuse_store_rounds=True, **kw)
+    host_kw = {"sync": {}, "no_prefetch": dict(prefetch=False),
+               "async": dict(async_rounds=1),
+               "superbatch": dict(fuse_store_rounds=True),
+               "stage_rows": dict(stage_rows=True)}[mode]
+    ops.reset_launch_counts()
+    host = run_distgan(pair, fcfg, dataset, "approach1", state_backend="host",
+                       **host_kw, **kw)
+    legs = 9 if mode == "stage_rows" else 0
+    counts = ops.launch_counts()
+    assert (counts["topk_mask_rows"], counts["quantize_rows"],
+            counts["dequantize_rows"]) == (9, 9 + legs, 9 + legs)
+    assert host.extra["host_backend"].pinned
+    assert host.extra["fused_store"] == (mode == "superbatch")
+    assert np.all(np.isfinite(host.g_losses))
+    if mode in ("sync", "no_prefetch", "superbatch"):
+        np.testing.assert_array_equal(host.extra["mean_age"],
+                                      dev.extra["mean_age"])
+        np.testing.assert_allclose(host.g_losses, dev.g_losses, atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_allclose(host.d_losses, dev.d_losses, atol=1e-6,
+                                   rtol=0)
+        for a, b in zip(_state_leaves(host.state), _state_leaves(dev.state)):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def _state_leaves(state):
+    from repro_torch.models.common import tree_leaves
+    return [t for f in ("g", "ds", "d_opts", "server_d")
+            for t in tree_leaves(getattr(state, f))]

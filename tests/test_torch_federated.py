@@ -204,3 +204,53 @@ def test_data_batches_match_reference_bitwise():
                                               jds.user_batch(u, jr, 16))
         np.testing.assert_array_equal(tds.union_sampler(tr, 32),
                                       jds.union_sampler(jr, 32))
+
+
+# ---------------------------------------------------------------------------
+# Subnormal rows: the reference's f32 compares flush subnormals to zero
+# ---------------------------------------------------------------------------
+
+def _subnormal_rows():
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(3, 4096)).astype(np.float32)
+    x[0] *= np.float32(1e-39)                 # every entry subnormal
+    x[1, :3000] *= np.float32(1e-39)          # part subnormal
+    x[2, ::2] *= np.float32(1e-40)            # a subnormal tail
+    return x
+
+
+@pytest.mark.parametrize("frac", [0.1, 0.5])
+def test_topk_mask_takes_a_subnormal_kth_magnitude_as_zero(frac):
+    """The non-kernel top-k keeps every entry where the k-th magnitude is
+    subnormal (the reference reads the threshold as 0); the kernel route
+    orders bit patterns and is left as it was."""
+    x = _subnormal_rows()
+    got, kept = tfed.select_delta_flat(torch.from_numpy(x), "topk",
+                                       frac=frac, use_kernel=False)
+    for r in range(3):
+        m, k = jfed.select_delta_flat(jnp.asarray(x[r]), "topk", frac=frac)
+        np.testing.assert_array_equal(got[r].numpy().view(np.int32),
+                                      np.asarray(m).view(np.int32))
+        assert float(kept[r]) == pytest.approx(float(k), abs=1e-7)
+    assert float(kept[0]) == 1.0
+
+
+def test_threshold_mask_and_priced_bytes_on_part_subnormal_rows():
+    """``threshold`` at tau = 0 drops subnormal entries as the reference
+    does, so the kept fraction, and the upload bytes priced from it, equal
+    the reference's."""
+    x = _subnormal_rows()
+    got, kept = tfed.select_delta_flat(torch.from_numpy(x), "threshold")
+    n = x.shape[1]
+    for r in range(3):
+        m, k = jfed.select_delta_flat(jnp.asarray(x[r]), "threshold")
+        np.testing.assert_array_equal(got[r].numpy().view(np.int32),
+                                      np.asarray(m).view(np.int32))
+        assert float(kept[r]) == pytest.approx(float(k), abs=1e-7)
+        for codec in ("none", "topk_int8"):
+            assert tfed.upload_bytes_flat(
+                n, "threshold", kept_frac=float(kept[r]), codec=codec) == \
+                jfed.upload_bytes_flat(n, "threshold", kept_frac=float(k),
+                                       codec=codec)
+    assert float(kept[0]) == 0.0
+    assert float(kept[1]) == pytest.approx(1096 / 4096, abs=1e-7)

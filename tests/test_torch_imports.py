@@ -21,6 +21,7 @@ _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:\.|\s|$)",
 def test_import_leaves_jax_out_of_the_process():
     """A fresh interpreter (this one already holds jax via conftest)."""
     code = ("import sys, repro_torch, repro_torch.core.session, "
+            "repro_torch.core.engine, repro_torch.core.federated, "
             "repro_torch.core.protocol, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.checkpoint, "
             "repro_torch.checkpoint.msgpack_codec, repro_torch.core.gan, "

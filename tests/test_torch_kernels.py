@@ -202,3 +202,89 @@ def test_cpu_tensors_never_reach_the_kernels():
         ttopk.topk_mask_block_rows(x, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         tquant.quantize_rows(x)
+
+
+# ---------------------------------------------------------------------------
+# int8 codec on subnormal, NaN and inf rows: the reference's f32 flushes
+# subnormals to zero and converts NaN to the integer 0
+# ---------------------------------------------------------------------------
+
+_TINY = 127 * 2.0 ** -126        # the least absmax with a normal scale
+
+
+def _edge_rows():
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(6, 4096)).astype(np.float32)
+    x[0] *= np.float32(1e-37)                  # absmax < 127 * 2**-126
+    x[1] = np.float32(5e-39)                   # subnormal entries under
+    x[1, 0] = np.float32(1e-36)                # a subnormal scale
+    x[2] *= np.float32(1e-38)                  # normal scale, subnormal
+    x[2, 0] = np.float32(3 * _TINY)            # entries among normals
+    x[3, ::7] = np.inf                         # inf times inv = 0 is NaN
+    x[4, 5] = np.nan
+    x[5] = np.abs(x[5]) * np.float32(2.0 ** -126) + np.float32(_TINY)
+    return x
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_plain_flushes_subnormals_like_reference(stochastic):
+    """Rows whose absmax is below 127 * 2**-126 (scale 0, every code 0),
+    subnormal entries under a normal scale (coded 0, also under stochastic
+    rounding), NaN and inf rows (codes 0): bitwise the reference's eager
+    codec and its interpret-mode kernel, dequantized rows too."""
+    x = _edge_rows()
+    seed = 77 if stochastic else None
+    jseed = jnp.int32(77) if stochastic else None
+    q, s = ops.quantize_rows(torch.from_numpy(x), stochastic=stochastic,
+                             seed=seed)
+    assert float(s[0]) == 0.0 and float(s[1]) == 0.0
+    assert not q[:2].any() and not q[3].any()
+    for qr, sr in (jref.quantize_rows_ref(jnp.asarray(x),
+                                          stochastic=stochastic, seed=jseed),
+                   quantize_rows_pallas(jnp.asarray(x),
+                                        stochastic=stochastic, seed=jseed)):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+        np.testing.assert_array_equal(
+            ops.dequantize_rows(q, s).numpy(),
+            np.asarray(jref.dequantize_rows_ref(qr, sr)))
+
+
+def test_dequantize_plain_takes_a_subnormal_scale_as_zero():
+    """``q * scale`` with a subnormal scale is 0 in the reference (and no
+    product with a normal scale and |q| >= 1 underflows)."""
+    q = np.array([[100, -3, 0, 127], [1, -1, 127, -127]], np.int8)
+    scale = np.array([3e-39, 2.0 ** -126], np.float32)
+    got = ops.dequantize_rows(torch.from_numpy(q), torch.from_numpy(scale))
+    want = np.asarray(jref.dequantize_rows_ref(jnp.asarray(q),
+                                               jnp.asarray(scale)))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(
+        want, np.asarray(dequantize_rows_pallas(jnp.asarray(q),
+                                                jnp.asarray(scale))))
+    assert not got[0].any() and got[1].abs().min() >= 2.0 ** -126
+
+
+def test_host_numpy_codec_is_the_references_bitwise():
+    """The streaming driver's host codec (``stage_rows``) is numpy and does
+    not flush, bit for bit the reference's ``_np_quantize_rows``; on rows
+    without subnormals it equals B2's plain version."""
+    from repro.core.session import _np_dequantize_rows as jdq
+    from repro.core.session import _np_quantize_rows as jq
+    from repro_torch.core.session import (_np_dequantize_rows,
+                                          _np_quantize_rows)
+    rows = np.concatenate([_codec_rows(), _edge_rows()[:3, :1000]])
+    with np.errstate(all="ignore"):
+        q, s = _np_quantize_rows(rows)
+        qr, sr = jq(rows)
+    np.testing.assert_array_equal(q, qr)
+    np.testing.assert_array_equal(s, sr)
+    np.testing.assert_array_equal(_np_dequantize_rows(q, s), jdq(qr, sr))
+    normal = _codec_rows(n=3000, seed=4)
+    q, s = _np_quantize_rows(normal)
+    qp, sp = ops.quantize_rows(torch.from_numpy(normal))
+    np.testing.assert_array_equal(q, qp.numpy())
+    np.testing.assert_array_equal(s, sp.numpy())
+    np.testing.assert_array_equal(_np_dequantize_rows(q, s),
+                                  ops.dequantize_rows(qp, sp).numpy())

@@ -212,7 +212,7 @@ def test_fused_equals_per_step_and_windowing_is_neutral(codec, stochastic):
 
 
 @pytest.mark.parametrize("section", [
-    {"backend": {"kind": "host"}},
+    {"backend": {"kind": "spmd", "async_rounds": 1}},
     {"backend": {"kind": "multihost", "workers": 2}},
     {"participation": {"scheduler": "uniform", "cohort_size": 2},
      "backend": {"kind": "spmd"}},

@@ -84,8 +84,9 @@ def topk_cluster_emulation(x, frac, cl):
 
 def quantize_cluster_emulation(x, cl, *, stochastic=False, seed=None):
     """(R, N) f32 -> (q int8, scale f32), the kernel's arithmetic per slice:
-    slice maxima of the patterns, their max, ``scale = absmax / 127`` and
-    ``inv`` by IEEE division, each slice coded on its own."""
+    slice maxima of the patterns, their max, ``scale = absmax / 127`` (0
+    where subnormal) and ``inv`` by IEEE division, each slice coded on its
+    own from ``y = x * inv``, 0 where x or y is subnormal, zero or NaN."""
     rows, n = x.shape
     q = torch.empty((rows, n), dtype=torch.int8)
     scale = torch.empty(rows, dtype=torch.float32)
@@ -96,10 +97,14 @@ def quantize_cluster_emulation(x, cl, *, stochastic=False, seed=None):
         absmax = torch.tensor([max(maxima)], dtype=torch.int32).view(
             torch.float32)
         s = absmax / torch.full_like(absmax, 127.0)
+        s = torch.where(s.abs() < ref.MIN_NORMAL, s * 0, s)
         inv = torch.where(s > 0, torch.ones_like(s) / s, torch.zeros_like(s))
         scale[r] = s[0]
         for lo, hi in parts:
-            y = x[r, lo:hi] * inv
+            xs = x[r, lo:hi]
+            p = xs * inv
+            keep = (xs.abs() >= ref.MIN_NORMAL) & (p.abs() >= ref.MIN_NORMAL)
+            y = torch.where(keep, p, torch.zeros_like(p))
             if stochastic:
                 y = torch.clamp(y, -127.0, 127.0)
                 f = torch.floor(y)
@@ -161,6 +166,31 @@ def test_quantize_emulation_matches_reference_bitwise(n, stochastic):
     x[2] = 0.0                                 # scale 0: every code 0
     seed = 2**31 - 2 if stochastic else None
     jseed = jnp.int32(seed) if stochastic else None
+    qr, sr = jref.quantize_rows_ref(jnp.asarray(x), stochastic=stochastic,
+                                    seed=jseed)
+    q, s = quantize_cluster_emulation(torch.from_numpy(x), CLUSTER,
+                                      stochastic=stochastic, seed=seed)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_quantize_emulation_flushes_like_reference(stochastic):
+    """Where the reference's f32 flushes: an absmax below 127 * 2^-126,
+    subnormal entries under a subnormal and a normal scale, inf and NaN
+    entries, magnitudes just above the least normal scale."""
+    x = np.random.default_rng(5).normal(size=(6, 3001)).astype(np.float32)
+    tiny = np.float32(127 * 2.0 ** -126)
+    x[0] *= np.float32(1e-37)
+    x[1] = np.float32(5e-39)
+    x[1, 0] = np.float32(1e-36)
+    x[2] *= np.float32(1e-38)
+    x[2, 0] = 3 * tiny
+    x[3, ::7] = np.inf
+    x[4, 1500] = np.nan
+    x[5] = np.abs(x[5]) * np.float32(2.0 ** -126) + tiny
+    seed = 77 if stochastic else None
+    jseed = jnp.int32(77) if stochastic else None
     qr, sr = jref.quantize_rows_ref(jnp.asarray(x), stochastic=stochastic,
                                     seed=jseed)
     q, s = quantize_cluster_emulation(torch.from_numpy(x), CLUSTER,
