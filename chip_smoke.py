@@ -78,13 +78,30 @@ it goes wrong:
    per round, pinned and device GB, the U = 1024 / U = 256 ratio and the
    stall ratio (c) / (b).  Small host sessions on the card and on the CPU
    must agree;
-8. graphs against the eager chunk — each main-path run, the cohort U = 256
+8. SPMD federation (``core/spmd.py``, one user or cohort member per rank of
+   a users mesh on ``torch.distributed``) — B1 and B2 held BITWISE to their
+   plain versions at one rank's row (1 x 267,009) and timed there; (a) NCCL
+   at world size 1 in this process, paper MLP, batch 64, ``topk_int8``:
+   ``make_spmd_step`` (8 rounds), ``make_spmd_engine`` (16), the
+   replicated-store, sharded-store and rows engines at U = 256, C = 1 with
+   error feedback (16 each; the three stores and losses bitwise equal) and
+   the ``spmd`` backend session (32 rounds, pinned host store); launch
+   counts zeroed before each run: one top-k, quantize and dequantize per
+   round; the same ranks on the CPU over gloo must agree with the card (the
+   engine at full width, a small session); (b) SPMD_RANKS gloo ranks
+   sharing the card (``spawn_users``): approaches 1 (``topk_int8`` + EF), 2
+   and 3 on the replicated-store, sharded-store and rows engines at U =
+   256, the sharded and rows stores equal to the replicated one bitwise, G
+   and the server D the same bytes on every rank.  ms per round of each
+   engine, peak device and pinned GB, beside the card's name and power
+   limit;
+9. graphs against the eager chunk — each main-path run, the cohort U = 256
    run on both engines and approaches 2, 3 and the baseline, 48 rounds from
    one seed through the eager chunk and through the CUDA graphs the session
    replays: carries and losses bitwise equal, the graph's steady ms per
    round no higher, the peak device memory of each; windows of 5 + 6 rounds
    equal to one of 11 under graphs;
-9. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
+10. LM prefill path — ``models.model.loss_fn`` (the full-sequence forward
    and its cross-entropy) of tinyllama-1.1b with ``use_flash=True``, then
    of mamba2-780m with ``use_ssm_kernel=True``, at their full published
    width in bf16, random weights from seed 0 on the card, answering three
@@ -101,7 +118,7 @@ it goes wrong:
    the f32 route once per layer.  The reduced f32 configs from one seed on
    the card (kernels, f32 route) and on the CPU (plain versions) must agree
    at the reference's tolerances;
-10. checkpoints — the main path (approach 1, ``topk_int8`` with stochastic
+11. checkpoints — the main path (approach 1, ``topk_int8`` with stochastic
    rounding, chunks of 16): 16 rounds, ``save``, then a fresh process
    (this script with ``--resume-main``) restores, runs 16 rounds and saves;
    its state and losses must equal an uninterrupted 32-round run BITWISE
@@ -111,7 +128,7 @@ it goes wrong:
    error-feedback residual too).  One run with ``autosave_every=8`` whose
    autosaves hold the uninterrupted trajectory.  Save and restore wall
    seconds and the checkpoints' bytes are printed;
-11. the conv pair — (a) the DCGAN pair at the paper's CelebA/LSUN width
+12. the conv pair — (a) the DCGAN pair at the paper's CelebA/LSUN width
    (64 x 64 x 3, z 100, 64 base filters: 2,297,728 G and 675,584 D
    parameters), approach 1, 8 users of Dirichlet(0.5)-split digit-like
    images at 64 x 64 (tiled to 3 channels), batch 64, ``topk_int8`` with
@@ -128,7 +145,7 @@ it goes wrong:
    the same weights on the card and on the CPU must agree within
    ``CONV_LOSS_RTOL`` (losses) and ``CONV_LEAF_REL`` / ``CONV_LEAF_LR_STEPS``
    (every state leaf);
-12. the result: a ``kernels`` JSON line, the card line, and as the last
+13. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -873,7 +890,8 @@ def _digits_dataset(num_users: int, size: int, per_class: int):
 def _session(pair, dataset, num_users, codec, stochastic, device,
              batch=64, rpj=16, eval_samples=256, approach="approach1",
              scheduler="full", cohort=None, fuse=False, ef=False,
-             combiner="max_abs", fcfg=None, backend=None, stage_rows=False):
+             combiner="max_abs", fcfg=None, backend=None, stage_rows=False,
+             mesh=None):
     from repro_torch.core.session import FederationSession
     from repro_torch.core.spec import (BackendSpec, CombineSpec,
                                        CompressionSpec, EngineSpec,
@@ -888,7 +906,7 @@ def _session(pair, dataset, num_users, codec, stochastic, device,
             codec=codec, error_feedback=ef, stochastic=stochastic,
             stage_rows=stage_rows)))
     return FederationSession(pair, fcfg or _fcfg(num_users), dataset, spec,
-                             device=device)
+                             device=device, mesh=mesh)
 
 
 def _fcfg(num_users):
@@ -1813,20 +1831,31 @@ def _conv_width_kernels(torch, dev, recs) -> int:
     """B1 and B2 on 8 rows of the paper-width conv D (675,584, beyond B1's
     shared memory), held BITWISE to their plain versions and timed; the
     times go into each record under ``at_conv_d_width``."""
+    return _kernels_at(torch, dev, recs, MAIN_ROWS, CONV_D_N, 4,
+                       "at_conv_d_width")
+
+
+def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
+                key: str) -> int:
+    """B1 and B2 on (rows, n) Adam-sized deltas (one row of heavy ties,
+    one half sparse where there are enough rows), held BITWISE to their
+    plain versions and timed; the times go into each record under
+    ``key``.  Returns the number of cases."""
     from repro_torch.kernels import quantize as tq
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_select as tt
 
-    gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn((MAIN_ROWS, CONV_D_N), generator=gen, device=dev) * 2e-4
-    x[1] = torch.round(x[1] * 2e4) / 2e4                 # heavy ties
-    x[5, : CONV_D_N // 2] = 0.0                          # half-sparse row
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, n), generator=gen, device=dev) * 2e-4
+    if rows > 5:
+        x[1] = torch.round(x[1] * 2e4) / 2e4             # heavy ties
+        x[5, : n // 2] = 0.0                             # half-sparse row
     cases = 0
     for frac in (FRAC, 0.01, 1.0):
         cases += 1
         if not torch.equal(tt.topk_mask_rows(x, frac),
                            ref.topk_mask_global_ref(x, frac)):
-            raise AssertionError(f"topk_mask_rows != plain at 8 x {CONV_D_N}"
+            raise AssertionError(f"topk_mask_rows != plain at {rows} x {n}"
                                  f" frac={frac}")
     for stochastic, seed in ((False, None), (True, 123), (True, 2**31 - 2)):
         cases += 1
@@ -1834,9 +1863,9 @@ def _conv_width_kernels(torch, dev, recs) -> int:
         qr, sr = ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
         if not (torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(
                 tq.dequantize_rows(q, s), ref.dequantize_rows_ref(qr, sr))):
-            raise AssertionError(f"codec != plain at 8 x {CONV_D_N}")
-    k = ref.topk_k(CONV_D_N, FRAC)
-    elems = MAIN_ROWS * CONV_D_N
+            raise AssertionError(f"codec != plain at {rows} x {n}")
+    k = ref.topk_k(n, FRAC)
+    elems = rows * n
     q, s = tq.quantize_rows(x)
 
     def lib_topk():
@@ -1849,21 +1878,21 @@ def _conv_width_kernels(torch, dev, recs) -> int:
                            lib_topk, elems * 5, elems),
         "quantize_rows": (lambda: tq.quantize_rows(x),
                           lambda: ref.quantize_rows_ref(x), None,
-                          elems * 5 + MAIN_ROWS * 4, elems * 3),
+                          elems * 5 + rows * 4, elems * 3),
         "quantize_rows_stochastic": (
             lambda: tq.quantize_rows(x, stochastic=True, seed=123),
             lambda: ref.quantize_rows_ref(x, stochastic=True, seed=123),
-            None, elems * 5 + MAIN_ROWS * 4, elems * 6),
+            None, elems * 5 + rows * 4, elems * 6),
         "dequantize_rows": (lambda: tq.dequantize_rows(q, s),
                             lambda: ref.dequantize_rows_ref(q, s), None,
-                            elems * 5 + MAIN_ROWS * 4, elems)}
+                            elems * 5 + rows * 4, elems)}
     for rec in recs:
         if rec["name"] in timed:
             kern, plain, lib, nbytes, ops = timed[rec["name"]]
             r = _record(torch, rec["name"], rec["source"], rec["replaces"],
                         kern, plain, lib, nbytes=nbytes, ops=ops, err=0.0)
-            rec["at_conv_d_width"] = {
-                "shape": [MAIN_ROWS, CONV_D_N], "k": k,
+            rec[key] = {
+                "shape": [rows, n], "k": k,
                 **{key: r[key] for key in ("ms", "device_ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "share_of_bound")}}
@@ -2085,6 +2114,371 @@ def _conv_cpu_agreement(torch, dev) -> dict:
                                           / np.abs(rb.d_losses)))}
 
 
+# ---------------------------------------------------------------------------
+# SPMD federation (core/spmd.py): a users mesh on torch.distributed
+# ---------------------------------------------------------------------------
+
+SPMD_U, SPMD_ROUNDS, SPMD_K = 256, 32, 8
+SPMD_RANKS, SPMD_RANK_ROUNDS = 4, 4
+
+
+def _spmd_fcfg(num_users: int, ef: bool, approach: str = "approach1"):
+    """topk_int8 uploads (error feedback only where a cohort store keeps
+    the residual) for approach 1; plain approaches 2 and 3."""
+    from repro_torch.core.approaches import DistGANConfig
+    if approach != "approach1":
+        return DistGANConfig(num_users=num_users, upload_frac=FRAC)
+    return DistGANConfig(num_users=num_users, upload_frac=FRAC,
+                         codec="topk_int8", error_feedback=ef)
+
+
+def _spmd_batches(dataset, sched, batch: int = 64):
+    """(R, C, B, 784) batches of the scheduled users from one seeded
+    stream (every rank draws the same)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return np.stack([np.stack([np.asarray(dataset.user_batch(int(u), rng,
+                                                             batch))
+                               for u in row]) for row in sched]
+                    ).astype(np.float32)
+
+
+def _halves(torch, run, k: int):
+    """``run(start, k)`` for rounds [0, k) then [k, 2k), the device synced
+    around the second: (outputs of both, steady ms per round of the second
+    half; the first pays the kernels' loads and the allocator's warm-up)."""
+    first = run(0, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = run(k, k)
+    torch.cuda.synchronize()
+    return (first, second), (time.perf_counter() - t0) * 1e3 / k
+
+
+def _stream_ms(stats) -> float:
+    """Steady ms per round of a streamed run: its retire stamps after the
+    first round."""
+    rt = stats.retire_t
+    return (rt[-1] - rt[0]) * 1e3 / (len(rt) - 1)
+
+
+def _spmd_session(pair, dataset, U, dev, mesh, rounds):
+    from repro_torch.core.spec import BackendSpec
+    return _session(pair, dataset, U, "topk_int8", False, dev,
+                    eval_samples=0, scheduler="uniform", cohort=mesh.size,
+                    ef=True, rpj=SPMD_K, backend=BackendSpec("spmd"),
+                    mesh=mesh).run(rounds)
+
+
+def _spmd_world1(torch, dev, mesh, cpu_mesh):
+    """(a) NCCL at world size 1, paper MLP, batch 64, topk_int8 (+ EF on
+    the cohort paths), B1 and B2 on the kernels, launch counts zeroed
+    before each run and read after it: one top-k, quantize and dequantize
+    per round.  Returns (lines, launch totals)."""
+    import numpy as np
+
+    from repro_torch.core import session as tsess
+    from repro_torch.core import spmd
+    from repro_torch.core.engine import init_host_backend
+    from repro_torch.core.federated import make_schedule
+    from repro_torch.kernels import ops
+
+    pair = _paper_pair()
+    totals = dict.fromkeys(("topk_mask_rows", "quantize_rows",
+                            "dequantize_rows"), 0)
+    lines = []
+
+    def counted(run, rounds, what, **line):
+        ops.reset_launch_counts()
+        out = run()
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(topk_mask_rows=rounds, quantize_rows=rounds,
+                    dequantize_rows=rounds)
+        if counts != want:
+            raise AssertionError(f"spmd {what}: launches {counts} != {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        lines.append({"run": what, "rounds": rounds, "launches": counts,
+                      **line})
+        return out
+
+    K = SPMD_K
+    one = _digits_dataset(1, 28, 400)
+    reals = _spmd_batches(one, np.zeros((2 * K, 1), np.int64))
+    fcfg = _spmd_fcfg(1, ef=False)
+    state = spmd.init_spmd_state(pair, fcfg, 0, mesh, sync_ds=True)
+    step = spmd.make_spmd_step(pair, fcfg, mesh, "approach1")
+    (_, g), ms = counted(lambda: _halves(torch, lambda a, k: [
+        float(step(state, reals[r])[1]["g_loss"]) for r in range(a, a + k)],
+        K), 2 * K, "make_spmd_step U=1")
+    lines[-1]["ms_per_round"] = ms
+    eng = spmd.make_spmd_engine(pair, fcfg, mesh, "approach1")
+    state = spmd.init_spmd_state(pair, fcfg, 0, mesh, sync_ds=True)
+    (_, (_, m)), ms = counted(lambda: _halves(
+        torch, lambda a, k: eng(state, reals[a:a + k]), K), 2 * K,
+        "make_spmd_engine U=1")
+    lines[-1]["ms_per_round"] = ms
+    if not np.all(np.isfinite(m["g_loss"].cpu().numpy() + g)):
+        raise AssertionError("spmd step / engine: losses")
+
+    # the three cohort engines at C = 1 over a U = 256 store
+    dataset = _digits_dataset(SPMD_U, 28, 400)
+    fcfg = _spmd_fcfg(SPMD_U, ef=True)
+    sched = make_schedule("uniform", SPMD_U, 1, 2 * K,
+                          np.random.default_rng(2))
+    reals = _spmd_batches(dataset, sched)
+    ends = {}
+    for form, mk, sharded in (
+            ("replicated", spmd.make_spmd_cohort_engine, False),
+            ("sharded", spmd.make_spmd_fused_store_engine, True)):
+        cs = spmd.init_spmd_cohort_state(pair, fcfg, 0, mesh, sync_ds=True,
+                                         sharded=sharded)
+        e = mk(pair, fcfg, mesh, "approach1", 1)
+        base = _peak_base(torch)
+        box = [cs]
+
+        def run(a, k, e=e, box=box):
+            box[0], m = e(box[0], reals[a:a + k], sched[a:a + k])
+            return m["g_loss"].cpu().numpy()
+
+        g, ms = counted(lambda: _halves(torch, run, K), 2 * K,
+                        f"{form}-store cohort engine U={SPMD_U} C=1")
+        lines[-1].update(ms_per_round=ms, peak_device_gb=(
+            torch.cuda.max_memory_allocated() - base) / 1e9)
+        ends[form] = (box[0], np.concatenate(g))
+    shared, be = init_host_backend(pair, fcfg, 0, dev, sync_ds=True)
+    rows_eng = spmd.make_spmd_cohort_rows_engine(pair, fcfg, mesh,
+                                                 "approach1", 1)
+    shared, mets, stats = counted(lambda: tsess.stream_cohort_rounds(
+        rows_eng, shared, be, sched, lambda r: reals[r]), 2 * K,
+        f"rows engine (host store) U={SPMD_U} C=1")
+    lines[-1].update(ms_per_round=_stream_ms(stats),
+                     pinned_host_gb=be.nbytes / 1e9)
+    (rep, g_rep), (sh, g_sh) = ends["replicated"], ends["sharded"]
+    for name in ("d_flat", "opt_flat", "last_round", "residual"):
+        a = getattr(rep.store, name)
+        if not (torch.equal(a, getattr(sh.store, name))
+                and torch.equal(a.cpu(), getattr(be, name))):
+            raise AssertionError(f"spmd cohort engines differ on {name}")
+    if not (np.array_equal(g_rep, g_sh) and np.array_equal(
+            g_rep, np.array([float(m["g_loss"]) for m in mets]))):
+        raise AssertionError("spmd cohort engines' losses differ")
+    del ends, rep, sh, be
+
+    # the spmd backend session
+    base = _peak_base(torch)
+    res = counted(lambda: _spmd_session(pair, dataset, SPMD_U, dev, mesh,
+                                        SPMD_ROUNDS), SPMD_ROUNDS,
+                  f"spmd backend session U={SPMD_U} C=1 topk_int8+EF")
+    be = res.extra["host_backend"]
+    if not (np.all(np.isfinite(res.g_losses))
+            and be.pinned == (mesh.device.type == "cuda")
+            and res.extra["state_backend"] == "spmd"):
+        raise AssertionError("spmd session")
+    lines[-1].update(
+        best_ms_per_round=res.extra["min_step_time_s"] * 1e3,
+        steady_ms_per_round=res.step_time_s * 1e3,
+        host_stall_ms_per_round=res.extra["host_stall_s_per_round"] * 1e3,
+        pinned_host_gb=be.nbytes / 1e9,
+        peak_device_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    del res, be
+    return lines, totals
+
+
+def _peak_base(torch) -> int:
+    """Reset the peak-memory counter; the bytes allocated now, which a
+    run's peak is counted above."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _spmd_cpu_agreement(torch, dev, mesh, cpu_mesh) -> dict:
+    """The same ranks on the card (NCCL, kernels) and on the CPU (gloo,
+    plain versions), from one seed (the noise is drawn on the host): the
+    SPMD engine at full width, 16 rounds, and a small spmd session (U 8,
+    C 1, topk_int8 + EF, 12 rounds), at ``_cpu_agreement``'s tolerances."""
+    import numpy as np
+
+    from repro_torch.core import spmd
+    from repro_torch.models.common import tree_leaves
+
+    pair = _paper_pair()
+    one = _digits_dataset(1, 28, 400)
+    reals = _spmd_batches(one, np.zeros((2 * SPMD_K, 1), np.int64))
+    fcfg = _spmd_fcfg(1, ef=False)
+    runs = []
+    for m in (mesh, cpu_mesh):
+        st = spmd.init_spmd_state(pair, fcfg, 0, m, sync_ds=True)
+        st, met = spmd.make_spmd_engine(pair, fcfg, m, "approach1")(st, reals)
+        runs.append((met["g_loss"].cpu().numpy(), [
+            t.cpu().numpy() for t in tree_leaves(st.g)
+            + tree_leaves(st.server_d) + tree_leaves(st.ds)]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-3)
+    worst = {"engine_full_width": max(
+        float(np.max(np.abs(a.astype(np.float64) - b)))
+        for a, b in zip(runs[0][1], runs[1][1]))}
+    for a, b in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_allclose(a, b, atol=2e-3, rtol=1e-3)
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+    small = make_mlp_pair(MLPGanConfig(data_dim=64, z_dim=16, g_hidden=32,
+                                       d_hidden=32))
+    dataset = _digits_dataset(8, 8, 60)
+    a, b = (_spmd_session(small, dataset, 8, m.device, m, 12)
+            for m in (mesh, cpu_mesh))
+    np.testing.assert_array_equal(a.extra["schedule"], b.extra["schedule"])
+    np.testing.assert_allclose(a.g_losses, b.g_losses, atol=1e-3)
+    ba, bb = a.extra["host_backend"], b.extra["host_backend"]
+    diffs = []
+    for name in ("d_flat", "opt_flat", "residual"):
+        x, y = getattr(ba, name).numpy(), getattr(bb, name).numpy()
+        np.testing.assert_allclose(x, y, atol=2e-3, rtol=1e-3)
+        diffs.append(float(np.max(np.abs(x.astype(np.float64) - y))))
+    worst["session_u8"] = max(diffs)
+    return worst
+
+
+def _spmd_gloo_rank(mesh, rounds: int) -> dict:
+    """(b) one of SPMD_RANKS gloo ranks sharing the card: approaches 1
+    (topk_int8 + EF), 2 and 3 on the replicated-store, sharded-store and
+    rows engines at U = 256, C = SPMD_RANKS, ``rounds`` rounds each.  The
+    sharded store (all-gathered from the ranks) and the rows engine's host
+    store must equal the replicated store bitwise, and G and the server D
+    the same bytes on every rank (an all-gather of their bits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import session as tsess
+    from repro_torch.core import spmd
+    from repro_torch.core.engine import CohortShared
+    from repro_torch.core.federated import HostStateBackend, make_schedule
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_leaves
+
+    pair = _paper_pair()
+    C, dev = mesh.size, mesh.device
+    dataset = _digits_dataset(SPMD_U, 28, 400)
+    sched = make_schedule("uniform", SPMD_U, C, rounds,
+                          np.random.default_rng(3))
+    reals = _spmd_batches(dataset, sched)
+    out = {"ms_per_round": {}, "max_abs_vs_replicated": {}, "launches": {}}
+
+    def bits(t):
+        return t.contiguous().view(-1).view(torch.int32)
+
+    for approach in ("approach1", "approach2", "approach3"):
+        fcfg = _spmd_fcfg(SPMD_U, ef=True, approach=approach)
+        init = spmd.init_spmd_cohort_state(pair, fcfg, 0, mesh,
+                                           sync_ds=approach == "approach1")
+        ends = {}
+        for form in ("replicated", "sharded", "rows"):
+            ops.reset_launch_counts()
+            cs = (spmd.shard_cohort_state(init, mesh) if form == "sharded"
+                  else init)
+            if form == "rows":
+                c = init.clone()
+                shared = CohortShared(c.g, c.g_opt, c.server_d, c.step,
+                                      c.generator)
+                be = HostStateBackend.from_store(c.store,
+                                                 pin=dev.type == "cuda")
+                del c
+                eng = spmd.make_spmd_cohort_rows_engine(pair, fcfg, mesh,
+                                                        approach, C)
+                shared, mets, stats = tsess.stream_cohort_rounds(
+                    eng, shared, be, sched, lambda r: reals[r])
+                ms = _stream_ms(stats)
+                ends[form] = (shared.g, shared.server_d, be.d_flat,
+                              np.array([float(m["g_loss"]) for m in mets]))
+            else:
+                mk = (spmd.make_spmd_cohort_engine if form == "replicated"
+                      else spmd.make_spmd_fused_store_engine)
+                e = mk(pair, fcfg, mesh, approach, C)
+                box = [cs]
+
+                def run(a, k, e=e, box=box):
+                    box[0], m = e(box[0], reals[a:a + k], sched[a:a + k])
+                    return m["g_loss"].cpu().numpy()
+
+                g, ms = _halves(torch, run, rounds // 2)
+                cs = box[0]
+                store = cs.store.d_flat
+                if form == "sharded":
+                    store = spmd.all_gather_bits(store.reshape(-1), mesh
+                                                 ).reshape(SPMD_U, -1)
+                ends[form] = (cs.g, cs.server_d, store, np.concatenate(g))
+            key = f"{approach} {form}"
+            out["ms_per_round"][key] = ms
+            out["launches"][key] = ops.launch_counts()
+            lossy = approach == "approach1"
+            if out["launches"][key]["topk_mask_rows"] != (
+                    rounds if lossy else 0) or out["launches"][key][
+                    "quantize_rows"] != (rounds if lossy else 0):
+                raise AssertionError(f"rank {mesh.rank} {key}: launches "
+                                     f"{out['launches'][key]}")
+            g, server, _, losses = ends[form]
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"{key}: losses")
+            flat = torch.cat([bits(t) for t in tree_leaves(g)
+                              + tree_leaves(server)])
+            every = spmd.all_gather(flat, mesh)
+            if not bool((every == every[0]).all()):
+                raise AssertionError(f"{key}: G / server D differ between "
+                                     f"ranks")
+        rep = ends["replicated"]
+        for form in ("sharded", "rows"):
+            other = ends[form]
+            diff = float((other[2].to(dev) - rep[2]).abs().max())
+            out["max_abs_vs_replicated"][f"{approach} {form}"] = diff
+            if not (torch.equal(other[2].to(dev), rep[2])
+                    and np.array_equal(other[3], rep[3])):
+                raise AssertionError(f"{approach}: {form} store != "
+                                     f"replicated (max |diff| {diff})")
+        del init, ends, rep
+    out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _spmd_phase(torch, dev):
+    """The SPMD federation: (a) NCCL at world size 1 in this process (and
+    the same ranks on the CPU over gloo), (b) SPMD_RANKS gloo ranks
+    sharing the card.  Returns (lines, launch totals, summary)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import UsersMesh, make_users_mesh, spawn_users
+
+    init = CKPT_DIR.parent / "spmd_rendezvous"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_users_mesh(1, backend="nccl", device=dev)
+        cpu_mesh = UsersMesh(dist.new_group(ranks=[0], backend="gloo"), 0, 1,
+                             torch.device("cpu"))
+        t0 = time.perf_counter()
+        lines, totals = _spmd_world1(torch, dev, mesh, cpu_mesh)
+        summary = {"world1_s": time.perf_counter() - t0,
+                   "card_vs_cpu_worst": _spmd_cpu_agreement(
+                       torch, dev, mesh, cpu_mesh)}
+    finally:
+        dist.destroy_process_group()
+        init.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn_users(_spmd_gloo_rank, SPMD_RANKS, backend="gloo",
+                        device="cuda", args=(SPMD_RANK_ROUNDS,),
+                        timeout_s=300)
+    summary["gloo_ranks"] = {
+        "ranks": SPMD_RANKS, "rounds": SPMD_RANK_ROUNDS,
+        "ms_per_round_rank0": ranks[0]["ms_per_round"],
+        "max_abs_vs_replicated": ranks[0]["max_abs_vs_replicated"],
+        "peak_device_gb_per_rank": [r["peak_device_gb"] for r in ranks],
+        "seconds": time.perf_counter() - t0}
+    return lines, totals, summary
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -2171,6 +2565,20 @@ def main() -> int:
     worst = _host_cpu_agreement(torch, dev)
     print(f"[check] card vs CPU small host sessions, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
+
+    t0 = time.perf_counter()
+    n_spmd = _kernels_at(torch, dev, recs, 1, MAIN_N, 5, "at_spmd_row")
+    print(f"[kernels] B1/B2 bitwise vs plain at 1 x {MAIN_N} (one rank's "
+          f"row): {n_spmd} cases; " + json.dumps(
+              {r["name"]: r["at_spmd_row"] for r in recs
+               if "at_spmd_row" in r}), flush=True)
+    lines, spmd_totals, spmd_summary = _spmd_phase(torch, dev)
+    for line in lines:
+        print(f"[spmd] {card} | " + json.dumps(line), flush=True)
+    print(f"[spmd] {card} | " + json.dumps(spmd_summary), flush=True)
+    print(f"[spmd] {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in recs:
+        rec["launches"] += spmd_totals.get(rec["name"], 0)
 
     t0 = time.perf_counter()
     for line in _graph_phase(torch, dev):

@@ -13,6 +13,12 @@ with ``g``, ``g_opt`` (``mu``/``nu``/``step``), the stacked ``ds`` and
 ``device``.  ``state_to_numpy`` goes the other way.  The reference's PRNG
 key is not carried (jax's threefry draws cannot be reproduced): the port's
 state gets a fresh host generator seeded with ``seed``.
+
+For the SPMD engines (``core/spmd.py``), ``state_from_numpy(..., mesh=)``
+keeps rank r's slice r of the stacked ``ds`` / ``d_opts``, and
+``cohort_state_from_numpy(..., mesh=)`` rank r's block of a reference
+``CohortState``'s store (the sharded store); both sides then start from
+the same weights.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.approaches import DistGANState
-from repro_torch.core.engine import CohortShared
+from repro_torch.core.engine import CohortShared, CohortState
+from repro_torch.core.federated import CohortStore
 from repro_torch.models.common import dtype_of, tree_map
 
 _FIELDS = ("g", "g_opt", "ds", "d_opts", "server_d", "step")
@@ -38,11 +45,39 @@ def _to_torch(a, device):
     return torch.from_numpy(arr.astype(np.float32, copy=False)).to(device)
 
 
-def state_from_numpy(tree, device, *, seed: int = 0) -> DistGANState:
-    """Reference state (numpy leaves) -> the port's DistGANState."""
+def state_from_numpy(tree, device, *, seed: int = 0,
+                     mesh=None) -> DistGANState:
+    """Reference state (numpy leaves) -> the port's DistGANState; with a
+    users ``mesh``, this rank's (``spmd.shard_state``) on the mesh's
+    device."""
+    if mesh is not None:
+        from repro_torch.core.spmd import shard_state
+        return shard_state(state_from_numpy(tree, mesh.device, seed=seed),
+                           mesh)
     conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))
             for name in _FIELDS}
     return DistGANState(**conv, generator=torch.Generator().manual_seed(seed))
+
+
+def cohort_state_from_numpy(tree, device, *, seed: int = 0,
+                            mesh=None) -> CohortState:
+    """Reference ``CohortState`` (numpy leaves; ``store`` a mapping or an
+    object with ``d_flat``, ``opt_flat``, ``last_round`` and ``residual``)
+    -> the port's; with a users ``mesh``, this rank's block of the store
+    (``spmd.shard_cohort_state``) on the mesh's device."""
+    if mesh is not None:
+        from repro_torch.core.spmd import shard_cohort_state
+        return shard_cohort_state(
+            cohort_state_from_numpy(tree, mesh.device, seed=seed), mesh)
+    conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))
+            for name in ("g", "g_opt", "server_d", "step")}
+    st = _get(tree, "store")
+    store = CohortStore(*(None if _get(st, f) is None
+                          else _to_torch(_get(st, f), device)
+                          for f in ("d_flat", "opt_flat", "last_round",
+                                    "residual")))
+    return CohortState(conv["g"], conv["g_opt"], store, conv["server_d"],
+                       conv["step"], torch.Generator().manual_seed(seed))
 
 
 def shared_from_numpy(tree, device, *, seed: int = 0) -> CohortShared:

@@ -16,7 +16,10 @@ State layout, as in the reference:
 ``ds`` holds the U local discriminators stacked on a leading user axis
 (``w (U, in, out)``); user u's real data enters only through slice u of
 ``real (U, B, data_dim)``; under the cohort engine the user axis holds
-the C gathered rows.  The reference's ``vmap`` over users is a batched
+the C gathered rows.  On a rank of the SPMD engines (``core/spmd.py``)
+the state holds that rank's user only: ``ds`` / ``d_opts`` with a leading
+axis of 1, and G, its optimizer, the server D, the step and the generator
+replicated, equal on every rank.  The reference's ``vmap`` over users is a batched
 matmul over that leading axis, and one backward pass over the sum of the
 per-user losses gives each user exactly its own gradient (the users share
 no parameter).
@@ -44,7 +47,8 @@ import torch
 
 from repro_torch.core import losses
 from repro_torch.core.federated import (codec_transport, make_flat_layout,
-                                        random_uniforms, select_delta_flat)
+                                        random_uniforms, select_delta_flat,
+                                        shared_random_idx)
 from repro_torch.core.spec import register_approach, resolve_combiner
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import adamw, apply_updates
@@ -218,12 +222,17 @@ def _draw_seed(generator: torch.Generator) -> torch.Tensor:
 def make_approach1_noise(pair, fcfg: DistGANConfig):
     """Approach 1 (and ``download_first``): ``z1``, ``z2`` (B, z_dim); then
     ``seed`` iff a lossy codec rounds stochastically; then ``uniforms``
-    (C, N) iff the selection is ``random``."""
+    (C, N) iff the selection is ``random``; then ``idx``, the shared
+    coordinates, iff it is ``shared_random`` (the SPMD body's: every rank
+    draws the round's noise from the same replicated generator, with C =
+    1, as the reference's shards split one replicated key)."""
     n = d_flat_layout(pair).n
     stochastic = fcfg.codec != "none" and fcfg.codec_stochastic
     uniform = fcfg.selection == "random"
+    shared = fcfg.selection == "shared_random"
 
-    def draw(gen, real_shape, z1=None, z2=None, seed=None, uniforms=None):
+    def draw(gen, real_shape, z1=None, z2=None, seed=None, uniforms=None,
+             idx=None):
         C, B = real_shape[0], real_shape[1]
         out = {"z1": pair.sample_z(gen, B) if z1 is None else z1,
                "z2": pair.sample_z(gen, B) if z2 is None else z2}
@@ -232,6 +241,9 @@ def make_approach1_noise(pair, fcfg: DistGANConfig):
         if uniform:
             out["uniforms"] = (random_uniforms((C, n), gen)
                                if uniforms is None else uniforms)
+        if shared:
+            out["idx"] = (shared_random_idx(n, fcfg.upload_frac, gen)
+                          if idx is None else idx)
         return out
 
     return draw

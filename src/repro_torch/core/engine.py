@@ -61,6 +61,11 @@ place.  Both give the same values bitwise, and with C == U under the
 ``full`` scheduler both equal ``make_engine`` bitwise (the gather is an
 exact permutation).
 
+The SPMD engines (one user, or one cohort member, per rank of a users
+mesh: ``make_spmd_engine``, ``make_spmd_cohort_engine``,
+``make_spmd_fused_store_engine``, ``make_spmd_cohort_rows_engine``) live in
+``core/spmd.py`` beside their round body; they run eagerly.
+
 Streamed engines (``make_cohort_rows_engine``, ``make_superbatch_engine``):
 the rows live in a ``UserStateBackend`` outside the carry, which is only
 the shared state (``CohortShared``); a round (or a K-round window) takes
@@ -310,7 +315,10 @@ class _ChunkGraphs:
 @dataclasses.dataclass
 class CohortState:
     """Carry of the cohort engines: the shared training state plus the
-    resident per-user ``CohortStore``."""
+    resident per-user ``CohortStore``.  On a rank of the SPMD cohort
+    engines (``core/spmd.py``) the shared part is replicated and the store
+    is either the whole (U, N) store, on every rank, or the rank's block of
+    U / C rows (the sharded store)."""
 
     g: Any
     g_opt: Any
@@ -509,7 +517,10 @@ def make_fused_store_engine(pair, fcfg: DistGANConfig, approach: str,
 @dataclasses.dataclass
 class CohortShared:
     """Shared training state of a streamed run; the per-user rows are not
-    here, they enter each round as gathered-row arguments."""
+    here, they enter each round as gathered-row arguments.  Under the
+    ``spmd`` backend every rank holds the same one (G, its optimizer, the
+    server D, the step and the round-noise generator, replicated), and
+    rank r trains member r of the rows it is given."""
 
     g: Any
     g_opt: Any

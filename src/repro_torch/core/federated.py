@@ -19,6 +19,9 @@ The streaming drivers (``core/session.py``) keep the rows behind a
 buffers in host memory (pinned for a CUDA run), so U is bounded by host
 RAM; ``DeviceStateBackend`` wraps a device ``CohortStore``.
 ``window_forwarding`` plans a superbatch window's in-window repeats.
+
+The ``*_spmd`` combiners fold one user's delta per rank of a users mesh
+(``launch/mesh.py``) with the collectives of ``core/spmd.py``.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from repro_torch.core.spec import (register_combiner, register_scheduler,
                                    resolve_scheduler)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import tree_leaves, tree_map
 
-Selection = Literal["topk", "threshold", "random", "none"]
+Selection = Literal["topk", "threshold", "random", "shared_random", "none"]
 
 
 # ---------------------------------------------------------------------------
@@ -691,6 +694,75 @@ register_combiner("mean", combine_mean)
 register_combiner("masked_mean", combine_masked_mean)
 register_combiner("staleness_mean", combine_staleness_mean)
 register_combiner("staleness_max_abs", combine_staleness_max_abs)
+
+
+# ---------------------------------------------------------------------------
+# SPMD combination (one user per rank of a users mesh, core/spmd.py)
+# ---------------------------------------------------------------------------
+
+def combine_max_abs_spmd(delta_tree, mesh):
+    """The paper's max-|.| rule as collectives over ``mesh``: pmax of
+    |delta|, then each user contributes its delta only where it attains
+    the max, divided by the number of users that tie there.  Only masked
+    deltas cross the users axis.  A NaN delta never attains the max and
+    contributes nothing (a select, not ``d * mine``: the reference's XLA
+    rewrites its product so, and its pmax drops NaN on the CPU)."""
+    from repro_torch.core.spmd import pmax, psum
+
+    def one(d):
+        mag = torch.abs(d)
+        mine = mag == pmax(mag, mesh)
+        ties = psum(mine.to(d.dtype), mesh)
+        return psum(torch.where(mine, d, 0.0) / torch.clamp(ties, min=1),
+                    mesh)
+
+    return tree_map(one, delta_tree)
+
+
+def combine_mean_spmd(delta_tree, mesh):
+    from repro_torch.core.spmd import pmean
+    return tree_map(lambda d: pmean(d, mesh), delta_tree)
+
+
+def shared_random_idx(n: int, frac: float,
+                      generator: torch.Generator) -> torch.Tensor:
+    """The ``shared_random`` upload's coordinates: the first ``max(int(n *
+    frac), 1)`` of a permutation of ``n`` drawn on the host ``generator``
+    (replicated on every rank, so every user draws the same; jax's
+    permutation cannot be reproduced, so tests inject the reference's)."""
+    return torch.randperm(n, generator=generator)[:max(int(n * frac), 1)]
+
+
+def combine_shared_random_flat_spmd(flat: torch.Tensor, frac: float, mesh, *,
+                                    idx: torch.Tensor | None = None,
+                                    generator: torch.Generator | None = None):
+    """Shokri's random-subset upload as a bandwidth-true collective: every
+    user takes the same ``idx`` coordinates of its flat (N,) delta (given,
+    or drawn from the replicated ``generator``), only those k values are
+    averaged across the users axis, and they are scattered back into
+    zeros.  Returns ``(combined (N,), uploaded fraction k / N)``."""
+    from repro_torch.core.spmd import pmean
+
+    n = flat.shape[0]
+    if idx is None:
+        idx = shared_random_idx(n, frac, generator)
+    idx = idx.to(device=flat.device, dtype=torch.int64)
+    summed = pmean(flat.index_select(0, idx), mesh)
+    out = torch.zeros_like(flat).index_copy_(0, idx, summed)
+    return out, torch.tensor(idx.shape[0] / n, dtype=torch.float32,
+                             device=flat.device)
+
+
+def combine_shared_random_spmd(delta_tree, frac: float, mesh, *,
+                               idx: torch.Tensor | None = None,
+                               generator: torch.Generator | None = None):
+    """Tree form of :func:`combine_shared_random_flat_spmd` (the tree is
+    flattened in FlatLayout order, the reference's ``ravel_pytree``
+    order).  Returns ``(combined tree, uploaded fraction)``."""
+    layout = make_flat_layout(delta_tree)
+    out, kept = combine_shared_random_flat_spmd(
+        layout.flatten(delta_tree), frac, mesh, idx=idx, generator=generator)
+    return layout.unflatten(out), kept
 
 
 # ---------------------------------------------------------------------------

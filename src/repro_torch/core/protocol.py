@@ -60,8 +60,10 @@ def run_distgan(
     ``cohort_size`` run a cohort-virtualized federation of
     ``fcfg.num_users`` logical users; ``state_backend`` is ``"device"`` or
     ``"host"`` with its streaming knobs ``async_rounds``, ``prefetch``,
-    ``materialize_state`` and ``stage_rows`` (the SPMD and multihost
-    backends are not ported: ROADMAP queue A items 9 and 10).  ``device``
+    ``materialize_state`` and ``stage_rows``.  ``"spmd"`` needs a users
+    mesh, which this shim cannot pass: it raises as the reference's does
+    (build ``FederationSession(..., mesh=)`` on every rank instead), and
+    ``"multihost"`` is not ported (ROADMAP queue A item 10).  ``device``
     is CUDA unless ``"cpu"`` is passed.  ``sample_fn`` is accepted for the
     reference's signature and never consumed, as there."""
     del sample_fn

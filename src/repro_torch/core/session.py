@@ -19,7 +19,9 @@ prefetch, bounded staleness, int8 row staging) or each window
 (``superbatch_cohort_rounds``).  On a CUDA device every mode replays CUDA
 graphs (``core/engine.py``): ``fused`` and ``cohort`` one per chunk,
 ``per_step`` and the host stream one per round, the superbatch one per
-window.
+window.  The ``spmd`` backend (``core/spmd.py::SpmdStreamDriver``) is the
+host stream with the cohort mapped onto a users mesh, one member per rank
+(``FederationSession(..., mesh=)`` on every rank; eager rounds).
 
 ``save(path)`` / ``restore(path, ...)`` checkpoint the whole session in
 the reference's layout: ``step_<round>.msgpack`` holds the training
@@ -41,7 +43,9 @@ import typing
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.msgpack_ckpt import _path as checkpoint_path
 from repro_torch.checkpoint.msgpack_ckpt import (check_leaves, latest_step,
                                                  read_leaves, save_checkpoint,
                                                  tree_flatten, tree_unflatten)
@@ -882,9 +886,15 @@ class HostStreamDriver:
         self.shared, self.backend = (None, None) if defer_state else \
             init_host_backend(pair, fcfg, sp.seed, sess.device,
                               sync_ds=sess.approach.sync_ds)
-        self.eng = make_cohort_rows_engine(pair, fcfg, sp.approach)
-        self.stage_rows = sp.combine.compression.stage_rows
+        self.eng = self._make_engine()
+        # store-row staging and superbatch windows belong to the host
+        # backend; the spmd driver maps each round's rows onto the mesh, so
+        # a request for either falls back to the plain per-round stream
+        # (as in the reference)
+        self.stage_rows = (sp.combine.compression.stage_rows
+                           and self.backend_name == "host")
         self.fused_store = (sp.engine.fuse_store_rounds
+                            and self.backend_name == "host"
                             and sp.backend.async_rounds == 0
                             and not self.stage_rows)
         self.win_eng = None
@@ -892,6 +902,10 @@ class HostStreamDriver:
             self.win_eng = make_superbatch_engine(
                 pair, fcfg, sp.approach,
                 adaptive=sp.combine.adaptive_server_scale)
+
+    def _make_engine(self):
+        return make_cohort_rows_engine(self.sess.pair, self.sess.fcfg,
+                                       self.sess.spec.approach)
 
     # -- checkpoint state --------------------------------------------------
 
@@ -1041,12 +1055,24 @@ class FederationSession:
     """Incrementally driven federation run described by a
     :class:`FederationSpec`.  ``fcfg.combiner`` / ``staleness_decay`` and
     the codec fields are overridden by the spec's :class:`CombineSpec`.
-    ``device`` is CUDA unless the caller passes ``"cpu"``."""
+    ``device`` is CUDA unless the caller passes ``"cpu"``.
+
+    ``mesh`` (a ``launch.mesh.UsersMesh``) is required by the mesh-mapped
+    ``spmd`` backend and ignored otherwise; every rank of the mesh builds
+    the same session and runs it in step, on the mesh's device (``device``
+    may be left out), and rank 0 writes the checkpoints."""
 
     def __init__(self, pair, fcfg: DistGANConfig, dataset,
-                 spec: FederationSpec, *, device=None, _defer_state=False):
+                 spec: FederationSpec, *, device=None, mesh=None,
+                 _defer_state=False):
         spec.validate_against(fcfg.num_users)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device!r} differs from the "
+                                 f"mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.pair = pair
         self.dataset = dataset
         self.spec = spec
@@ -1236,8 +1262,11 @@ class FederationSession:
                 "mid-window (rng streams/carry advanced past the round "
                 "counter).  Saving would checkpoint a silently wrong "
                 "trajectory; restore from the last good checkpoint.")
-        os.makedirs(path, exist_ok=True)
-        ckpt = save_checkpoint(path, self.round, self._driver.arrays())
+        writer = self.mesh is None or self.mesh.rank == 0
+        ckpt = checkpoint_path(path, self.round)
+        if writer:
+            os.makedirs(path, exist_ok=True)
+            ckpt = save_checkpoint(path, self.round, self._driver.arrays())
         meta = {
             "format": 1,
             "spec": self.spec.to_dict(),
@@ -1248,20 +1277,25 @@ class FederationSession:
             "part_counts": (None if self._part_counts is None
                             else self._part_counts.tolist()),
         }
-        tmp = os.path.join(path, _SESSION_META + ".tmp")
-        with open(tmp, "w") as f:
-            json.dump(meta, f, indent=1, sort_keys=True)
-        os.replace(tmp, os.path.join(path, _SESSION_META))
+        if writer:
+            tmp = os.path.join(path, _SESSION_META + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump(meta, f, indent=1, sort_keys=True)
+            os.replace(tmp, os.path.join(path, _SESSION_META))
+        if self.mesh is not None:
+            # the replicas are equal: no rank returns before rank 0 wrote
+            dist.barrier(group=self.mesh.group)
         return ckpt
 
     @classmethod
     def restore(cls, path: str, pair, fcfg: DistGANConfig, dataset, *,
-                device=None) -> "FederationSession":
+                device=None, mesh=None) -> "FederationSession":
         """Rebuild a session from ``save(path)``, in this process or a
         fresh one, on ``device`` (CUDA unless ``"cpu"``).  ``pair`` /
         ``fcfg`` / ``dataset`` must match the saving run; the spec comes
         from the checkpoint.  The state is built once, from the restored
-        arrays (no fresh initial state is drawn first).
+        arrays (no fresh initial state is drawn first).  An ``spmd``
+        session resumes with ``mesh=``: every rank reads the checkpoint.
 
         A checkpoint the JAX reference wrote restores too: every array but
         the PRNG key, the numpy streams, the counts and the round carry
@@ -1276,7 +1310,7 @@ class FederationSession:
                 f"checkpoint was saved with num_users={meta['num_users']}, "
                 f"got fcfg.num_users={fcfg.num_users}")
         spec = FederationSpec.from_dict(meta["spec"])
-        sess = cls(pair, fcfg, dataset, spec, device=device,
+        sess = cls(pair, fcfg, dataset, spec, device=device, mesh=mesh,
                    _defer_state=True)
         step = meta["round"]
         assert latest_step(path) == step, (latest_step(path), step)

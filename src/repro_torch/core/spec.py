@@ -9,9 +9,9 @@ construction and the whole spec round-trips through ``to_dict`` /
 describes a run of either package.
 
 The registries hold only what the port has.  A manifest that names a
-part of the reference not yet ported (the spmd/multihost backends, the
-serve and decode sections) raises ``NotImplementedError`` naming the
-ROADMAP item that brings it; an unknown name raises ``KeyError`` as in the
+part of the reference not yet ported (the multihost backend, the serve
+and decode sections) raises ``NotImplementedError`` naming the ROADMAP
+item that brings it; an unknown name raises ``KeyError`` as in the
 reference.
 """
 
@@ -27,7 +27,6 @@ _ENGINE_KINDS = ("fused", "per_step")
 
 # reference features this slice does not run yet -> the ROADMAP item
 _LATER = {
-    "spmd": "the SPMD backend (ROADMAP queue A item 9)",
     "multihost": "the multihost backend (ROADMAP queue A item 10)",
     "serve": "the serve section (ROADMAP queue A item 11)",
     "decode": "the decode section (ROADMAP queue A item 12)",
@@ -38,7 +37,7 @@ def _not_ported(name: str):
     return NotImplementedError(
         f"{_LATER[name]} is not ported to repro_torch yet; the port runs "
         f"federation (full or cohort-virtualized participation) on the "
-        f"device and host backends")
+        f"device, host and spmd backends")
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +59,7 @@ def _load_builtins() -> None:
         import repro_torch.core.approaches  # noqa: F401  (approaches)
         import repro_torch.core.federated   # noqa: F401  (combiners etc.)
         import repro_torch.core.session     # noqa: F401  (backends)
+        import repro_torch.core.spmd        # noqa: F401  (spmd backend)
     except BaseException:
         _builtins_state = "unloaded"
         raise
@@ -236,8 +236,10 @@ class BackendSpec:
     ``async_rounds`` bounded-staleness rounds in flight, ``prefetch``
     (stage round k+1's data under round k's compute) and
     ``materialize_state=False`` (skip the final (U, N) unpack onto the
-    device).  The multihost fields keep the reference's names and checks
-    so manifests stay interchangeable."""
+    device); ``spmd`` streams the same way with the cohort mapped onto the
+    users axis of a mesh, one member per rank (``core/spmd.py``).  The
+    multihost fields keep the reference's names and checks so manifests
+    stay interchangeable."""
 
     kind: str = "device"
     async_rounds: int = 0

@@ -5,6 +5,7 @@ engine and through the eager chunk.
         [--codec topk_int8] [--stochastic] [--conv]
         [--trace chiprun_out/round.json]
     PYTHONPATH=src python -m repro_torch.profile_round --host [--users 256]
+    PYTHONPATH=src python -m repro_torch.profile_round --spmd [--users 256]
 
 Runs approach-1 federation at the paper's full MLP width (784/256/256,
 z 64; 8 users of Dirichlet-split 28x28 digit-like data; batch 64; fused
@@ -33,12 +34,19 @@ error feedback, the store in pinned host memory), in each of its modes
 (sync, no prefetch, one round in flight, superbatch windows of
 ``--rounds``, int8 row staging), with the same window, plus host clocks
 around the stream's host stages: the store's gathers and scatters and the
-batch sampling, ms per round over every round run.  Needs a CUDA device.
+batch sampling, ms per round over every round run.
+
+``--spmd`` profiles the ``spmd`` backend the same way (``--users`` logical
+users, default 256, one cohort member per rank of a users mesh of one
+NCCL rank in this process, ``topk_int8`` with error feedback, eager
+rounds), with the host stages and the NCCL calls per round.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -238,6 +246,38 @@ def _host_main(args, pair) -> dict:
     return out
 
 
+def _spmd_main(args, pair) -> dict:
+    """The spmd session at world size 1 (NCCL, file:// rendezvous in a
+    temporary directory)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_users_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "rendezvous"), rank=0, world_size=1)
+        try:
+            spec = dataclasses.replace(
+                _host_spec("sync", args.rounds),
+                participation=ParticipationSpec("uniform", cohort_size=1),
+                backend=BackendSpec("spmd", materialize_state=False))
+            sess = FederationSession(
+                pair, DistGANConfig(num_users=args.users, upload_frac=0.1),
+                _dataset(args.users), spec, mesh=make_users_mesh(1))
+            acc = _host_stages(sess)
+            out = _profile(sess, args.rounds, args.trace)
+            run = 6 * args.rounds
+            out.update({f"host_{k}_ms_per_round": v * 1e3 / run
+                        for k, v in acc.items()})
+            del sess
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=16)
@@ -250,6 +290,8 @@ def main() -> None:
     ap.add_argument("--trace", default=None)
     ap.add_argument("--host", action="store_true",
                     help="the host streaming backend, in each of its modes")
+    ap.add_argument("--spmd", action="store_true",
+                    help="the spmd backend at one NCCL rank")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA device")
@@ -258,6 +300,12 @@ def main() -> None:
                                          base_filters=64)) if args.conv else
             make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64, g_hidden=256,
                                        d_hidden=256)))
+    if args.spmd:
+        args.users = args.users or 256
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "users": args.users, "rounds": args.rounds,
+                          "spmd": _spmd_main(args, pair)}))
+        return
     if args.host:
         args.users = args.users or 256
         print(json.dumps({"device": torch.cuda.get_device_name(0),

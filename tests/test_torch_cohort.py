@@ -396,6 +396,9 @@ def test_run_distgan_cohort_kwargs_and_refusals():
                                   [[0, 1], [2, 3], [4, 5]])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_distgan(pair, tapp.DistGANConfig(num_users=6), _dataset(6),
+                    "approach1", state_backend="multihost", **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        run_distgan(pair, tapp.DistGANConfig(num_users=6), _dataset(6),
                     "approach1", state_backend="spmd", **kw)
     with pytest.raises(ValueError, match="no user axis"):
         FederationSpec("baseline", participation=ParticipationSpec(

@@ -212,21 +212,22 @@ def test_fused_equals_per_step_and_windowing_is_neutral(codec, stochastic):
 
 
 @pytest.mark.parametrize("section", [
-    {"backend": {"kind": "spmd", "async_rounds": 1}},
+    {"backend": {"kind": "multihost", "async_rounds": 1}},
     {"backend": {"kind": "multihost", "workers": 2}},
     {"participation": {"scheduler": "uniform", "cohort_size": 2},
-     "backend": {"kind": "spmd"}},
+     "backend": {"kind": "multihost"}},
     {"serve": {"max_batch": 8}},
     {"decode": {"slots": 4}},
 ])
 def test_unported_parts_of_a_spec_raise(section):
     """A manifest naming a part of the reference not yet ported raises
     NotImplementedError naming its ROADMAP item; the cohort schedulers it
-    may name beside them are ported."""
+    may name beside them are ported, and so is the spmd backend."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederationSpec.from_dict({"approach": "approach1", **section})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BackendSpec("spmd")
+        BackendSpec("multihost")
+    assert BackendSpec("spmd", async_rounds=1).kind == "spmd"
     assert ParticipationSpec("round_robin", cohort_size=2).scheduler == \
         "round_robin"
 
