@@ -2296,14 +2296,60 @@ def _peak_base(torch) -> int:
     return torch.cuda.memory_allocated()
 
 
+def _first_codec_calls(ops):
+    """Wrap B1's and B2's wrappers so that the first call of each (the
+    round-0 mask, codes and scales of an SPMD run) keeps its inputs and
+    outputs; returns the record and a function that unwraps them."""
+    seen, orig = {}, {}
+    for name in ("topk_mask", "quantize_rows", "dequantize_rows"):
+        fn = orig[name] = getattr(ops, name)
+
+        def tap(*args, _name=name, _fn=fn, **kw):
+            out = _fn(*args, **kw)
+            seen.setdefault(_name, (args, kw, out))
+            return out
+        setattr(ops, name, tap)
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(ops, name, fn)
+    return seen, restore
+
+
+def _cross_check_round0(torch, seen: dict, dev) -> None:
+    """A run's round-0 B1 mask, B2 codes and scales and dequantized row,
+    recomputed on the other device from the same inputs (the card's
+    kernels or the CPU's plain versions): bitwise equal."""
+    from repro_torch.kernels import ops
+
+    def there(t):
+        return (t.to(dev if t.device.type == "cpu" else "cpu")
+                if isinstance(t, torch.Tensor) else t)
+
+    for name in ("topk_mask", "quantize_rows", "dequantize_rows"):
+        args, kw, out = seen[name]
+        again = getattr(ops, name)(*map(there, args),
+                                   **{k: there(v) for k, v in kw.items()})
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        again if isinstance(again, tuple) else (again,)):
+            if not torch.equal(a.cpu().view(-1).view(torch.uint8),
+                               b.cpu().view(-1).view(torch.uint8)):
+                raise AssertionError(f"round-0 {name}: card and CPU differ "
+                                     f"on the same inputs")
+
+
 def _spmd_cpu_agreement(torch, dev, mesh, cpu_mesh) -> dict:
     """The same ranks on the card (NCCL, kernels) and on the CPU (gloo,
     plain versions), from one seed (the noise is drawn on the host): the
     SPMD engine at full width, 16 rounds, and a small spmd session (U 8,
-    C 1, topk_int8 + EF, 12 rounds), at ``_cpu_agreement``'s tolerances."""
+    C 1, topk_int8 + EF, 12 rounds), at ``_cpu_agreement``'s tolerances.
+    Each engine run's round-0 B1 mask and B2 codes, scales and dequantized
+    row equal, bitwise, what the other device computes from the same
+    inputs (the run's own delta and masked row)."""
     import numpy as np
 
     from repro_torch.core import spmd
+    from repro_torch.kernels import ops
     from repro_torch.models.common import tree_leaves
 
     pair = _paper_pair()
@@ -2313,7 +2359,13 @@ def _spmd_cpu_agreement(torch, dev, mesh, cpu_mesh) -> dict:
     runs = []
     for m in (mesh, cpu_mesh):
         st = spmd.init_spmd_state(pair, fcfg, 0, m, sync_ds=True)
-        st, met = spmd.make_spmd_engine(pair, fcfg, m, "approach1")(st, reals)
+        seen, restore = _first_codec_calls(ops)
+        try:
+            st, met = spmd.make_spmd_engine(pair, fcfg, m, "approach1")(
+                st, reals)
+        finally:
+            restore()
+        _cross_check_round0(torch, seen, dev)
         runs.append((met["g_loss"].cpu().numpy(), [
             t.cpu().numpy() for t in tree_leaves(st.g)
             + tree_leaves(st.server_d) + tree_leaves(st.ds)]))
@@ -2351,6 +2403,7 @@ def _spmd_gloo_rank(mesh, rounds: int) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.core import collectives as coll
     from repro_torch.core import session as tsess
     from repro_torch.core import spmd
     from repro_torch.core.engine import CohortShared
@@ -2406,7 +2459,7 @@ def _spmd_gloo_rank(mesh, rounds: int) -> dict:
                 cs = box[0]
                 store = cs.store.d_flat
                 if form == "sharded":
-                    store = spmd.all_gather_bits(store.reshape(-1), mesh
+                    store = coll.all_gather_bits(store.reshape(-1), mesh
                                                  ).reshape(SPMD_U, -1)
                 ends[form] = (cs.g, cs.server_d, store, np.concatenate(g))
             key = f"{approach} {form}"
@@ -2423,7 +2476,7 @@ def _spmd_gloo_rank(mesh, rounds: int) -> dict:
                 raise AssertionError(f"{key}: losses")
             flat = torch.cat([bits(t) for t in tree_leaves(g)
                               + tree_leaves(server)])
-            every = spmd.all_gather(flat, mesh)
+            every = coll.all_gather(flat, mesh)
             if not bool((every == every[0]).all()):
                 raise AssertionError(f"{key}: G / server D differ between "
                                      f"ranks")

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.approaches import DistGANState
 from repro_torch.core.engine import CohortShared, CohortState
 from repro_torch.core.federated import CohortStore
+from repro_torch.core.spmd import shard_cohort_state, shard_state
 from repro_torch.models.common import dtype_of, tree_map
 
 _FIELDS = ("g", "g_opt", "ds", "d_opts", "server_d", "step")
@@ -51,7 +52,6 @@ def state_from_numpy(tree, device, *, seed: int = 0,
     users ``mesh``, this rank's (``spmd.shard_state``) on the mesh's
     device."""
     if mesh is not None:
-        from repro_torch.core.spmd import shard_state
         return shard_state(state_from_numpy(tree, mesh.device, seed=seed),
                            mesh)
     conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))
@@ -66,7 +66,6 @@ def cohort_state_from_numpy(tree, device, *, seed: int = 0,
     -> the port's; with a users ``mesh``, this rank's block of the store
     (``spmd.shard_cohort_state``) on the mesh's device."""
     if mesh is not None:
-        from repro_torch.core.spmd import shard_cohort_state
         return shard_cohort_state(
             cohort_state_from_numpy(tree, mesh.device, seed=seed), mesh)
     conv = {name: tree_map(lambda a: _to_torch(a, device), _get(tree, name))

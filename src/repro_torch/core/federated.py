@@ -21,7 +21,7 @@ RAM; ``DeviceStateBackend`` wraps a device ``CohortStore``.
 ``window_forwarding`` plans a superbatch window's in-window repeats.
 
 The ``*_spmd`` combiners fold one user's delta per rank of a users mesh
-(``launch/mesh.py``) with the collectives of ``core/spmd.py``.
+(``launch/mesh.py``) with the collectives of ``core/collectives.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Callable, Literal
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import pmax, pmean, psum
 from repro_torch.core.spec import (register_combiner, register_scheduler,
                                    resolve_scheduler)
 from repro_torch.kernels import ops as kops
@@ -707,7 +708,6 @@ def combine_max_abs_spmd(delta_tree, mesh):
     deltas cross the users axis.  A NaN delta never attains the max and
     contributes nothing (a select, not ``d * mine``: the reference's XLA
     rewrites its product so, and its pmax drops NaN on the CPU)."""
-    from repro_torch.core.spmd import pmax, psum
 
     def one(d):
         mag = torch.abs(d)
@@ -720,32 +720,28 @@ def combine_max_abs_spmd(delta_tree, mesh):
 
 
 def combine_mean_spmd(delta_tree, mesh):
-    from repro_torch.core.spmd import pmean
     return tree_map(lambda d: pmean(d, mesh), delta_tree)
 
 
 def shared_random_idx(n: int, frac: float,
                       generator: torch.Generator) -> torch.Tensor:
     """The ``shared_random`` upload's coordinates: the first ``max(int(n *
-    frac), 1)`` of a permutation of ``n`` drawn on the host ``generator``
-    (replicated on every rank, so every user draws the same; jax's
-    permutation cannot be reproduced, so tests inject the reference's)."""
+    frac), 1)`` of a permutation of ``n`` drawn on the host ``generator``.
+    The SPMD body draws it from the round's replicated generator, so every
+    rank draws the same (jax's permutation cannot be reproduced, so tests
+    inject the reference's)."""
     return torch.randperm(n, generator=generator)[:max(int(n * frac), 1)]
 
 
-def combine_shared_random_flat_spmd(flat: torch.Tensor, frac: float, mesh, *,
-                                    idx: torch.Tensor | None = None,
-                                    generator: torch.Generator | None = None):
+def combine_shared_random_flat_spmd(flat: torch.Tensor, idx: torch.Tensor,
+                                    mesh):
     """Shokri's random-subset upload as a bandwidth-true collective: every
-    user takes the same ``idx`` coordinates of its flat (N,) delta (given,
-    or drawn from the replicated ``generator``), only those k values are
-    averaged across the users axis, and they are scattered back into
-    zeros.  Returns ``(combined (N,), uploaded fraction k / N)``."""
-    from repro_torch.core.spmd import pmean
-
+    user takes the same ``idx`` coordinates of its flat (N,) delta (the
+    same on every rank: ``shared_random_idx`` on the replicated
+    generator), only those k values are averaged across the users axis,
+    and they are scattered back into zeros.  Returns ``(combined (N,),
+    uploaded fraction k / N)``."""
     n = flat.shape[0]
-    if idx is None:
-        idx = shared_random_idx(n, frac, generator)
     idx = idx.to(device=flat.device, dtype=torch.int64)
     summed = pmean(flat.index_select(0, idx), mesh)
     out = torch.zeros_like(flat).index_copy_(0, idx, summed)
@@ -753,15 +749,14 @@ def combine_shared_random_flat_spmd(flat: torch.Tensor, frac: float, mesh, *,
                              device=flat.device)
 
 
-def combine_shared_random_spmd(delta_tree, frac: float, mesh, *,
-                               idx: torch.Tensor | None = None,
-                               generator: torch.Generator | None = None):
-    """Tree form of :func:`combine_shared_random_flat_spmd` (the tree is
-    flattened in FlatLayout order, the reference's ``ravel_pytree``
-    order).  Returns ``(combined tree, uploaded fraction)``."""
+def combine_shared_random_spmd(delta_tree, idx: torch.Tensor, mesh):
+    """Tree form of :func:`combine_shared_random_flat_spmd` (``idx`` indexes
+    the tree flattened in FlatLayout order, the reference's
+    ``ravel_pytree`` order).  Returns ``(combined tree, uploaded
+    fraction)``."""
     layout = make_flat_layout(delta_tree)
-    out, kept = combine_shared_random_flat_spmd(
-        layout.flatten(delta_tree), frac, mesh, idx=idx, generator=generator)
+    out, kept = combine_shared_random_flat_spmd(layout.flatten(delta_tree),
+                                                idx, mesh)
     return layout.unflatten(out), kept
 
 

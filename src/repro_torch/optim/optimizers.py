@@ -13,8 +13,16 @@ corrections then broadcast over each parameter's trailing dims.
 
 ``lr`` is a float or a schedule ``lr(step) -> lr`` (``optim/schedule.py``)
 called on the incremented step tensor, on its device, so a CUDA graph
-that captured the update reads each replay's step.  A float lr issues the
-same operations as before schedules existed.
+that captured the update reads each replay's step.
+
+An update is the exact product ``-lr * direction`` of two f32 values, held
+in f64, and ``apply_updates`` rounds ``p + u`` to f32 once: the
+reference's compiled step contracts the multiply and the add into one
+fused multiply-add (XLA on the CPU), where rounding the product first
+lands some sums on the other side of a tie.  The f64 sum is rounded once
+more before f32, which differs from a true fused multiply-add only where
+it falls exactly on an f32 midpoint.  Adam's sqrt is correctly rounded on
+every device (``_sqrt``).
 """
 
 from __future__ import annotations
@@ -28,17 +36,28 @@ from repro_torch.models.common import tree_leaves, tree_map
 
 class Optimizer(NamedTuple):
     init: Callable    # (params, lead=()) -> state
-    update: Callable  # (grads, state, params) -> updates; state in place
+    update: Callable  # (grads, state, params) -> f64 updates; state in place
 
 
 def _lr_scale(lr, step, lead: int):
-    """``-lr`` for a float lr; for a schedule, ``-lr(step)`` as an f32
-    tensor of the step's shape, and a function giving its view against a
-    leaf of ``ndim`` dims (the step's dims lead)."""
-    if not callable(lr):
-        return lambda ndim: -lr
-    neg = -lr(step).to(torch.float32)
+    """``-lr`` rounded to f32, as an f64 tensor of the step's shape (a
+    float lr filled on the step's device, a schedule read at ``step``), and
+    a function giving its view against a leaf of ``ndim`` dims (the step's
+    dims lead).  The view has the leaf's dims, so its product with an f32
+    leaf is taken in f64, where it is exact."""
+    if callable(lr):
+        neg = (-lr(step).to(torch.float32)).to(torch.float64)
+    else:
+        neg = torch.full(step.shape, torch.tensor(-lr, dtype=torch.float32)
+                         .item(), dtype=torch.float64, device=step.device)
     return lambda ndim: neg.reshape(neg.shape + (1,) * (ndim - lead))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt.  CUDA's is; torch's vectorized CPU sqrt
+    (MKL's) is not, so the CPU takes it in f64, whose rounding to f32 is
+    the correctly rounded f32 root."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
 
 
 def _f32_zeros(params):
@@ -70,10 +89,10 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
             trail = (1,) * (g.ndim - lead)
             c1b = c1.reshape(c1.shape + trail)
             c2b = c2.reshape(c2.shape + trail)
-            step_dir = (mu / c1b) / (torch.sqrt(nu / c2b) + eps)
+            step_dir = (mu / c1b) / (_sqrt(nu / c2b) + eps)
             if weight_decay:
                 step_dir = step_dir + weight_decay * p.to(torch.float32)
-            return neg_lr(g.ndim) * step_dir
+            return torch.mul(step_dir, neg_lr(g.ndim))
 
         return tree_map(upd, grads, state["mu"], state["nu"], params)
 
@@ -96,10 +115,10 @@ def sgd(lr, *, momentum=0.0) -> Optimizer:
         if momentum:
             def vel(v, g):
                 v.copy_(momentum * v + g.to(torch.float32))
-                return neg_lr(v.ndim) * v
+                return torch.mul(v, neg_lr(v.ndim))
             return tree_map(vel, state["vel"], grads)
-        return tree_map(lambda g: neg_lr(g.ndim) * g.to(torch.float32),
-                        grads)
+        return tree_map(lambda g: torch.mul(g.to(torch.float32),
+                                            neg_lr(g.ndim)), grads)
 
     return Optimizer(init, update)
 
@@ -119,6 +138,8 @@ def global_norm_clip(grads, max_norm: float):
 
 
 def apply_updates(params, updates) -> None:
-    """``p += u`` for every leaf, in place."""
+    """``p += u`` for every leaf, in place, in one kernel: ``p`` read as
+    f64, the sum taken in f64 and rounded once to ``p``'s dtype (f32 for
+    every caller), as the reference's compiled step rounds it."""
     for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-        p.add_(u.to(p.dtype))
+        torch.add(p, u, out=p)

@@ -709,3 +709,33 @@ def _state_leaves(state):
     from repro_torch.models.common import tree_leaves
     return [t for f in ("g", "ds", "d_opts", "server_d")
             for t in tree_leaves(getattr(state, f))]
+
+
+@pytest.mark.parametrize("name", ["adamw", "adamw_wd", "sgd_momentum"])
+def test_optimizer_step_on_the_card_equals_the_cpu_step_bitwise(cuda, name):
+    """Three steps of the port's optimizers on the card and on the CPU from
+    the same parameters and gradients: the same bits (Adam's sqrt correctly
+    rounded on both, ``p + u`` rounded once from the exact f64 product)."""
+    from repro_torch import optim as topt
+    make = {"adamw": lambda: topt.adamw(2e-4, b1=0.5, b2=0.999),
+            "adamw_wd": lambda: topt.adamw(topt.linear_warmup(1e-3, 2),
+                                           weight_decay=0.01),
+            "sgd_momentum": lambda: topt.sgd(0.05, momentum=0.9)}[name]
+    rng = np.random.default_rng(21)
+    p0 = {"w": (rng.normal(size=(8, 784, 256)) * 0.05).astype(np.float32),
+          "b": (rng.normal(size=(8, 256)) * 0.05).astype(np.float32)}
+    grads = [{k: (rng.normal(size=v.shape) * 1e-3).astype(np.float32)
+              for k, v in p0.items()} for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = make()
+        p = {k: torch.tensor(v, device=dev) for k, v in p0.items()}
+        st = opt.init(p)
+        for g in grads:
+            topt.apply_updates(p, opt.update(
+                {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                st, p))
+        out[dev] = {k: v.cpu() for k, v in p.items()}
+    for k in p0:
+        assert torch.equal(out["cpu"][k].view(torch.int32),
+                           out["cuda"][k].view(torch.int32)), k

@@ -27,7 +27,7 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.checkpoint.msgpack_codec, repro_torch.core.gan, "
             "repro_torch.core.losses, repro_torch.optim.schedule, "
             "repro_torch.examples.distgan_mnist, repro_torch.core.spmd, "
-            "repro_torch.launch.mesh, "
+            "repro_torch.launch.mesh, repro_torch.core.collectives, "
             "repro_torch.examples.distgan_spmd_multiuser; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

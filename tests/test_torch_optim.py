@@ -3,8 +3,10 @@
 AdamW with a schedule for its lr, and ``constant`` / ``linear_warmup`` /
 ``cosine_schedule``.  Tolerance atol 1e-7 / rtol 1e-6 (one f32 op apart;
 the schedules' cos is libm's on one side and XLA's on the other).  With a
-float lr, AdamW issues the operations it issued before schedules
-existed (held BITWISE to that formula)."""
+float lr, AdamW's update is held BITWISE to its formula.  A step of the reference's jitted
+AdamW and SGD rounds ``p - lr * direction`` once (XLA on the CPU fuses the
+multiply and the add): the port's first AdamW step and its SGD steps equal
+it BITWISE, where rounding the product first differs at exact ties."""
 
 import jax
 import jax.numpy as jnp
@@ -137,5 +139,60 @@ def test_adamw_float_lr_is_the_unscheduled_formula_bitwise():
             v = b2 * get(nu) + (1 - b2) * (get(g) * get(g))
             get(mu).copy_(m)
             get(nu).copy_(v)
-            want = -lr * ((m / c1) / (torch.sqrt(v / c2) + eps))
+            root = torch.sqrt((v / c2).double()).float()
+            want = ((m / c1) / (root + eps)).double() * float(np.float32(-lr))
             assert torch.equal(get(upd), want)
+
+
+def _jit_step(jo):
+    @jax.jit
+    def step(p, g, st):
+        upd, st = jo.update(g, st, p)
+        return jopt.apply_updates(p, upd), st
+    return step
+
+
+def test_first_adamw_step_and_sgd_round_as_the_references_jitted_step():
+    """The reference's jitted step rounds ``p + (-lr * direction)`` once;
+    the port's AdamW (first step) and SGD (every step) give its bits on 2**16
+    entries.  One entry, from a federation round at Adam's first step, is
+    an exact tie once the product is rounded: rounding twice moves it by
+    one unit in the last place, which can flip a top-k mask among the
+    near-equal first-step deltas."""
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    p = (rng.normal(size=n) * 0.2).astype(np.float32)
+    gs = [(rng.normal(size=n) * 1e-3).astype(np.float32) for _ in range(3)]
+    p[0], gs[0][0] = np.float32(0.15700573), np.float32(0.0007253331)
+    for make, steps in ((lambda m: m.adamw(2e-4, b1=0.5, b2=0.999), 1),
+                        (lambda m: m.sgd(0.05), 3),
+                        (lambda m: m.sgd(m.linear_warmup(0.1, 3)), 3)):
+        jo, to = make(jopt), make(topt)
+        step = _jit_step(jo)
+        jp, js = p, jo.init(p)
+        tp = torch.from_numpy(p.copy())
+        ts = to.init(tp)
+        for g in gs[:steps]:
+            jp, js = step(jp, g, js)
+            upd = to.update(torch.from_numpy(g), ts, tp)
+            topt.apply_updates(tp, upd)
+            np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    jo, to = jopt.adamw(2e-4, b1=0.5, b2=0.999), \
+        topt.adamw(2e-4, b1=0.5, b2=0.999)
+    want = np.asarray(_jit_step(jo)(p, gs[0], jo.init(p))[0])[0]
+    tp = torch.from_numpy(p.copy())
+    u = to.update(torch.from_numpy(gs[0]), to.init(tp), tp)[0]
+    twice = np.float32(p[0] + np.float32(u))
+    assert want == np.float32(0.15680574) and twice != want
+
+
+def test_adamw_sqrt_is_correctly_rounded():
+    """Adam's sqrt equals the correctly rounded f32 root (numpy's, and the
+    reference's) on 2**20 values, where torch's vectorized CPU sqrt is
+    off by one unit in the last place on some of them."""
+    from repro_torch.optim.optimizers import _sqrt
+    rng = np.random.default_rng(12)
+    x = (np.float32(1e-3) * np.square(rng.normal(size=1 << 20) * 1e-3)
+         .astype(np.float32)) / np.float32(0.00099998713)
+    np.testing.assert_array_equal(_sqrt(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(x))

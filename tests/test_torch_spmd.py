@@ -12,10 +12,12 @@ coordinates), replayed here from the bodies' key splits
 (``spmd.py:119-122, 236``).  The main process computes those inputs and
 runs the reference's subprocess and the port's ranks at the same time.
 
-* The collectives: ``pmax`` keeps a NaN whichever rank holds it (gloo's MAX
-  keeps it only on rank 0), ``pmin`` too, ``psum``'s gradient is psum's
-  transpose; the combine functions agree with the reference's on rows with
-  a NaN, a tie and -0.0 (bitwise; ``mean`` to a few ULP).
+* The collectives (``core/collectives.py``): a NaN loses ``pmax`` whichever
+  rank holds it, as the reference's XLA pmax drops it (gloo's MAX keeps it
+  only on rank 0), ``pmin`` too, ``psum``'s gradient is psum's transpose;
+  the combine functions agree with the reference's on rows with a NaN, a
+  tie and -0.0 (bitwise; the means to a few ULP), ``shared_random`` flat
+  and in its tree form.
 * ``make_spmd_step`` at U = 2 (approaches 1, 2, 3; approach 1 also with
   ``random`` selection + ``int8`` + stochastic rounding + the mean fold, and
   with ``shared_random``) and at U = 4 (approaches 1 with ``topk_int8`` +
@@ -48,6 +50,7 @@ from repro.core.gan import MLPGanConfig as JaxMLPCfg
 from repro.core.gan import make_mlp_pair as jax_make_mlp_pair
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import approaches as tapp
+from repro_torch.core import collectives as coll
 from repro_torch.core import federated as tfed
 from repro_torch.core import spmd
 from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
@@ -166,7 +169,7 @@ def _inputs():
 _REF = textwrap.dedent("""
     import os, pickle, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import numpy as np, jax, jax.numpy as jnp
+    import numpy as np, jax, jax.flatten_util, jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as PS
     from repro.core import approaches as japp, federated as jfed
     from repro.core.gan import MLPGanConfig, make_mlp_pair
@@ -215,7 +218,11 @@ _REF = textwrap.dedent("""
         "max_abs": np.asarray(sm(lambda d: jfed.combine_max_abs_spmd(d[0]))(rows)),
         "mean": np.asarray(sm(lambda d: jfed.combine_mean_spmd(d[0]))(rows)),
         "shared_random": np.asarray(sm(lambda d: jfed.combine_shared_random_flat_spmd(
-            d[0], comb["frac"], jax.random.key(7))[0])(rows))}
+            d[0], comb["frac"], jax.random.key(7))[0])(rows)),
+        "shared_random_tree": np.asarray(sm(lambda d: jax.flatten_util.ravel_pytree(
+            jfed.combine_shared_random_spmd(
+                {"b": d[0][:24].reshape(4, 6), "w": d[0][24:]}, comb["frac"],
+                jax.random.key(7))[0])[0])(rows))}
     pickle.dump(out, open(sys.argv[2], "wb"))
 """)
 
@@ -248,15 +255,15 @@ def _collectives(mesh: UsersMesh) -> dict:
     x = torch.tensor([1.0 + r, -2.0 * r, 0.5], dtype=torch.float32)
     nan_on = torch.tensor([math_nan() if r == 1 else 1.0, 3.0])
     a = torch.tensor([2.0 + r], requires_grad=True)
-    y = spmd.psum(a * (r + 1.0), mesh)
+    y = coll.psum(a * (r + 1.0), mesh)
     (grad,) = torch.autograd.grad(y.sum(), a)
-    return {"pmax": spmd.pmax(x, mesh), "pmin": spmd.pmin(x, mesh),
-            "pmax_nan": spmd.pmax(nan_on, mesh),
-            "pmin_nan": spmd.pmin(nan_on, mesh),
-            "psum": spmd.psum(x, mesh), "gather": spmd.all_gather(x, mesh),
-            "pmax_int": spmd.pmax(torch.tensor([r, -r], dtype=torch.int32),
+    return {"pmax": coll.pmax(x, mesh), "pmin": coll.pmin(x, mesh),
+            "pmax_nan": coll.pmax(nan_on, mesh),
+            "pmin_nan": coll.pmin(nan_on, mesh),
+            "psum": coll.psum(x, mesh), "gather": coll.all_gather(x, mesh),
+            "pmax_int": coll.pmax(torch.tensor([r, -r], dtype=torch.int32),
                                   mesh),
-            "grad": grad, "axis_index": spmd.axis_index(mesh)}
+            "grad": grad, "axis_index": coll.axis_index(mesh)}
 
 
 def math_nan():
@@ -274,10 +281,20 @@ def _approach2_grad(mesh: UsersMesh, g, ds, z):
     d = {k: {kk: torch.from_numpy(v[mesh.rank:mesh.rank + 1]) for kk, v in
              layer.items()} for k, layer in ds.items()}
     p = torch.sigmoid(pair.d_apply(d, pair.g_apply(gp, torch.from_numpy(z))))
-    loss = -torch.mean(torch.log(spmd.pmean(p, mesh) + 1e-7))
+    loss = -torch.mean(torch.log(coll.pmean(p, mesh) + 1e-7))
     leaves = tree_leaves(gp)
     grads = torch.autograd.grad(loss, leaves)
-    return [spmd.pmean(x, mesh) for x in grads]
+    return [coll.pmean(x, mesh) for x in grads]
+
+
+def _delta_tree(row):
+    """A delta row as a two-leaf tree (the combine functions' tree form)."""
+    return {"b": row[:24].reshape(4, 6), "w": row[24:]}
+
+
+def _tree_flat(tree):
+    """The tree in the reference's ``ravel_pytree`` order (sorted keys)."""
+    return torch.cat([tree["b"].reshape(-1), tree["w"].reshape(-1)])
 
 
 def noise_tensors(draws: dict) -> dict:
@@ -333,12 +350,14 @@ def _port_rank(mesh: UsersMesh, inputs) -> dict:
         out["grad"] = _approach2_grad(mesh, g, ds, z)
     if mesh.size == 4:
         rows = torch.from_numpy(inputs["combine"]["rows"][mesh.rank])
+        idx = torch.from_numpy(inputs["combine"]["idx"])
         out["combine"] = {
             "max_abs": tfed.combine_max_abs_spmd(rows, mesh),
             "mean": tfed.combine_mean_spmd(rows, mesh),
             "shared_random": tfed.combine_shared_random_flat_spmd(
-                rows, inputs["combine"]["frac"], mesh,
-                idx=torch.from_numpy(inputs["combine"]["idx"]))[0]}
+                rows, idx, mesh)[0],
+            "shared_random_tree": _tree_flat(tfed.combine_shared_random_spmd(
+                _delta_tree(rows), idx, mesh)[0])}
     return out
 
 
@@ -421,13 +440,16 @@ def test_collectives_on_gloo_ranks(runs):
             assert float(c["grad"]) == u * (r + 1)
 
 
-@pytest.mark.parametrize("fold", ["max_abs", "mean", "shared_random"])
+@pytest.mark.parametrize("fold", ["max_abs", "mean", "shared_random",
+                                  "shared_random_tree"])
 def test_combine_spmd_matches_reference(runs, fold):
     """The combine functions on 4 ranks against the reference's under
     shard_map, on rows with a NaN on rank 1, ties and -0.0: max_abs
     bitwise (the NaN dropped, as the reference drops it; the sign of zero
-    kept), the two means (a sum of 4 in another order) to a few ULP with
-    the NaN column NaN; every rank holds the same result."""
+    kept), the means (a sum of 4 in another order) to a few ULP with the
+    NaN column NaN; ``shared_random`` with the reference's coordinates
+    injected, flat and as a two-leaf tree; every rank holds the same
+    result."""
     want = runs["ref"]["combine"][fold]
     outs = [o["combine"][fold].numpy() for o in runs["port"][4]]
     for got in outs[1:]:

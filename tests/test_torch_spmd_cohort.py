@@ -9,10 +9,10 @@ reference's initial state, the port with the reference's draws.
 
 * ``make_spmd_cohort_engine`` (replicated store) and
   ``make_spmd_fused_store_engine`` (sharded store) against the reference's,
-  in four forms: ``topk_int8`` + stochastic rounding + error feedback under
-  ``staleness_max_abs``; a dense ``int8`` upload + error feedback +
-  ``stage_rows`` under ``staleness_mean`` (pmin of the ages); approaches 2
-  and 3.  Losses, the
+  in five forms: ``topk_int8`` + stochastic rounding + error feedback under
+  ``staleness_max_abs``; a top-k and a dense ``int8`` upload, each with
+  error feedback + ``stage_rows`` under ``staleness_mean`` (pmin of the
+  ages); approaches 2 and 3.  Losses, the
   store and the shared state within ATOL = 1e-5, ``last_round`` and the
   ages' mean bitwise, kept fractions to 1e-6.  Inside the port the sharded
   store equals the replicated one bitwise (without ``stage_rows``, whose
@@ -48,6 +48,7 @@ from repro.core import engine as jeng
 from repro.core import federated as jfed
 from repro_torch.convert import cohort_state_from_numpy, shared_from_numpy
 from repro_torch.core import approaches as tapp
+from repro_torch.core import collectives as coll
 from repro_torch.core import federated as tfed
 from repro_torch.core import session as tsess
 from repro_torch.core import spmd
@@ -70,15 +71,22 @@ ENGINE_CASES = {
     "a1-topk-int8-sr-ef": ("approach1", dict(
         codec="topk_int8", codec_stochastic=True, error_feedback=True,
         combiner="staleness_max_abs")),
-    # a dense upload: at Adam's first step every |delta| is ~lr, so a top-k
-    # threshold sits among near-ties that an ULP of matmul order decides
-    # (and the reference's own fusion of this program moves it)
-    "a1-int8-ef-stage-rows": ("approach1", dict(
-        codec="int8", error_feedback=True, stage_rows=True, selection="none",
+    # at Adam's first step every |delta| is ~lr: the top-k threshold sits
+    # among near-equal deltas, so this case holds the optimizer's rounding
+    # too (tests/test_torch_optim.py pins that step to the reference's)
+    "a1-topk-int8-ef-stage-rows": ("approach1", dict(
+        codec="int8", error_feedback=True, stage_rows=True,
         combiner="staleness_mean")),
     "a2": ("approach2", {}),
     "a3": ("approach3", {}),
+    "a1-int8-ef-stage-rows-dense": ("approach1", dict(
+        codec="int8", error_feedback=True, stage_rows=True, selection="none",
+        combiner="staleness_mean")),
 }
+# cases whose sharded form is held to the reference's program with the
+# gathered row rounded before the D step (see _REF and
+# test_sharded_stage_rows_reference_depends_on_its_fusion)
+ROUNDED_ROWS = ("a1-topk-int8-ef-stage-rows",)
 SESSION_CASES = {
     "a1": ("approach1", dict(codec="topk_int8", stochastic=True,
                              error_feedback=True), "staleness_max_abs"),
@@ -150,6 +158,7 @@ _REF = textwrap.dedent("""
     import numpy as np, jax, jax.numpy as jnp
     from jax.sharding import Mesh
     from repro.core import approaches as japp, engine as jeng
+    from repro.core import spmd as jspmd
     from repro.core.gan import MLPGanConfig, make_mlp_pair
     from repro.core.session import FederationSession
     from repro.core.spec import FederationSpec
@@ -171,6 +180,20 @@ _REF = textwrap.dedent("""
                                         sync_ds=approach == "approach1")
             cs, m = mk(pair, fcfg, mesh, approach, C)(cs, reals, sched)
             out[name, form] = {"metrics": tree(m), "state": tree(
+                cs._replace(key=None)._asdict())}
+        if name in inp["rounded"]:
+            # the same sharded program with each member's gathered D row
+            # materialized before its D step (an optimization barrier), so
+            # the dequantized row is rounded to f32 as written; plain jit
+            # fuses the dequantize into the step
+            restack = jspmd._restack
+            jspmd._restack = lambda t: restack(jax.lax.optimization_barrier(t))
+            cs = jeng.init_cohort_state(pair, fcfg, jax.random.key(0),
+                                        sync_ds=approach == "approach1")
+            cs, m = jeng.make_spmd_fused_store_engine(
+                pair, fcfg, mesh, approach, C)(cs, reals, sched)
+            jspmd._restack = restack
+            out[name, "sharded-rounded"] = {"metrics": tree(m), "state": tree(
                 cs._replace(key=None)._asdict())}
     data, labels = inp["data"]
     ds = dirichlet_partition(data, labels, U, 0.5)
@@ -203,7 +226,7 @@ def _run_reference(inputs, tmp):
     with open(src, "wb") as f:
         pickle.dump({"C": C, "U": U, "small": SMALL, "sched": inputs["sched"],
                      "engines": inputs["engines"], "data": inputs["data"],
-                     "engine_spec": ENGINE_CASES,
+                     "engine_spec": ENGINE_CASES, "rounded": ROUNDED_ROWS,
                      "manifests": _manifests()}, f)
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
@@ -244,7 +267,7 @@ def _transport_zero(mesh: UsersMesh) -> dict:
     onehot = torch.zeros((C, 1))
     onehot[1 - mesh.rank] = 1.0      # slot 0 belongs to rank 1
     return {"sharded": spmd.gather_owned_rows(block, own, loc, mesh),
-            "replicated": spmd.psum(onehot * row[None], mesh)}
+            "replicated": coll.psum(onehot * row[None], mesh)}
 
 
 def _port_rank(mesh: UsersMesh, inputs, ckpt_dir) -> dict:
@@ -356,8 +379,11 @@ def _same_on_every_rank(port, get):
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_cohort_engine_matches_reference(runs, case, form):
     """Three rounds of each SPMD cohort engine against the reference's
-    jitted one, from its initial carry with its draws."""
-    ref = runs["ref"][case, form]
+    jitted one, from its initial carry with its draws (for the sharded
+    form of ``ROUNDED_ROWS``, the reference's program with each gathered
+    row rounded to f32 before the D step, as written)."""
+    rounded = form == "sharded" and case in ROUNDED_ROWS
+    ref = runs["ref"][case, "sharded-rounded" if rounded else form]
     port = runs["port"]
     got = port[0][case, form]["metrics"]
     for key in ("g_loss", "d_loss"):
@@ -413,6 +439,26 @@ def test_sharded_store_equals_replicated_bitwise(runs, case):
         if rep[i] is not None:
             _bitwise(torch.cat([s[i] for s in stores]).numpy(),
                      rep[i].numpy())
+
+
+def test_sharded_stage_rows_reference_depends_on_its_fusion(runs):
+    """At Adam's first step every |delta| is ~lr, so the top-k threshold
+    sits among near-equal deltas.  Under plain jit the reference fuses the
+    ``stage_rows`` dequantize (``q * scale``) of its sharded gather into
+    the D step, so the row it trains from is not the rounded f32 product,
+    and its round-0 top-k keeps other entries than the same program with
+    that row materialized (an optimization barrier).  The port rounds the
+    row as written and equals the latter (the test above); the replicated
+    store, whose gather is not quantized, agrees in both programs."""
+    case = ROUNDED_ROWS[0]
+    plain = runs["ref"][case, "sharded"]["metrics"]["kept_frac"]
+    rounded = runs["ref"][case, "sharded-rounded"]["metrics"]["kept_frac"]
+    replicated = runs["ref"][case, "replicated"]["metrics"]["kept_frac"]
+    assert plain[0] != rounded[0]
+    np.testing.assert_array_equal(rounded[0], replicated[0])
+    np.testing.assert_allclose(
+        runs["port"][0][case, "sharded"]["metrics"]["kept_frac"].numpy(),
+        rounded, atol=1e-6, rtol=0)
 
 
 def test_rows_engine_equals_replicated_store_engine(runs):
