@@ -78,6 +78,19 @@ it goes wrong:
    per round, pinned and device GB, the U = 1024 / U = 256 ratio and the
    stall ratio (c) / (b).  Small host sessions on the card and on the CPU
    must agree;
+7b. multihost (``repro_torch.multihost``: the host stream over a store
+   held by worker processes behind MessagePack-over-TCP RPC) — the paper
+   MLP, U = 256 on 2 workers, C 8, ``topk_int8`` + EF, 32 rounds on the
+   f32 wire and on the int8 wire (``stage_rows``): one top-k, quantize and
+   dequantize launch per round (one more quantize and dequantize on the
+   int8 wire's legs); measured wire payload bytes == the priced bytes;
+   the f32 wire equals the ``host`` backend on the same spec bitwise
+   (losses, the whole store), is saved at round 16 with 2 workers,
+   restored with 3 and its 16 more rounds equal the uninterrupted run
+   bitwise; the int8 wire finite, its max |diff| from the host backend and
+   the rows whose wire re-quantization moved the scale printed.  ms per
+   round, host stall, RPC ms per round, socket / payload bytes, worker
+   start, push, save and restore seconds, shard bytes;
 8. SPMD federation (``core/spmd.py``, one user or cohort member per rank of
    a users mesh on ``torch.distributed``) — B1 and B2 held BITWISE to their
    plain versions at one rank's row (1 x 267,009) and timed there; (a) NCCL
@@ -88,11 +101,14 @@ it goes wrong:
    the ``spmd`` backend session (32 rounds, pinned host store); launch
    counts zeroed before each run: one top-k, quantize and dequantize per
    round; the same ranks on the CPU over gloo must agree with the card (the
-   engine at full width, a small session); (b) SPMD_RANKS gloo ranks
-   sharing the card (``spawn_users``): approaches 1 (``topk_int8`` + EF), 2
-   and 3 on the replicated-store, sharded-store and rows engines at U =
-   256, the sharded and rows stores equal to the replicated one bitwise, G
-   and the server D the same bytes on every rank.  ms per round of each
+   engine at full width, a small session); the replicated and sharded
+   engines with ``stage_rows`` (8 rounds each: one and two more quantize
+   and dequantize launches a round, B2 on the int8 row legs); (b)
+   SPMD_RANKS gloo ranks sharing the card (``spawn_users``): approaches 1
+   (``topk_int8`` + EF), 2 and 3 on the replicated-store, sharded-store
+   and rows engines at U = 256, the sharded and rows stores equal to the
+   replicated one bitwise, G and the server D the same bytes on every
+   rank.  ms per round of each
    engine, peak device and pinned GB, beside the card's name and power
    limit;
 9. graphs against the eager chunk — each main-path run, the cohort U = 256
@@ -153,6 +169,7 @@ Needs one CUDA device and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -1650,6 +1667,189 @@ def _host_cpu_agreement(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Multihost: the host stream over an RPC-sharded store
+# ---------------------------------------------------------------------------
+
+# U 256 on 2 workers (128 rows a shard: a push frame of 128 D, Adam and
+# residual rows is ~547 MB, under the reference's 1 GiB frame cap, which
+# 251 rows at this width would overrun)
+MH_U, MH_WORKERS, MH_RESTORE_WORKERS, MH_C, MH_ROUNDS = 256, 2, 3, 8, 32
+
+
+def _mh_session(pair, dataset, dev, kind, stage, workers=None):
+    from repro_torch.core.spec import BackendSpec
+    backend = BackendSpec(kind, materialize_state=False, workers=workers)
+    return _session(pair, dataset, MH_U, "topk_int8", False, dev,
+                    eval_samples=0, scheduler="uniform", cohort=MH_C,
+                    ef=True, rpj=HOST_K, backend=backend, stage_rows=stage)
+
+
+def _store_arrays(be) -> dict:
+    """A store's four buffers as CPU tensors (a multihost store through
+    its exact snapshot)."""
+    snap = be.snapshot()
+    return {n: getattr(snap, n) for n in ("d_flat", "opt_flat",
+                                          "last_round", "residual")}
+
+
+def _multihost_phase(torch, dev):
+    """The ``multihost`` backend at the paper's MLP width: approach 1,
+    topk_int8 with error feedback, a uniform cohort of MH_C of MH_U users
+    whose store lives on MH_WORKERS worker processes, batch 64, MH_ROUNDS
+    rounds on the f32 wire (``stage_rows`` off) and on the int8 wire.
+    Launch counts zeroed before each run and read after it: one top-k,
+    quantize and dequantize a round in the graph, one more quantize and
+    dequantize a round on the int8 wire's legs.  Measured wire payload
+    bytes == the priced bytes.  The f32 wire equals the ``host`` backend on
+    the same spec bitwise (losses, the whole store); it is saved after half
+    the rounds at MH_WORKERS workers, restored at MH_RESTORE_WORKERS, and
+    the continuation equals the uninterrupted run bitwise.  The int8 wire:
+    finite, its max |diff| from the host backend and the rows whose wire
+    re-quantization moved the scale are printed.  Returns (lines, launch
+    totals, summary)."""
+    import numpy as np
+
+    from repro_torch.core.approaches import d_flat_layout, d_opt_flat_layout
+    from repro_torch.core.session import FederationSession
+    from repro_torch.kernels import ops
+    from repro_torch.multihost import wire
+
+    pair = _paper_pair()
+    dataset = _digits_dataset(MH_U, 28, 400)
+    nd = d_flat_layout(pair).n
+    no = d_opt_flat_layout(pair, _fcfg(MH_U)).n
+    half = MH_ROUNDS // 2
+    ckpt = CKPT_DIR / "multihost"
+    totals = dict.fromkeys(("topk_mask_rows", "quantize_rows",
+                            "dequantize_rows"), 0)
+    lines, summary = [], {}
+
+    def counted(run, rounds, legs, what):
+        ops.reset_launch_counts()
+        out = run()
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(topk_mask_rows=rounds, quantize_rows=rounds + legs,
+                    dequantize_rows=rounds + legs)
+        if counts != want:
+            raise AssertionError(f"multihost {what}: launches {counts} != "
+                                 f"{want}")
+        for k in totals:
+            totals[k] += counts[k]
+        return out, counts
+
+    def line(what, res, be, counts, rounds, **extra):
+        lines.append({
+            "run": what, "rounds": rounds, "launches": counts,
+            "best_ms_per_round": res.extra["min_step_time_s"] * 1e3,
+            "host_stall_ms_per_round":
+                res.extra["host_stall_s_per_round"] * 1e3,
+            "rpc_ms_per_round": be.round_rpc_s * 1e3 / rounds,
+            "round_payload_bytes": be.round_payload_bytes,
+            "socket_over_payload_bytes": be.socket_bytes / (
+                be.round_payload_bytes + be.aux_payload_bytes),
+            "first_round_s": res.extra["compile_s"], **extra})
+
+    def host_run(stage):
+        res = _mh_session(pair, dataset, dev, "host", stage).run(MH_ROUNDS)
+        return res, _store_arrays(res.extra.pop("host_backend"))
+
+    def multihost(stage, run, what):
+        """``run(session)`` on a fresh multihost session, counted and
+        priced: (its result, the losses of all its rounds, the store)."""
+        sess = _mh_session(pair, dataset, dev, "multihost", stage,
+                           workers=MH_WORKERS)
+        try:
+            drv, be = sess._driver, sess._driver.backend
+            (res, losses), counts = counted(lambda: run(sess), MH_ROUNDS,
+                                            MH_ROUNDS if stage else 0, what)
+            priced = MH_ROUNDS * wire.priced_round_nbytes(
+                MH_C, nd, no, stage_codec=be.stage_codec, has_residual=True)
+            if be.round_payload_bytes != priced:
+                raise AssertionError(f"multihost {what}: payload "
+                                     f"{be.round_payload_bytes} != priced "
+                                     f"{priced}")
+            line(f"multihost approach1 U={MH_U} W={MH_WORKERS} C={MH_C} "
+                 f"topk_int8+EF {what}", res, be, counts, MH_ROUNDS,
+                 worker_start_s=drv.start_s, push_s=drv.push_s)
+            return res, losses, _store_arrays(be)
+        finally:
+            sess.close()
+
+    # the f32 wire: saved halfway; bitwise the host backend
+    def saved_halfway(sess):
+        first = sess.run(half)
+        t0 = time.perf_counter()
+        sess.save(str(ckpt))
+        summary["save_s"] = time.perf_counter() - t0
+        second = sess.run(half)
+        return second, [np.concatenate([getattr(first, k), getattr(second, k)])
+                        for k in ("g_losses", "d_losses")]
+
+    want_res, want = host_run(False)
+    res, losses, got = multihost(False, saved_halfway, "f32 wire")
+    if not (np.array_equal(losses[0], want_res.g_losses)
+            and np.array_equal(losses[1], want_res.d_losses)
+            and all(torch.equal(got[n], want[n]) for n in got)):
+        raise AssertionError("multihost f32 wire != host backend")
+    del want
+
+    # ... restored at another worker count, bitwise the uninterrupted run
+    summary["shard_bytes"] = _dir_bytes(ckpt / f"shards_{half:08d}")
+    t0 = time.perf_counter()
+    back = FederationSession.restore(str(ckpt), pair, _fcfg(MH_U), dataset,
+                                     device=dev, workers=MH_RESTORE_WORKERS)
+    summary["restore_s"] = time.perf_counter() - t0
+    try:
+        tail, counts = counted(lambda: back.run(half), half, 0,
+                               f"restored at W={MH_RESTORE_WORKERS}")
+        line(f"multihost restored W={MH_WORKERS}->{MH_RESTORE_WORKERS}",
+             tail, back._driver.backend, counts, half)
+        got2 = _store_arrays(back._driver.backend)
+    finally:
+        back.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if not (np.array_equal(tail.g_losses, res.g_losses)
+            and np.array_equal(tail.d_losses, res.d_losses)
+            and all(torch.equal(got2[n], got[n]) for n in got)):
+        raise AssertionError(f"multihost restore at W={MH_RESTORE_WORKERS} "
+                             f"!= the uninterrupted W={MH_WORKERS} run")
+    del got, got2
+
+    # the int8 wire: finite; its distance from the host backend, and the
+    # scattered rows whose wire re-quantization moved the scale
+    moved = [0]
+
+    def counting_scatters(sess):
+        be = sess._driver.backend
+        scatter = be.scatter_rows
+
+        def counting(idx, d_rows, *args, **kw):
+            rows = d_rows.numpy()
+            back = wire.np_dequantize_rows(*wire.np_quantize_rows(rows))
+            moved[0] += int(np.any(back != rows, axis=1).sum())
+            return scatter(idx, d_rows, *args, **kw)
+
+        be.scatter_rows = counting
+        res = sess.run(MH_ROUNDS)
+        return res, [res.g_losses, res.d_losses]
+
+    want_res, want = host_run(True)
+    _, losses, got = multihost(True, counting_scatters, "int8 wire")
+    if not (all(bool(torch.isfinite(got[n]).all())
+                for n in ("d_flat", "opt_flat", "residual"))
+            and all(np.all(np.isfinite(x)) for x in losses)):
+        raise AssertionError("multihost int8 wire: not finite")
+    summary["int8_vs_host"] = {
+        "max_abs_losses": max(_max_diff(torch, losses[0], want_res.g_losses),
+                              _max_diff(torch, losses[1], want_res.d_losses)),
+        "max_abs_store": max(_max_diff(torch, got[n], want[n])
+                             for n in ("d_flat", "opt_flat", "residual")),
+        "rows_scale_moved": moved[0], "rows_scattered": MH_ROUNDS * MH_C}
+    return lines, totals, summary
+
+
+# ---------------------------------------------------------------------------
 # Checkpoints
 # ---------------------------------------------------------------------------
 
@@ -2188,13 +2388,15 @@ def _spmd_world1(torch, dev, mesh, cpu_mesh):
                             "dequantize_rows"), 0)
     lines = []
 
-    def counted(run, rounds, what, **line):
+    def counted(run, rounds, what, legs=0, **line):
+        """``run()`` with the counts zeroed: one top-k, and 1 + ``legs``
+        quantize and dequantize launches, a round."""
         ops.reset_launch_counts()
         out = run()
         counts = ops.launch_counts()
         want = dict.fromkeys(counts, 0)
-        want.update(topk_mask_rows=rounds, quantize_rows=rounds,
-                    dequantize_rows=rounds)
+        want.update(topk_mask_rows=rounds, quantize_rows=rounds * (1 + legs),
+                    dequantize_rows=rounds * (1 + legs))
         if counts != want:
             raise AssertionError(f"spmd {what}: launches {counts} != {want}")
         for k in totals:
@@ -2265,6 +2467,24 @@ def _spmd_world1(torch, dev, mesh, cpu_mesh):
             g_rep, np.array([float(m["g_loss"]) for m in mets]))):
         raise AssertionError("spmd cohort engines' losses differ")
     del ends, rep, sh, be
+
+    # stage_rows: the D rows cross int8 through B2, once a round on the
+    # replicated store (the scatter), twice on the sharded one (the gather
+    # and the scatter)
+    fcfg_q = dataclasses.replace(fcfg, stage_rows=True)
+    for form, mk, sharded, legs in (
+            ("replicated", spmd.make_spmd_cohort_engine, False, 1),
+            ("sharded", spmd.make_spmd_fused_store_engine, True, 2)):
+        cs = spmd.init_spmd_cohort_state(pair, fcfg_q, 0, mesh, sync_ds=True,
+                                         sharded=sharded)
+        e = mk(pair, fcfg_q, mesh, "approach1", 1)
+        cs, m = counted(lambda: e(cs, reals[:K], sched[:K]), K,
+                        f"{form}-store cohort engine U={SPMD_U} C=1 "
+                        f"stage_rows", legs=legs)
+        if not (np.all(np.isfinite(m["g_loss"].cpu().numpy()))
+                and bool(torch.isfinite(cs.store.d_flat).all())):
+            raise AssertionError(f"spmd {form} stage_rows: not finite")
+        del cs
 
     # the spmd backend session
     base = _peak_base(torch)
@@ -2618,6 +2838,15 @@ def main() -> int:
     worst = _host_cpu_agreement(torch, dev)
     print(f"[check] card vs CPU small host sessions, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
+
+    t0 = time.perf_counter()
+    lines, mh_totals, mh_summary = _multihost_phase(torch, dev)
+    for line in lines:
+        print(f"[multihost] {card} | " + json.dumps(line), flush=True)
+    print(f"[multihost] {card} | " + json.dumps(mh_summary), flush=True)
+    print(f"[multihost] {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in recs:
+        rec["launches"] += mh_totals.get(rec["name"], 0)
 
     t0 = time.perf_counter()
     n_spmd = _kernels_at(torch, dev, recs, 1, MAIN_N, 5, "at_spmd_row")

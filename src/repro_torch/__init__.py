@@ -10,6 +10,14 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``
 CPU request they raise instead of quietly running on the CPU.
 """
 
-from repro_torch.device import resolve_device
+import importlib
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # lazy, so a process that imports only torch-free modules (the
+    # multihost worker) never imports torch
+    if name == "resolve_device":
+        return importlib.import_module("repro_torch.device").resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

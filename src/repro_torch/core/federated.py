@@ -335,6 +335,16 @@ class HostStateBackend(UserStateBackend):
         return self.d_flat.shape[0]
 
     @property
+    def nd(self) -> int:
+        """Width of a D (and residual) row."""
+        return self.d_flat.shape[1]
+
+    @property
+    def no(self) -> int:
+        """Width of an optimizer row."""
+        return self.opt_flat.shape[1]
+
+    @property
     def nbytes(self) -> int:
         """Bytes of the store's buffers."""
         return sum(t.numel() * t.element_size() for t in (

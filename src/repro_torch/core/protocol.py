@@ -63,7 +63,8 @@ def run_distgan(
     ``materialize_state`` and ``stage_rows``.  ``"spmd"`` needs a users
     mesh, which this shim cannot pass: it raises as the reference's does
     (build ``FederationSession(..., mesh=)`` on every rank instead), and
-    ``"multihost"`` is not ported (ROADMAP queue A item 10).  ``device``
+    so does ``"multihost"``, whose worker count this shim cannot pass
+    (build a ``BackendSpec(kind="multihost", workers=...)``).  ``device``
     is CUDA unless ``"cpu"`` is passed.  ``sample_fn`` is accepted for the
     reference's signature and never consumed, as there."""
     del sample_fn

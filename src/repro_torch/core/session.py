@@ -459,8 +459,7 @@ def stream_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
                 out["w"] = torch.from_numpy(np.asarray(wts[r], np.float32))
             return {k: v.to(dev) for k, v in out.items()}, None
         leg = legs["rows"]
-        c, (nd, no) = len(idx), (backend.d_flat.shape[1],
-                                 backend.opt_flat.shape[1])
+        c, nd, no = len(idx), backend.nd, backend.no
         host = lambda name, shape, dt=torch.float32: leg.host(r, name, shape,
                                                               dt)
         ho = host("o", (c, no))
@@ -583,9 +582,7 @@ def superbatch_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
     dev = shared.step.device
     cuda = dev.type == "cuda"
     has_res = backend.has_residual
-    widths = [backend.d_flat.shape[1], backend.opt_flat.shape[1]]
-    if has_res:
-        widths.append(backend.d_flat.shape[1])
+    widths = [backend.nd, backend.no] + ([backend.nd] if has_res else [])
     blocks_of: dict = {}
     data_bufs: dict = {}
 
@@ -722,6 +719,15 @@ class DeviceBackendDriver:
                                      step, generator)
         else:
             self.state = DistGANState(*tree, generator)
+
+    def save_aux(self, path: str, step: int) -> None:
+        """No state beyond ``arrays()`` (``HostStreamDriver.save_aux``)."""
+
+    def load_aux(self, path: str, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
     def generator_params(self):
         return self.state.g
@@ -887,12 +893,13 @@ class HostStreamDriver:
             init_host_backend(pair, fcfg, sp.seed, sess.device,
                               sync_ds=sess.approach.sync_ds)
         self.eng = self._make_engine()
-        # store-row staging and superbatch windows belong to the host
-        # backend; the spmd driver maps each round's rows onto the mesh, so
-        # a request for either falls back to the plain per-round stream
+        # store-row staging belongs to the host and multihost backends and
+        # superbatch windows to the host backend alone (the multihost store
+        # is remote); the spmd driver maps each round's rows onto the mesh,
+        # so a request for either falls back to the plain per-round stream
         # (as in the reference)
         self.stage_rows = (sp.combine.compression.stage_rows
-                           and self.backend_name == "host")
+                           and self.backend_name in ("host", "multihost"))
         self.fused_store = (sp.engine.fuse_store_rounds
                             and self.backend_name == "host"
                             and sp.backend.async_rounds == 0
@@ -909,10 +916,23 @@ class HostStreamDriver:
 
     # -- checkpoint state --------------------------------------------------
 
+    def _shared_leaves(self) -> list:
+        """The ``shared`` entry of the checkpoint (meta tensors while the
+        state is deferred), the PRNG slot last."""
+        sh = self.shared if self.shared is not None else shared_template(
+            self.sess.pair, self.sess.fcfg)
+        return [sh.g, sh.g_opt, sh.server_d, sh.step,
+                sh.generator.get_state()]
+
+    def _load_shared(self, tree: dict, generator: torch.Generator) -> None:
+        assert self.shared is None, "load_arrays builds a deferred state"
+        g, g_opt, server_d, step = _tree_to(tree["shared"][:-1],
+                                            self.sess.device)
+        self.shared = CohortShared(g, g_opt, server_d, step, generator)
+
     def arrays(self) -> dict:
         pair, fcfg = self.sess.pair, self.sess.fcfg
         if self.backend is None:
-            sh = shared_template(pair, fcfg)
             u = fcfg.num_users
             nd, no = d_flat_layout(pair).n, d_opt_flat_layout(pair, fcfg).n
             meta = lambda *shape, dt=torch.float32: torch.empty(
@@ -920,10 +940,9 @@ class HostStreamDriver:
             store = [meta(u, nd), meta(u, no), meta(u, dt=torch.int32),
                      meta(u, nd) if _wants_residual(fcfg) else None]
         else:
-            sh, b = self.shared, self.backend
+            b = self.backend
             store = [b.d_flat, b.opt_flat, b.last_round, b.residual]
-        out = {"shared": [sh.g, sh.g_opt, sh.server_d, sh.step,
-                          sh.generator.get_state()],
+        out = {"shared": self._shared_leaves(),
                "d_flat": store[0], "opt_flat": store[1],
                "last_round": store[2]}
         if store[3] is not None:
@@ -931,13 +950,23 @@ class HostStreamDriver:
         return out
 
     def load_arrays(self, tree: dict, generator: torch.Generator) -> None:
-        assert self.backend is None, "load_arrays builds a deferred state"
-        g, g_opt, server_d, step = _tree_to(tree["shared"][:-1],
-                                            self.sess.device)
-        self.shared = CohortShared(g, g_opt, server_d, step, generator)
+        self._load_shared(tree, generator)
         self.backend = HostStateBackend(
             tree["d_flat"], tree["opt_flat"], tree["last_round"],
             tree.get("residual"), pin=self.sess.device.type == "cuda")
+
+    # -- out-of-tree checkpoint state and lifecycle ------------------------
+
+    def save_aux(self, path: str, step: int) -> None:
+        """Persist state ``arrays()`` does not carry (the multihost
+        workers' store shards); an in-process store has none."""
+
+    def load_aux(self, path: str, step: int) -> None:
+        """Restore what ``save_aux`` wrote."""
+
+    def close(self) -> None:
+        """Release out-of-process resources (the multihost worker fleet);
+        an in-process store holds none."""
 
     def generator_params(self):
         return self.shared.g
@@ -1267,6 +1296,7 @@ class FederationSession:
         if writer:
             os.makedirs(path, exist_ok=True)
             ckpt = save_checkpoint(path, self.round, self._driver.arrays())
+            self._driver.save_aux(path, self.round)
         meta = {
             "format": 1,
             "spec": self.spec.to_dict(),
@@ -1287,15 +1317,25 @@ class FederationSession:
             dist.barrier(group=self.mesh.group)
         return ckpt
 
+    def close(self) -> None:
+        """Release the driver's out-of-process resources (the multihost
+        backend's worker fleet); a no-op for in-process backends.  The
+        session is unusable afterwards."""
+        self._driver.close()
+
     @classmethod
     def restore(cls, path: str, pair, fcfg: DistGANConfig, dataset, *,
-                device=None, mesh=None) -> "FederationSession":
+                device=None, mesh=None,
+                workers: int | None = None) -> "FederationSession":
         """Rebuild a session from ``save(path)``, in this process or a
         fresh one, on ``device`` (CUDA unless ``"cpu"``).  ``pair`` /
         ``fcfg`` / ``dataset`` must match the saving run; the spec comes
         from the checkpoint.  The state is built once, from the restored
         arrays (no fresh initial state is drawn first).  An ``spmd``
         session resumes with ``mesh=``: every rank reads the checkpoint.
+        ``workers`` overrides a multihost checkpoint's worker count: each
+        worker loads the overlapping slices of the saved shard files, so a
+        run saved at W workers resumes bitwise at any other W'.
 
         A checkpoint the JAX reference wrote restores too: every array but
         the PRNG key, the numpy streams, the counts and the round carry
@@ -1310,11 +1350,29 @@ class FederationSession:
                 f"checkpoint was saved with num_users={meta['num_users']}, "
                 f"got fcfg.num_users={fcfg.num_users}")
         spec = FederationSpec.from_dict(meta["spec"])
+        if workers is not None:
+            if spec.backend.kind != "multihost":
+                raise ValueError(
+                    f"workers= re-partitions a multihost checkpoint; this "
+                    f"one was saved with backend {spec.backend.kind!r}")
+            spec = dataclasses.replace(
+                spec, backend=dataclasses.replace(spec.backend,
+                                                  workers=workers))
         sess = cls(pair, fcfg, dataset, spec, device=device, mesh=mesh,
                    _defer_state=True)
+        try:
+            sess._load(path, meta)
+        except BaseException:
+            sess.close()
+            raise
+        return sess
+
+    def _load(self, path: str, meta: dict) -> None:
+        """``restore``'s body: the arrays, the driver's own state, the
+        round, the streams and the counts from ``path``."""
         step = meta["round"]
         assert latest_step(path) == step, (latest_step(path), step)
-        template = sess._driver.arrays()
+        template = self._driver.arrays()
         targets = tree_flatten(template)
         stored = read_leaves(path, step)
         key = len(targets) - 1                     # the PRNG slot is last
@@ -1324,18 +1382,18 @@ class FederationSession:
                 stored[key].shape == targets[key].shape:
             gen.set_state(stored[key])
         else:                                      # a jax key
-            gen.manual_seed(resume_generator_seed(spec.seed, step))
+            gen.manual_seed(resume_generator_seed(self.spec.seed, step))
         # on the CPU: each driver moves what lives on the device
         arrays = [s.to(dtype=t.dtype) for s, t in zip(stored[:key],
                                                       targets[:key])]
-        sess._driver.load_arrays(
+        self._driver.load_arrays(
             tree_unflatten(template, arrays + [stored[key]]), gen)
-        sess.round = step
-        sess.data_rng.bit_generator.state = meta["data_rng"]
-        sess.sched_rng.bit_generator.state = meta["sched_rng"]
+        self._driver.load_aux(path, step)
+        self.round = step
+        self.data_rng.bit_generator.state = meta["data_rng"]
+        self.sched_rng.bit_generator.state = meta["sched_rng"]
         if meta["part_counts"] is not None:
-            sess._part_counts = np.asarray(meta["part_counts"], np.float64)
-        return sess
+            self._part_counts = np.asarray(meta["part_counts"], np.float64)
 
 
 def resume_generator_seed(seed: int, round_: int) -> int:

@@ -9,10 +9,9 @@ construction and the whole spec round-trips through ``to_dict`` /
 describes a run of either package.
 
 The registries hold only what the port has.  A manifest that names a
-part of the reference not yet ported (the multihost backend, the serve
-and decode sections) raises ``NotImplementedError`` naming the ROADMAP
-item that brings it; an unknown name raises ``KeyError`` as in the
-reference.
+part of the reference not yet ported (the serve and decode sections)
+raises ``NotImplementedError`` naming the ROADMAP item that brings it; an
+unknown name raises ``KeyError`` as in the reference.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ _ENGINE_KINDS = ("fused", "per_step")
 
 # reference features this slice does not run yet -> the ROADMAP item
 _LATER = {
-    "multihost": "the multihost backend (ROADMAP queue A item 10)",
     "serve": "the serve section (ROADMAP queue A item 11)",
     "decode": "the decode section (ROADMAP queue A item 12)",
 }
@@ -37,7 +35,7 @@ def _not_ported(name: str):
     return NotImplementedError(
         f"{_LATER[name]} is not ported to repro_torch yet; the port runs "
         f"federation (full or cohort-virtualized participation) on the "
-        f"device, host and spmd backends")
+        f"device, host, spmd and multihost backends")
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +58,7 @@ def _load_builtins() -> None:
         import repro_torch.core.federated   # noqa: F401  (combiners etc.)
         import repro_torch.core.session     # noqa: F401  (backends)
         import repro_torch.core.spmd        # noqa: F401  (spmd backend)
+        import repro_torch.multihost.backend  # noqa: F401  (multihost)
     except BaseException:
         _builtins_state = "unloaded"
         raise
@@ -237,9 +236,14 @@ class BackendSpec:
     (stage round k+1's data under round k's compute) and
     ``materialize_state=False`` (skip the final (U, N) unpack onto the
     device); ``spmd`` streams the same way with the cohort mapped onto the
-    users axis of a mesh, one member per rank (``core/spmd.py``).  The
-    multihost fields keep the reference's names and checks so manifests
-    stay interchangeable."""
+    users axis of a mesh, one member per rank (``core/spmd.py``).
+
+    ``multihost`` partitions the host store across ``workers`` local
+    worker processes reached over RPC (``repro_torch.multihost``);
+    ``workers`` is required for it and illegal elsewhere.
+    ``rpc_timeout_s`` / ``rpc_retries`` bound every RPC: a dead worker
+    fails the round with a named error inside ``(rpc_retries + 1) *
+    rpc_timeout_s`` instead of hanging."""
 
     kind: str = "device"
     async_rounds: int = 0
@@ -250,11 +254,17 @@ class BackendSpec:
     rpc_retries: int = 2
 
     def __post_init__(self):
-        backend = resolve_backend(self.kind)  # raises on unknown/unported
+        backend = resolve_backend(self.kind)  # raises on unknown
         if not isinstance(self.async_rounds, int) or self.async_rounds < 0:
             raise ValueError(f"async_rounds must be an int >= 0, got "
                              f"{self.async_rounds!r}")
-        if self.workers is not None:
+        if self.kind == "multihost":
+            if not isinstance(self.workers, int) or self.workers < 1:
+                raise ValueError(
+                    f"BackendSpec(kind='multihost') partitions the (U, N) "
+                    f"store across worker processes — set workers to an "
+                    f"int >= 1, got {self.workers!r}")
+        elif self.workers is not None:
             raise ValueError(
                 f"workers partitions the multihost store; the "
                 f"{self.kind!r} backend runs in one process")
@@ -453,6 +463,11 @@ class FederationSpec:
                 f"'full' participation needs cohort_size == num_users "
                 f"(got C={c}, U={num_users}); pick a partial scheduler "
                 f"for C < U")
+        if (self.backend.kind == "multihost"
+                and self.backend.workers > num_users):
+            raise ValueError(
+                f"cannot partition num_users={num_users} over "
+                f"workers={self.backend.workers} (empty shard)")
 
     # -- serialization -----------------------------------------------------
 

@@ -61,7 +61,7 @@ from repro_torch.core.federated import (CohortStore, codec_transport,
                                         select_delta_flat)
 from repro_torch.core.session import HostStreamDriver
 from repro_torch.core.spec import register_backend, resolve_approach
-from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import AXIS, UsersMesh
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import apply_updates
@@ -439,28 +439,6 @@ def _check_axis(mesh: UsersMesh, n: int, what: str) -> None:
 # Cohort engines: one cohort member per rank
 # ---------------------------------------------------------------------------
 
-_INV_127 = float(np.float32(1.0) / np.float32(127.0))
-
-
-def stage_quantize(rows: torch.Tensor):
-    """The ``stage_rows`` int8 row transport of the cohort rounds, as the
-    reference's jitted round computes its inline formula (``spmd.py:327-330,
-    418-423, 464-467``): ``scale = max|x| * f32(1/127)`` (XLA turns the
-    division by 127 into that product: 1 ULP off ``max|x| / 127`` on some
-    rows, so B2, which divides, is not used here), ``inv = where(scale >
-    0, 1 / scale, 0)``, ``q = clip(round(x * inv), -127, 127)``, with
-    subnormals flushed and a NaN ``x * inv`` coded 0 as in B2's plain
-    version.  (R, N) f32 -> (q int8 (R, N), scale (R,)); ``q * scale``
-    (``kernels.ref.dequantize_rows_ref``) restores the rows."""
-    x = kref.flush_subnormals(rows.to(torch.float32))
-    absmax = torch.amax(torch.abs(x), dim=1)
-    scale = kref.flush_subnormals(absmax * _INV_127)
-    inv = torch.where(scale > 0, 1.0 / scale, 0.0)
-    y = kref.flush_subnormals(x * inv[:, None])
-    y = torch.where(torch.isnan(y), 0.0, y)
-    return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8), scale
-
-
 def _cohort_rank_state(carry: CohortState, d_row, o_row, d_layout,
                        o_layout) -> DistGANState:
     return DistGANState(carry.g, carry.g_opt,
@@ -486,7 +464,7 @@ def make_spmd_cohort_round(pair, fcfg: DistGANConfig, approach: str,
     o_layout = d_opt_flat_layout(pair, fcfg)
     ef = _wants_residual(fcfg)
     stage_q = fcfg.stage_rows and fcfg.codec in _INT8_CODECS
-    quantize, dequantize = stage_quantize, kref.dequantize_rows_ref
+    quantize, dequantize = kops.quantize_rows, kops.dequantize_rows
     me = mesh.rank
 
     def round_fn(carry: CohortState, real, idx, idx_host, noise):
@@ -562,7 +540,7 @@ def make_spmd_fused_store_round(pair, fcfg: DistGANConfig, approach: str,
     o_layout = d_opt_flat_layout(pair, fcfg)
     ef = _wants_residual(fcfg)
     stage_q = fcfg.stage_rows and fcfg.codec in _INT8_CODECS
-    quantize, dequantize = stage_quantize, kref.dequantize_rows_ref
+    quantize, dequantize = kops.quantize_rows, kops.dequantize_rows
     me = mesh.rank
 
     def round_fn(carry: CohortState, real, idx, idx_host, noise):

@@ -4,8 +4,9 @@
 //   (_row_block_absmax_kernel, _quantize_kernel, _quantize_sr_kernel) and
 //   ::dequantize_rows_pallas (_dequantize_kernel).
 //
-// What it computes, per row r of x (R, N) f32 (bitwise the eager oracle):
-//   scale[r] = max|x[r]| / 127                 (IEEE division)
+// What it computes, per row r of x (R, N) f32 (bitwise the reference's
+// codec under jit, whose XLA turns the division by 127 into a product):
+//   scale[r] = max|x[r]| * f32(1/127)          (one rounded product)
 //   inv      = scale > 0 ? 1 / scale : 0       (IEEE division)
 //   y        = x * inv
 //   q        = clip(rint(y), -127, 127)        (half-to-even, like jnp.round)
@@ -36,17 +37,18 @@
 // through distributed shared memory; after one cluster barrier each CTA
 // takes the max of the maxima from its own shared memory, exact and
 // order-free because non-negative floats order like their bit patterns.
-// Every CTA then computes scale and inv itself (two divisions), the CTA of
-// rank 0 stores scale[r], and every CTA codes its slice from shared memory
-// into 4-byte words of codes.  The stochastic-rounding hash keys on the row
-// and the GLOBAL column; it takes most of the coding time (nine integer
-// operations an element, on the SM's half-rate integer pipe), so the CTA
-// computes the hashes of as many elements as the rest of its shared memory
-// holds while its copies land, and the rest as it codes.  (Hashing between
-// the arrive and the wait of the cluster barrier instead put the hashing of
-// the slowest CTA on the critical path: slower, see PERF.md.)  The seed
-// is read through a device pointer when one is given, so a captured CUDA
-// graph reads each replay's seed, or else taken by value.
+// Every CTA then computes scale and inv itself (a product and a division),
+// the CTA of rank 0 stores scale[r], and every CTA codes its slice from
+// shared memory into 4-byte words of codes.  The stochastic-rounding hash
+// keys on the row and the GLOBAL column; it takes most of the coding time
+// (nine integer operations an element, on the SM's half-rate integer
+// pipe), so the CTA computes the hashes of as many elements as the rest of
+// its shared memory holds while its copies land, and the rest as it codes.
+// (Hashing between the arrive and the wait of the cluster barrier instead
+// put the hashing of the slowest CTA on the critical path: slower, see
+// PERF.md.)  The seed is read through a device pointer when one is given,
+// so a captured CUDA graph reads each replay's seed, or else taken by
+// value.
 // A slice over the CTA's shared memory is read from device memory twice
 // instead.
 //
@@ -91,6 +93,7 @@ __device__ __forceinline__ uint32_t mag_bits(float v) {
 // take the slower conversion unit.
 constexpr float kRound = 12582912.0f;
 constexpr float kMinNormal = 1.17549435e-38f;   // 2^-126
+constexpr float kInv127 = 0.007874015718698502f;  // f32(1 / 127), exact
 
 // v, or a zero of its sign where v is subnormal (NaN and inf pass)
 __device__ __forceinline__ float flush_subnormal(float v) {
@@ -182,7 +185,7 @@ quantize_cluster(const float* __restrict__ x, long long n,
   ROW_CLUSTER_STAMP(2);                         // pushed, barrier passed
   m = 0u;
   for (int r = 0; r < kCluster; ++r) m = max(m, cta_max[r]);
-  const float scale = flush_subnormal(__fdiv_rn(__uint_as_float(m), 127.0f));
+  const float scale = flush_subnormal(__fmul_rn(__uint_as_float(m), kInv127));
   const float inv = scale > 0.0f ? __fdiv_rn(1.0f, scale) : 0.0f;
   if (rank == 0 && tid == 0) scale_out[row] = scale;
   ROW_CLUSTER_STAMP(3);                         // scale and inv

@@ -74,8 +74,9 @@ def _seed_args(seed, device: torch.device) -> tuple[int | None, int]:
 
 
 def quantize_rows(x: torch.Tensor, *, stochastic: bool = False, seed=None):
-    """Per-row absmax int8: ``scale = max|x[r]| / 127``,
-    ``q = clip(round(x / scale))``; stochastic rounding is keyed by
+    """Per-row absmax int8: ``scale = max|x[r]| * f32(1/127)`` (the
+    reference's codec under jit), ``q = clip(round(x * (1 / scale)))``;
+    stochastic rounding is keyed by
     ``seed`` (required iff ``stochastic``): an int32 value, or a
     one-element int32/uint32 tensor on ``x``'s device that the kernel
     reads."""

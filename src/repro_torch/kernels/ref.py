@@ -8,6 +8,8 @@ operation:
 
 * divisions are tensor-by-tensor (a division by a Python scalar may be
   lowered to a multiply by its reciprocal, which rounds differently);
+* the codec's scale is the product ``max|x| * f32(1/127)`` that the
+  reference's jitted programs compute, not its eager quotient;
 * ``torch.round`` is half-to-even, like ``jnp.round``;
 * the stochastic-rounding hash runs in int64 with ``& 0xFFFFFFFF`` after
   every step, which reproduces uint32 wraparound on any device.
@@ -21,6 +23,7 @@ import torch
 
 _M32 = 0xFFFFFFFF
 MIN_NORMAL = 2.0 ** -126           # f32's least normal magnitude
+INV_127 = 0.007874015718698502     # f32(1 / 127), exactly
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -53,7 +56,10 @@ def hash_u01(row: torch.Tensor, col: torch.Tensor, seed) -> torch.Tensor:
 def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
                       seed=None):
     """(R, N) f32 -> (q int8 (R, N), scale f32 (R,)):
-    ``scale = max|x[r]| / 127``, ``inv = where(scale > 0, 1/scale, 0)``,
+    ``scale = max|x[r]| * f32(1/127)``, one rounded product, as the
+    reference's codec computes it under jit (XLA turns its division by 127
+    into that product; called eagerly it divides, 1 ULP off on some rows),
+    ``inv = where(scale > 0, 1/scale, 0)``,
     ``q = clip(round(x * inv), -127, 127)`` (or stochastic rounding keyed
     by the counter hash on ``seed``, an int or a one-element tensor).
 
@@ -64,7 +70,7 @@ def quantize_rows_ref(x: torch.Tensor, *, stochastic: bool = False,
     0, as XLA converts NaN to an integer."""
     x = flush_subnormals(x.to(torch.float32))
     absmax = torch.amax(torch.abs(x), dim=1)
-    scale = flush_subnormals(absmax / torch.full_like(absmax, 127.0))
+    scale = flush_subnormals(absmax * torch.full_like(absmax, INV_127))
     inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
                       torch.zeros_like(scale))
     y = flush_subnormals(x * inv[:, None])

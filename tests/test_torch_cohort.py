@@ -394,7 +394,7 @@ def test_run_distgan_cohort_kwargs_and_refusals():
                                 "topk_int8").run(8))
     np.testing.assert_array_equal(shim.extra["schedule"][:3],
                                   [[0, 1], [2, 3], [4, 5]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="workers"):   # as the reference
         run_distgan(pair, tapp.DistGANConfig(num_users=6), _dataset(6),
                     "approach1", state_backend="multihost", **kw)
     with pytest.raises(ValueError, match="mesh"):

@@ -28,7 +28,10 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.core.losses, repro_torch.optim.schedule, "
             "repro_torch.examples.distgan_mnist, repro_torch.core.spmd, "
             "repro_torch.launch.mesh, repro_torch.core.collectives, "
-            "repro_torch.examples.distgan_spmd_multiuser; "
+            "repro_torch.examples.distgan_spmd_multiuser, "
+            "repro_torch.multihost.wire, repro_torch.multihost.rpc, "
+            "repro_torch.multihost.worker, repro_torch.multihost.launch, "
+            "repro_torch.multihost.backend; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -36,6 +39,26 @@ def test_import_leaves_jax_out_of_the_process():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_multihost_worker_imports_neither_torch_nor_jax():
+    """The multihost worker process (``python -m
+    repro_torch.multihost.worker``) runs on numpy and the port's codec: the
+    package re-exports are lazy, so a fleet starts without torch (or
+    jax)."""
+    code = ("import runpy, sys; sys.argv = ['worker', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.multihost.worker',"
+            " run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [

@@ -1,10 +1,14 @@
 """The port's kernels held to the JAX reference: the plain PyTorch versions
-(what a CPU tensor runs) equal the reference's eager oracles and its
+(what a CPU tensor runs) equal the reference's oracles and its
 interpret-mode Pallas kernels BITWISE — top-k masks including ties and
 degenerate rows, int8 codes, scales and dequantized rows in both rounding
-modes.  The Hopper kernels themselves are held bitwise to the plain
-versions in tests/test_torch_cuda.py."""
+modes.  The int8 codec is held to the reference as its callers reach it,
+under jit (``repro.kernels.ops`` and the oracle jitted): there XLA computes
+the scale as ``max|x| * f32(1/127)``, where the eager codec divides.  The
+Hopper kernels themselves are held bitwise to the plain versions in
+tests/test_torch_cuda.py."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -165,24 +169,57 @@ def test_hash_matches_reference_uint32_stream():
         np.testing.assert_array_equal(got, want)
 
 
+_jit_quantize_ref = jax.jit(jref.quantize_rows_ref,
+                            static_argnames=("stochastic",))
+_jit_dequantize_ref = jax.jit(jref.dequantize_rows_ref)
+
+
+def _jitted_codecs(x, stochastic, seed):
+    """``(q, scale)`` of the reference's codec as its callers reach it,
+    under jit: the Pallas kernels in interpret mode (``repro.kernels.ops``)
+    and the oracle."""
+    jseed = jnp.int32(seed) if stochastic else None
+    return [jops.quantize_rows(jnp.asarray(x), stochastic=stochastic,
+                               seed=jseed),
+            _jit_quantize_ref(jnp.asarray(x), stochastic=stochastic,
+                              seed=jseed)]
+
+
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("shape", [(4, 1000), (3, BLOCK + 17)])
 def test_quantize_plain_matches_eager_reference_bitwise(stochastic, shape):
+    """Codes, scales and dequantized rows bitwise the reference's jitted
+    codec (its kernels and its oracle; the name predates the move from
+    the eager codec, see ``test_reference_codec_scale_differs_eager_and_
+    under_jit``)."""
     x = _codec_rows(*shape, seed=shape[1])
     seed = 123 if stochastic else None
-    jseed = jnp.int32(123) if stochastic else None
     q, s = ops.quantize_rows(torch.from_numpy(x), stochastic=stochastic,
                              seed=seed)
-    for qr, sr in (jref.quantize_rows_ref(jnp.asarray(x),
-                                          stochastic=stochastic, seed=jseed),
-                   quantize_rows_pallas(jnp.asarray(x),
-                                        stochastic=stochastic, seed=jseed)):
+    for qr, sr in _jitted_codecs(x, stochastic, seed):
         np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
         np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
-        want = np.asarray(jref.dequantize_rows_ref(qr, sr))
+        want = np.asarray(jops.dequantize_rows(qr, sr))
         np.testing.assert_array_equal(ops.dequantize_rows(q, s).numpy(), want)
         np.testing.assert_array_equal(
-            want, np.asarray(dequantize_rows_pallas(qr, sr)))
+            want, np.asarray(_jit_dequantize_ref(qr, sr)))
+
+
+def test_reference_codec_scale_differs_eager_and_under_jit():
+    """Why B2 is held to the reference's codec under jit: called eagerly it
+    divides (``max|x| / 127``), under jit XLA multiplies by ``f32(1/127)``,
+    and the two scales differ by an ULP on some rows (4 of these 64).  The port computes the product, as every training path
+    of the reference does."""
+    x = np.random.default_rng(0).normal(size=(64, 300)).astype(np.float32)
+    eager = np.asarray(quantize_rows_pallas(jnp.asarray(x))[1])
+    jitted = np.asarray(jops.quantize_rows(jnp.asarray(x))[1])
+    absmax = np.abs(x).max(axis=1)
+    np.testing.assert_array_equal(eager, absmax / np.float32(127))
+    np.testing.assert_array_equal(jitted,
+                                  absmax * (np.float32(1) / np.float32(127)))
+    assert (eager != jitted).sum() == 4
+    np.testing.assert_array_equal(
+        ops.quantize_rows(torch.from_numpy(x))[1].numpy(), jitted)
 
 
 def test_cpu_tensors_never_reach_the_kernels():
@@ -230,24 +267,21 @@ def _edge_rows():
 def test_quantize_plain_flushes_subnormals_like_reference(stochastic):
     """Rows whose absmax is below 127 * 2**-126 (scale 0, every code 0),
     subnormal entries under a normal scale (coded 0, also under stochastic
-    rounding), NaN and inf rows (codes 0): bitwise the reference's eager
-    codec and its interpret-mode kernel, dequantized rows too."""
+    rounding), NaN and inf rows (codes 0): bitwise the reference's codec
+    under jit, its interpret-mode kernels and its oracle, dequantized rows
+    too."""
     x = _edge_rows()
     seed = 77 if stochastic else None
-    jseed = jnp.int32(77) if stochastic else None
     q, s = ops.quantize_rows(torch.from_numpy(x), stochastic=stochastic,
                              seed=seed)
     assert float(s[0]) == 0.0 and float(s[1]) == 0.0
     assert not q[:2].any() and not q[3].any()
-    for qr, sr in (jref.quantize_rows_ref(jnp.asarray(x),
-                                          stochastic=stochastic, seed=jseed),
-                   quantize_rows_pallas(jnp.asarray(x),
-                                        stochastic=stochastic, seed=jseed)):
+    for qr, sr in _jitted_codecs(x, stochastic, seed):
         np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
         np.testing.assert_array_equal(s.numpy(), np.asarray(sr))
         np.testing.assert_array_equal(
             ops.dequantize_rows(q, s).numpy(),
-            np.asarray(jref.dequantize_rows_ref(qr, sr)))
+            np.asarray(jops.dequantize_rows(qr, sr)))
 
 
 def test_dequantize_plain_takes_a_subnormal_scale_as_zero():
@@ -256,8 +290,8 @@ def test_dequantize_plain_takes_a_subnormal_scale_as_zero():
     q = np.array([[100, -3, 0, 127], [1, -1, 127, -127]], np.int8)
     scale = np.array([3e-39, 2.0 ** -126], np.float32)
     got = ops.dequantize_rows(torch.from_numpy(q), torch.from_numpy(scale))
-    want = np.asarray(jref.dequantize_rows_ref(jnp.asarray(q),
-                                               jnp.asarray(scale)))
+    want = np.asarray(jops.dequantize_rows(jnp.asarray(q),
+                                           jnp.asarray(scale)))
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
     np.testing.assert_array_equal(

@@ -58,7 +58,7 @@ from repro_torch.core.protocol import run_distgan
 from repro_torch.core.session import FederationSession
 from repro_torch.core.spec import BackendSpec, FederationSpec
 from repro_torch.data import dirichlet_partition
-from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import UsersMesh, spawn_users
 from repro_torch.models.common import tree_leaves
 from test_torch_spmd import (JPAIR, SMALL, SRC, B, _bitwise, _np_tree,
@@ -546,10 +546,12 @@ def _edge_rows(n=64):
 
 
 def test_stage_rows_transport_is_the_references_formula_bitwise():
-    """The ``stage_rows`` row transport of the cohort rounds
-    (``spmd.stage_quantize``, then ``q * scale``) against the reference's
-    inline jnp formula (``spmd.py:327-336``) under jit: codes, scales and
-    the dequantized rows bitwise."""
+    """The ``stage_rows`` row transport of the cohort rounds (B2's wrappers
+    ``kernels.ops.quantize_rows`` then ``dequantize_rows``, their plain
+    versions on the CPU) against the reference's inline jnp formula
+    (``spmd.py:327-336``) under jit: codes, scales and the dequantized rows
+    bitwise, row 4's scale too, which the reference's eager quotient puts
+    1 ULP off."""
     rows = _edge_rows()
 
     @jax.jit
@@ -560,21 +562,18 @@ def test_stage_rows_transport_is_the_references_formula_bitwise():
         return q, scale, q.astype(jnp.float32) * scale[:, None]
 
     wq, ws, wd = (np.asarray(t) for t in ref(rows))
-    q, s = spmd.stage_quantize(torch.from_numpy(rows))
+    q, s = kops.quantize_rows(torch.from_numpy(rows))
     _bitwise(q.numpy(), wq)
     _bitwise(s.numpy(), ws)
-    _bitwise(kref.dequantize_rows_ref(q, s).numpy(), wd)
-    # B2 divides by 127 where the jitted formula multiplies by f32(1/127):
-    # row 4's scale is 1 ULP apart, which is why the transport is a copy
-    _, b2_scale = kref.quantize_rows_ref(torch.from_numpy(rows))
-    assert b2_scale[4] != s[4] and abs(int(b2_scale.numpy().view(np.int32)[4])
-                                       - int(ws.view(np.int32)[4])) == 1
+    _bitwise(kops.dequantize_rows(q, s).numpy(), wd)
+    quotient = np.abs(rows[4]).max() / np.float32(127.0)
+    assert abs(int(quotient.view(np.int32)) - int(ws.view(np.int32)[4])) == 1
 
 
 def test_spmd_backend_refusals():
     """``spmd`` resolves; it needs a mesh (``run_distgan`` cannot pass
     one and raises as the reference does); the sharded store needs U %
-    C == 0; ``multihost`` still names its ROADMAP item."""
+    C == 0; ``multihost`` needs its worker count."""
     pair = make_mlp_pair(MLPGanConfig(**SMALL))
     data, labels = _data()
     ds = dirichlet_partition(data, labels, U, 0.5)
@@ -592,5 +591,5 @@ def test_spmd_backend_refusals():
         spmd.make_spmd_fused_store_engine(
             pair, dataclasses.replace(fcfg, num_users=4), mesh, "approach1",
             3)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="workers"):
         BackendSpec("multihost")

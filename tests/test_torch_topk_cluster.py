@@ -84,8 +84,8 @@ def topk_cluster_emulation(x, frac, cl):
 
 def quantize_cluster_emulation(x, cl, *, stochastic=False, seed=None):
     """(R, N) f32 -> (q int8, scale f32), the kernel's arithmetic per slice:
-    slice maxima of the patterns, their max, ``scale = absmax / 127`` (0
-    where subnormal) and ``inv`` by IEEE division, each slice coded on its
+    slice maxima of the patterns, their max, ``scale = absmax * f32(1/127)``
+    (0 where subnormal) and ``inv`` by IEEE division, each slice coded on its
     own from ``y = x * inv``, 0 where x or y is subnormal, zero or NaN."""
     rows, n = x.shape
     q = torch.empty((rows, n), dtype=torch.int8)
@@ -96,7 +96,7 @@ def quantize_cluster_emulation(x, cl, *, stochastic=False, seed=None):
                   for lo, hi in parts]
         absmax = torch.tensor([max(maxima)], dtype=torch.int32).view(
             torch.float32)
-        s = absmax / torch.full_like(absmax, 127.0)
+        s = absmax * torch.full_like(absmax, ref.INV_127)
         s = torch.where(s.abs() < ref.MIN_NORMAL, s * 0, s)
         inv = torch.where(s > 0, torch.ones_like(s) / s, torch.zeros_like(s))
         scale[r] = s[0]
@@ -166,8 +166,8 @@ def test_quantize_emulation_matches_reference_bitwise(n, stochastic):
     x[2] = 0.0                                 # scale 0: every code 0
     seed = 2**31 - 2 if stochastic else None
     jseed = jnp.int32(seed) if stochastic else None
-    qr, sr = jref.quantize_rows_ref(jnp.asarray(x), stochastic=stochastic,
-                                    seed=jseed)
+    qr, sr = jops.quantize_rows(jnp.asarray(x), stochastic=stochastic,
+                                seed=jseed)
     q, s = quantize_cluster_emulation(torch.from_numpy(x), CLUSTER,
                                       stochastic=stochastic, seed=seed)
     np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
@@ -191,8 +191,8 @@ def test_quantize_emulation_flushes_like_reference(stochastic):
     x[5] = np.abs(x[5]) * np.float32(2.0 ** -126) + tiny
     seed = 77 if stochastic else None
     jseed = jnp.int32(77) if stochastic else None
-    qr, sr = jref.quantize_rows_ref(jnp.asarray(x), stochastic=stochastic,
-                                    seed=jseed)
+    qr, sr = jops.quantize_rows(jnp.asarray(x), stochastic=stochastic,
+                                seed=jseed)
     q, s = quantize_cluster_emulation(torch.from_numpy(x), CLUSTER,
                                       stochastic=stochastic, seed=seed)
     np.testing.assert_array_equal(q.numpy(), np.asarray(qr))
