@@ -161,7 +161,37 @@ it goes wrong:
    the same weights on the card and on the CPU must agree within
    ``CONV_LOSS_RTOL`` (losses) and ``CONV_LEAF_REL`` / ``CONV_LEAF_LR_STEPS``
    (every state leaf);
-13. the result: a ``kernels`` JSON line, the card line, and as the last
+13. serving (``repro_torch.serve``; no hand-written kernel on the path:
+   B1-B5's counts, zeroed before it, must stay 0) — a GenerationService
+   over an approach-1 session of the paper MLP trained 16 rounds on the
+   card, ``ServeSpec(max_batch=128, flush_ms=0.5)`` (buckets 1-128, one CUDA
+   graph each): SERVE_REQUESTS seeded requests (sizes 1-300, SERVE_USERS
+   tenants) through the background pump, each served == ``replay``
+   bitwise; one slot bitwise equal in every bucket among random
+   batch-mates; graphs <= the ladder; per bucket the event ms of a
+   dispatch and samples/s; the pump's flushes and padded slots; after
+   ``session.run(8)`` a batch still sees the old G, after ``refresh`` the
+   new one (refresh ms); ``sample_filtered`` keeps the top-n under the
+   user's own D row; the session saved, restored in a fresh process
+   (``chip_smoke.py --serve-replay``) and a request's bytes reproduced
+   there, solo and among other requests.  The DCGAN pair at 64 x 64 x 3: a
+   slot and a D score bitwise equal in every bucket, among batch-mates;
+   per-bucket dispatch ms;
+14. decode (``serve/decode.py``, also no kernel launched) — tinyllama-1.1b
+   and mamba2-780m at full width and depth in bf16 (the weights of phase
+   10), ``DecodeSpec(slots=8, max_seq=256)``, at temperature 0 and 0.8:
+   DECODE_REQUESTS requests (prompts of 16-128 tokens, 32 new tokens)
+   served in submission order and again in reverse order (equal bytes),
+   DECODE_REPLAYS of them equal to ``replay``; the pool == ``cache_nbytes``
+   == the allocation; graphs <= len(buckets) + 1; ms per decode step,
+   tokens/s, mean occupancy, prefill(+step) ms per bucket.  Every greedy
+   request's tokens equal to a plain ``decode_step`` loop's at the pool's
+   width and max_seq (no graph, no engine).  Reported: the greedy engine's
+   token agreement with per-request ``greedy_decode`` (width 1), and
+   request 0's first-token logits in bf16 at width 1 and 8 and from the
+   plain forward, each against the f32 weights' (max |diff|, relative L2),
+   and the f32 top-two gap;
+15. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -225,6 +255,17 @@ CONV_ROUNDS = 32
 CONV_LOSS_RTOL, CONV_LEAF_REL, CONV_LEAF_LR_STEPS = 1e-4, 2e-2, 4
 # checkpoints are written inside the checkout, in a directory git ignores
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# Serving: the paper_serve bench's spec, a seeded request mix through the
+# pump (sizes 1-300 from SERVE_USERS tenants), the DCGAN pair's ladder
+SERVE = dict(max_batch=128, flush_ms=0.5)
+SERVE_REQUESTS, SERVE_USERS, SERVE_MAX_N = 240, MAIN_ROWS, 300
+# Decode: both LMs at full width and depth in bf16, a slot pool of 8 x 256
+DECODE_ARCHS = ("tinyllama-1.1b", "mamba2-780m")
+DECODE = dict(slots=8, max_seq=256)
+DECODE_REQUESTS, DECODE_PROMPTS, DECODE_NEW = 16, (16, 128), 32
+DECODE_TEMPS = (0.0, 0.8)
+DECODE_REPLAYS = (0, 15)             # requests replayed (served == replay)
+DECODE_GREEDY = 4                     # requests held to greedy_decode
 
 
 def _fail(msg: str) -> int:
@@ -707,7 +748,8 @@ def _lm_prefill(torch, dev):
     through ``loss_fn`` with its kernel on, launch counts zeroed just before
     and read just after; then the first request against the plain path.
     Prints a line per request and per model; returns (per-request lines,
-    launch totals, the ms of each f32 forward with its kernel on)."""
+    launch totals, the ms of each f32 forward with its kernel on, each
+    model's bf16 weights for the decode phase)."""
     import math
 
     import numpy as np
@@ -716,7 +758,7 @@ def _lm_prefill(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    requests, models, totals, f32_ms = [], [], {}, {}
+    requests, models, totals, f32_ms, weights = [], [], {}, {}, {}
     for arch, flag, kname in (("tinyllama-1.1b", "use_flash",
                                "flash_attention"),
                               ("mamba2-780m", "use_ssm_kernel", "ssd_scan")):
@@ -781,9 +823,9 @@ def _lm_prefill(torch, dev):
         for line in requests[-len(LM_SEQS):] + models[-1:]:
             print("[lm] " + json.dumps(line), flush=True)
         _check_lm_vs_plain(models[-1])
-        del params
+        weights[arch] = params
         torch.cuda.empty_cache()
-    return requests, totals, f32_ms
+    return requests, totals, f32_ms, weights
 
 
 def _route_counts(ops, kname: str) -> dict:
@@ -908,7 +950,7 @@ def _session(pair, dataset, num_users, codec, stochastic, device,
              batch=64, rpj=16, eval_samples=256, approach="approach1",
              scheduler="full", cohort=None, fuse=False, ef=False,
              combiner="max_abs", fcfg=None, backend=None, stage_rows=False,
-             mesh=None):
+             mesh=None, serve=None):
     from repro_torch.core.session import FederationSession
     from repro_torch.core.spec import (BackendSpec, CombineSpec,
                                        CompressionSpec, EngineSpec,
@@ -921,7 +963,7 @@ def _session(pair, dataset, num_users, codec, stochastic, device,
         backend=backend or BackendSpec(),
         combine=CombineSpec(combiner=combiner, compression=CompressionSpec(
             codec=codec, error_feedback=ef, stochastic=stochastic,
-            stage_rows=stage_rows)))
+            stage_rows=stage_rows)), serve=serve)
     return FederationSession(pair, fcfg or _fcfg(num_users), dataset, spec,
                              device=device, mesh=mesh)
 
@@ -2752,6 +2794,425 @@ def _spmd_phase(torch, dev):
     return lines, totals, summary
 
 
+def _no_kernel_launches(ops, what: str) -> None:
+    """Serving and decode run none of the hand-written kernels (B1-B5):
+    their counts, zeroed before the path, must still be 0."""
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"{what}: unexpected kernel launches "
+                             f"{launched}")
+
+
+def _bucket_times(eng, g, seeds, ladder) -> list:
+    """Per bucket: event ms of one request dispatch (the graph replay,
+    parameter copy and input loads; host enqueue included) and the
+    samples/s it gives."""
+    from repro_torch.timing import event_ms
+    out = []
+    for b in ladder:
+        n = list(range(b))
+        ms = event_ms(lambda: eng.sample_bucket(g, b, seeds[:b], n, n),
+                      reps=20, warm=3)
+        out.append({"bucket": b, "dispatch_ms": ms,
+                    "samples_per_s": b / ms * 1e3})
+    return out
+
+
+def _slot_everywhere(torch, eng, g, ladder, seed, rid, off, rng) -> int:
+    """The slot (seed, rid, off) in every bucket, last among random
+    batch-mates: the same bytes as alone in bucket 1.  Returns the cases."""
+    import numpy as np
+    want = eng.sample_bucket(g, 1, [seed], [rid], [off])[0]
+    for b in ladder:
+        mates = rng.integers(0, 2**31, (3, b - 1))
+        got = eng.sample_bucket(
+            g, b, list(mates[0]) + [seed], list(mates[1]) + [rid],
+            list(mates[2] % 500) + [off])[b - 1]
+        if not torch.equal(got, want):
+            raise AssertionError(f"slot ({seed}, {rid}, {off}) differs in "
+                                 f"bucket {b}: max |diff| "
+                                 f"{float((got - want).abs().max())}")
+    return len(ladder)
+
+
+def _serve_replay(ckpt: str, out: str, seed: int, rid: int, n: int) -> int:
+    """``--serve-replay CKPT OUT SEED RID N``: restore the serve checkpoint
+    in this (fresh) process on the card, replay request RID and serve it
+    again among other requests; save both to OUT (.npz)."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import GenerationService
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device (torch.cuda.is_available() is False)")
+    t0 = time.perf_counter()
+    svc = GenerationService.from_checkpoint(ckpt, _paper_pair(),
+                                            _fcfg(MAIN_ROWS))
+    restore_s = time.perf_counter() - t0
+    futs = [svc.submit(u, k, seed=s, request_id=r) for u, k, s, r in
+            [(3, 17, 8, 10**7), (1, n, seed, rid), (0, 90, 1, 10**7 + 1)]]
+    svc.drain()
+    np.savez(out, replay=svc.replay(seed, rid, n), served=futs[1].result())
+    print(json.dumps({"restore_s": restore_s, "serve": str(svc.serve)}))
+    return 0
+
+
+def _serve_phase(torch, dev) -> list:
+    """The GAN serving path: a GenerationService over an approach-1 session
+    of the paper MLP trained on the card, the background pump serving a
+    seeded request mix; then the DCGAN pair's slot and score invariance.
+    Returns the lines to print."""
+    import numpy as np
+
+    from repro_torch.core.gan import ConvGanConfig, make_conv_pair
+    from repro_torch.core.spec import ServeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serve import GenerationService
+    from repro_torch.serve.sampler import SamplerEngine
+
+    lines = []
+    pair = _paper_pair()
+    sess = _session(pair, _digits_dataset(MAIN_ROWS, 28, 400), MAIN_ROWS,
+                    "none", False, dev, eval_samples=0,
+                    serve=ServeSpec(**SERVE))
+    sess.run(16)
+    svc = GenerationService.from_session(sess)
+    eng, ladder = svc.engine, svc.serve.buckets()
+    rng = np.random.default_rng(0)
+    mix = [(int(rng.integers(0, SERVE_USERS)),
+            int(rng.integers(1, SERVE_MAX_N + 1)),
+            int(rng.integers(-2**31, 2**31))) for _ in range(SERVE_REQUESTS)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc.batcher.start()
+    try:
+        futs = [svc.submit(u, n, seed=sd) for u, n, sd in mix]
+        outs = [f.result(timeout=600) for f in futs]
+    finally:
+        svc.batcher.stop()
+    wall = time.perf_counter() - t0
+    for rid, ((_, n, sd), out) in enumerate(zip(mix, outs)):
+        if out.shape != (n, 784) or not np.all(np.abs(out) <= 1.0):
+            raise AssertionError(f"request {rid}: samples {out.shape}")
+        if not np.array_equal(out, svc.replay(sd, rid, n)):
+            raise AssertionError(f"request {rid}: served != replay")
+    g = sess.generator_params()
+    n_slot = _slot_everywhere(torch, eng, g, ladder, 12345, 678, 9, rng)
+    graphs = dict(eng.program_counts)
+    if graphs["request"] > len(ladder):
+        raise AssertionError(f"{graphs} graphs for a ladder of {ladder}")
+    _no_kernel_launches(ops, "serving")
+    total = sum(n for _, n, _ in mix)
+    lines.append({
+        "run": "serve paper MLP (pump)", "requests": len(mix),
+        "samples": total, "wall_s": wall, "samples_per_s": total / wall,
+        "batcher": dict(svc.batcher.stats), "graphs": graphs,
+        "served_eq_replay": len(mix), "slot_bucket_cases": n_slot})
+    lines.append({"run": "serve paper MLP per bucket",
+                  "buckets": _bucket_times(eng, g,
+                                           [7] * ladder[-1], ladder)})
+
+    # hot swap: later batches see the refreshed G, earlier ones the old
+    svc.batcher.start()
+    try:
+        old = svc.submit(0, 40, seed=1, request_id=10**6).result(timeout=60)
+        sess.run(8)
+        stale = svc.submit(0, 40, seed=1, request_id=10**6).result(
+            timeout=60)
+        t = time.perf_counter()
+        gen = svc.refresh()
+        refresh_ms = (time.perf_counter() - t) * 1e3
+        new = svc.submit(0, 40, seed=1, request_id=10**6).result(timeout=60)
+    finally:
+        svc.batcher.stop()
+    fresh = eng.sample_request(sess.generator_params(), 1, 10**6, 40)
+    if not (np.array_equal(stale, old) and np.array_equal(new, fresh)
+            and not np.array_equal(old, new) and gen == 1):
+        raise AssertionError("refresh: a batch saw the wrong generator")
+
+    # the rejection filter keeps the top-n under the user's own D row
+    d3 = svc.user_d_params(3)
+    n, k = 64, svc.serve.oversample
+    filt = svc.sample_filtered(3, n, seed=9, request_id=2 * 10**6)
+    cands = svc.replay(9, 2 * 10**6, k * n)
+    scores = eng.score_bucket(d3, cands)
+    keep = np.sort(np.argsort(-scores, kind="stable")[:n])
+    plain = svc.replay(9, 2 * 10**6 + 1, n)
+    if not (np.array_equal(filt, cands[keep]) and
+            eng.score_bucket(d3, filt).mean() >=
+            eng.score_bucket(d3, plain).mean()):
+        raise AssertionError("sample_filtered: not the own-D top-n")
+
+    # the checkpoint served from a fresh process
+    shutil.rmtree(CKPT_DIR / "serve", ignore_errors=True)
+    sess.save(str(CKPT_DIR / "serve"))
+    out = CKPT_DIR / "serve_replay.npz"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-replay",
+         str(CKPT_DIR / "serve"), str(out), "1", str(10**6), "40"],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError("serve replay process failed:\n" + proc.stdout
+                             + proc.stderr)
+    got = np.load(out)
+    if not (np.array_equal(got["replay"], new)
+            and np.array_equal(got["served"], new)):
+        raise AssertionError("fresh process: other bytes for a request")
+    lines.append({"run": "serve hot swap / filter / fresh process",
+                  "refresh_ms": refresh_ms, "generation": gen,
+                  "filtered": n, "oversample": k,
+                  "fresh_process_s": time.perf_counter() - t,
+                  "fresh_process": json.loads(
+                      proc.stdout.strip().splitlines()[-1])})
+    shutil.rmtree(CKPT_DIR / "serve", ignore_errors=True)
+    out.unlink()
+    del svc, sess
+
+    # the DCGAN pair: a slot and a score in every bucket, among batch-mates
+    pair = make_conv_pair(ConvGanConfig(**CONV_FULL))
+    g, d = pair.init(torch.Generator().manual_seed(0), dev)
+    eng = SamplerEngine(pair, ladder, device=dev)
+    ops.reset_launch_counts()
+    n_slot = _slot_everywhere(torch, eng, g, ladder, 3, 5, 1, rng)
+    x = eng.sample_request(g, 3, 7, ladder[-1])
+    side, ch = CONV_FULL["image_size"], CONV_FULL["channels"]
+    if x.shape != (ladder[-1], side, side, ch) or \
+            not np.all(np.abs(x) <= 1.0):
+        raise AssertionError(f"DCGAN samples {x.shape}")
+    first = eng.score_bucket(d, x[:1])[0]
+    for b in ladder:
+        s = eng.score_bucket(d, x[:b])
+        if s[0] != first or not np.all(np.isfinite(s)):
+            raise AssertionError(f"DCGAN score of row 0 moved at bucket {b}")
+    _no_kernel_launches(ops, "DCGAN serving")
+    lines.append({"run": "serve DCGAN 64x64x3", "slot_bucket_cases": n_slot,
+                  "score_bucket_cases": len(ladder),
+                  "graphs": dict(eng.program_counts),
+                  "buckets": _bucket_times(eng, g,
+                                           [7] * ladder[-1], ladder)})
+    del eng
+    torch.cuda.empty_cache()
+    return lines
+
+
+def _drive(eng, reqs: list, order) -> tuple:
+    """Submit ``reqs`` (prompt, seed) in ``order`` (request id = index),
+    step the engine to empty, time each step; returns ({rid: tokens}, the
+    pure decode steps' ms, {bucket: [prefill + step ms]}, wall s)."""
+    import numpy as np
+    from repro_torch.serve.decode import DecodeRequest
+    futs = {i: eng.submit(DecodeRequest(
+        user_id=i % 4, prompt=reqs[i][0], max_new=DECODE_NEW,
+        seed=reqs[i][1]), request_id=i) for i in order}
+    steps, prefills = [], {}
+    t_all = time.perf_counter()
+    while eng.pending() or eng.occupied():
+        before = dict(eng.prefill_buckets)
+        t = time.perf_counter()
+        eng.step(force_admit=True)
+        ms = (time.perf_counter() - t) * 1e3
+        grew = [b for b, c in eng.prefill_buckets.items()
+                if c > before.get(b, 0)]
+        if grew:
+            prefills.setdefault(grew[0], []).append(ms)
+        else:
+            steps.append(ms)
+    wall = time.perf_counter() - t_all
+    out = {i: f.result() for i, f in futs.items()}
+    for i, toks in out.items():
+        if toks.shape != (DECODE_NEW,) or toks.dtype != np.int32:
+            raise AssertionError(f"request {i}: tokens {toks.shape}")
+    return out, steps, prefills, wall
+
+
+def _decode_phase(torch, dev, weights: dict) -> list:
+    """Continuous-batching decode of both LMs at full width in bf16: at
+    each temperature, DECODE_REQUESTS requests served twice (forward, then
+    reverse submission order: equal bytes), DECODE_REPLAYS replayed (equal
+    bytes); the pool == cache_nbytes == the allocation; graphs <=
+    len(buckets) + 1; no kernel launched; every greedy request equal to a
+    plain decode_step loop at the pool's width (the graphs held to eager
+    code).  Then the greedy engine's agreement with per-request
+    greedy_decode and the first-token logits at widths 1 and 8 and in f32
+    (reported, not asserted: greedy_decode runs its matmuls at another
+    width)."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.spec import DecodeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import cache_nbytes
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.decode import DecodeEngine
+
+    lines = []
+    for arch in DECODE_ARCHS:
+        cfg, params = get_config(arch), weights[arch]
+        rng = np.random.default_rng(1)
+        reqs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(
+            DECODE_PROMPTS[0], DECODE_PROMPTS[1] + 1))).astype(np.int32),
+                 int(rng.integers(0, 2**31))) for _ in range(DECODE_REQUESTS)]
+        served = {}
+        for temp in DECODE_TEMPS:
+            spec = DecodeSpec(temperature=temp, **DECODE)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            eng = DecodeEngine(cfg, params, spec, device=dev)
+            pool = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(eng.pool))
+            if not eng.pool_nbytes == pool == cache_nbytes(
+                    cfg, spec.slots, spec.max_seq):
+                raise AssertionError(f"{arch}: pool {pool} B != priced "
+                                     f"{eng.pool_nbytes}")
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            fwd, _, cold_prefills, cold_s = _drive(eng, reqs,
+                                                   range(len(reqs)))
+            rev, steps, prefills, wall = _drive(
+                eng, reqs, range(len(reqs) - 1, -1, -1))
+            for i in DECODE_REPLAYS:
+                if not np.array_equal(fwd[i], eng.replay(
+                        reqs[i][0], DECODE_NEW, reqs[i][1], request_id=i)):
+                    raise AssertionError(f"{arch} T={temp}: request {i} "
+                                         f"served != replay")
+            bad = [i for i in fwd if not np.array_equal(fwd[i], rev[i])]
+            if bad:
+                raise AssertionError(f"{arch} T={temp}: submission order "
+                                     f"changed requests {bad}")
+            _no_kernel_launches(ops, f"{arch} decode")
+            pc = eng.program_counts
+            if pc["prefill"] + pc["decode"] > len(spec.buckets()) + 1:
+                raise AssertionError(f"{arch}: graphs {pc}")
+            st = eng.engine_stats()
+            served[temp] = fwd
+            lines.append({
+                "model": arch, "temperature": temp, "requests": len(reqs),
+                "slots": spec.slots, "max_seq": spec.max_seq,
+                "ms_per_step_median": statistics.median(steps),
+                "steps_timed": len(steps),
+                "tokens_per_s": len(reqs) * DECODE_NEW / wall,
+                "drain_s": wall, "first_drain_s_with_capture": cold_s,
+                "prefill_plus_step_ms": {b: statistics.median(v)
+                                         for b, v in sorted(prefills.items())},
+                "first_prefill_ms_with_capture": {
+                    b: v[0] for b, v in sorted(cold_prefills.items())},
+                "mean_occupancy": st.get("mean_occupancy"),
+                "graphs": pc, "buckets": spec.buckets(),
+                "pool_nbytes": pool, "params_copy_nbytes": sum(
+                    t.numel() * t.element_size() for t in tree_leaves(params)),
+                "peak_gb_above_weights": (torch.cuda.max_memory_allocated()
+                                          - base) / 1e9,
+                "replayed": len(DECODE_REPLAYS)})
+            del eng
+            torch.cuda.empty_cache()
+        # every greedy request against a plain decode_step loop at the
+        # pool's width and max_seq (no graph, no engine): equal bytes
+        t = time.perf_counter()
+        eager, first_w8 = _eager_greedy(torch, M, cfg, params,
+                                         [r[0] for r in reqs], dev)
+        bad = [i for i, toks in enumerate(eager)
+               if not np.array_equal(toks, served[0.0][i])]
+        if bad:
+            raise AssertionError(f"{arch}: engine tokens != the eager "
+                                 f"decode_step loop's for requests {bad}")
+        eager_s = time.perf_counter() - t
+        # the greedy engine against per-request greedy_decode (width 1)
+        agree, first_diff = [], []
+        for i in range(DECODE_GREEDY):
+            prompt = torch.from_numpy(reqs[i][0]).to(dev)[None].long()
+            want = greedy_decode(cfg, params, prompt, DECODE_NEW)[0].cpu()
+            same = (want == torch.from_numpy(served[0.0][i]).long()).numpy()
+            agree.append(float(same.mean()))
+            first_diff.append(int(np.argmin(same)) if not same.all()
+                              else None)
+        lines.append({"model": arch, "engine_eq_eager_loop_at_width_8": len(
+            reqs), "eager_loop_s": eager_s, "engine_vs_greedy_decode": {
+                "requests": DECODE_GREEDY, "token_agreement": agree,
+                "first_differing_token": first_diff},
+            "first_token_logits_request_0": _width_probe(
+                torch, M, cfg, params, reqs[0][0], first_w8, dev)})
+    return lines
+
+
+def _eager_greedy(torch, M, cfg, params, prompts: list, dev) -> tuple:
+    """Greedy tokens of each prompt from a plain ``decode_step`` loop at the
+    pool's width and ``max_seq``, no graph and no engine: the prompts in
+    groups of ``slots`` rows stepped in lockstep, row r fed its prompt, then
+    its own tokens, every row at position t in step t.  Returns the token
+    arrays and the first prompt's first-token logits (f32)."""
+    import numpy as np
+    S, T = DECODE["slots"], DECODE["max_seq"]
+    out, first = [], None
+    for g0 in range(0, len(prompts), S):
+        group = prompts[g0:g0 + S]
+        cache = M.init_cache(cfg, S, T, device=dev)
+        toks = [[] for _ in group]
+        feed = np.zeros((S, 1), np.int64)
+        with torch.no_grad():
+            for t in range(max(len(p) for p in group) + DECODE_NEW - 1):
+                for r, p in enumerate(group):
+                    feed[r, 0] = p[t] if t < len(p) else toks[r][-1]
+                pos = torch.full((S,), t, dtype=torch.int64, device=dev)
+                logits, cache = M.decode_step(
+                    params, cache, torch.from_numpy(feed).to(dev), pos, cfg)
+                if g0 == 0 and t == len(group[0]) - 1:
+                    first = logits[0, 0].float()
+                nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+                for r, p in enumerate(group):
+                    if t >= len(p) - 1 and len(toks[r]) < DECODE_NEW:
+                        toks[r].append(int(nxt[r]))
+        out += [np.asarray(tk, np.int32) for tk in toks]
+    return out, first
+
+
+def _width_probe(torch, M, cfg, params, prompt, at_w8, dev) -> dict:
+    """``prompt``'s logits at its first generated position: ``at_w8`` (the
+    weights' dtype at the pool's width, row 0, from ``_eager_greedy``),
+    a plain ``decode_step`` loop over a ``max_seq`` cache at width 1 with
+    the weights and with their f32 copy, and the plain full-sequence
+    forward's last position.  Returns the max |diff| and relative L2 of
+    each against the f32 logits, width 1 against 8, the f32 logits' max
+    |value| and top-two gap, and each argmax: tells rounding (widths about
+    as far from f32 as the forward is, the f32 top two closer than that)
+    from a fault."""
+    import dataclasses
+
+    from repro_torch.models.common import tree_map
+
+    def width1(p, c):
+        cache = M.init_cache(c, 1, DECODE["max_seq"], device=dev)
+        toks = torch.from_numpy(prompt).to(dev).long()[None]
+        with torch.no_grad():
+            for t in range(len(prompt)):
+                lg, cache = M.decode_step(p, cache, toks[:, t:t + 1], t, c)
+        return lg[0, 0].float()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.to(torch.float32), params)
+    truth = width1(p32, cfg32)
+    del p32
+    with torch.no_grad():
+        fwd = M.forward(params, {"tokens": torch.from_numpy(prompt).to(
+            dev).long()[None]}, cfg)[0][0, -1].float()
+    got = {"w1": width1(params, cfg), "w8": at_w8, "forward": fwd}
+    top2 = torch.topk(truth, 2).values
+    out = {f"{k}_vs_f32": {"max_abs": float((v - truth).abs().max()),
+                           "rel_l2": _rel_l2(torch, v, truth)}
+           for k, v in got.items()}
+    out["w1_vs_w8_max_abs"] = float((got["w1"] - got["w8"]).abs().max())
+    out.update(f32_max_abs=float(truth.abs().max()),
+               f32_top2_gap=float(top2[0] - top2[1]),
+               argmax={k: int(v.argmax()) for k, v in
+                       dict(got, f32=truth).items()})
+    return out
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -2897,7 +3358,7 @@ def main() -> int:
           f" {json.dumps(info)}", flush=True)
 
     t0 = time.perf_counter()
-    requests, totals, f32_ms = _lm_prefill(torch, dev)
+    requests, totals, f32_ms, lm_weights = _lm_prefill(torch, dev)
     for rec in lm_recs:
         rec["launches"], rec["launches_per_forward"] = totals[rec["name"]]
         full = [r["ms"] for r in requests
@@ -2916,6 +3377,17 @@ def main() -> int:
     print(f"[check] card vs CPU reduced LM forwards, worst |diff|: "
           f"{json.dumps(worst)}", flush=True)
 
+    t0 = time.perf_counter()
+    for line in _serve_phase(torch, dev):
+        print(f"[serve] {card} | " + json.dumps(line), flush=True)
+    print(f"[serve] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for line in _decode_phase(torch, dev, lm_weights):
+        print(f"[decode] {card} | " + json.dumps(line), flush=True)
+    del lm_weights
+    print(f"[decode] {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"kernels": recs + [block_rec] + lm_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2927,4 +3399,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-main"] and len(sys.argv) == 4:
         sys.exit(_resume_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-replay"] and len(sys.argv) == 7:
+        sys.exit(_serve_replay(sys.argv[2], sys.argv[3],
+                               *map(int, sys.argv[4:])))
     sys.exit(main())

@@ -133,12 +133,15 @@ def conv_g_decls(cfg: ConvGanConfig):
     }
 
 
-def _batchnorm(h, p, eps=1e-5):
+def _batchnorm(h, p, eps=1e-5, per_row=False):
     """NCHW ``h``: statistics over the batch and both spatial dims, per
     channel; ``p`` leaves ``(C,)`` or stacked ``(U, C)`` for users folded
-    into the channels."""
-    mu = h.mean(dim=(0, 2, 3), keepdim=True)
-    var = torch.square(h - mu).mean(dim=(0, 2, 3), keepdim=True)
+    into the channels.  ``per_row``: each image is a batch of its own (the
+    statistics of one image), as the reference's serving path applies the
+    pair under ``vmap`` over rows."""
+    dims = (2, 3) if per_row else (0, 2, 3)
+    mu = h.mean(dim=dims, keepdim=True)
+    var = torch.square(h - mu).mean(dim=dims, keepdim=True)
     scale = p["scale"].reshape(1, -1, 1, 1)
     bias = p["bias"].reshape(1, -1, 1, 1)
     return (h - mu) * torch.rsqrt(var + eps) * scale + bias
@@ -165,9 +168,10 @@ def _conv(h, w, stride, padding, groups):
                     padding=padding, groups=groups)
 
 
-def conv_d_apply(params, x):
+def conv_d_apply(params, x, per_row=False):
     """x: (B, H, W, C) -> logits (B,); with stacked ``(U, ...)`` params, x
-    (U, B, H, W, C) or a shared (B, H, W, C) -> logits (U, B)."""
+    (U, B, H, W, C) or a shared (B, H, W, C) -> logits (U, B).
+    ``per_row``: each image its own batch (``_batchnorm``)."""
     stacked = params["c1"]["w"].ndim == 5
     u = params["c1"]["w"].shape[0] if stacked else 1
     if x.ndim == 5:                # per-user batches: users into channels
@@ -180,9 +184,9 @@ def conv_d_apply(params, x):
         g1 = 1
     h = F.leaky_relu(_conv(h, params["c1"]["w"], 2, 1, g1), 0.2)
     h = F.leaky_relu(_batchnorm(_conv(h, params["c2"]["w"], 2, 1, u),
-                                params["bn2"]), 0.2)
+                                params["bn2"], per_row=per_row), 0.2)
     h = F.leaky_relu(_batchnorm(_conv(h, params["c3"]["w"], 2, 1, u),
-                                params["bn3"]), 0.2)
+                                params["bn3"], per_row=per_row), 0.2)
     h = _conv(h, params["c4"]["w"], 1, 0, u)        # (B, U, 1, 1)
     logits = h[:, :, 0, 0]
     return logits.t() if stacked else logits[:, 0]
@@ -199,16 +203,17 @@ def _conv_transpose(h, w, stride, padding):
                               stride=stride, padding=padding)
 
 
-def conv_g_apply(params, z, cfg: ConvGanConfig):
-    """z: (B, z_dim) -> images (B, H, W, C) in [-1, 1]."""
+def conv_g_apply(params, z, cfg: ConvGanConfig, per_row=False):
+    """z: (B, z_dim) -> images (B, H, W, C) in [-1, 1].  ``per_row``: each
+    image its own batch (``_batchnorm``)."""
     h = z[:, :, None, None]
     h = torch.relu(_batchnorm(_conv_transpose(h, params["c1"]["w"], 1, 0),
-                              params["bn1"]))
+                              params["bn1"], per_row=per_row))
     assert h.shape[2] == cfg.image_size // 8, (h.shape, cfg.image_size)
     h = torch.relu(_batchnorm(_conv_transpose(h, params["c2"]["w"], 2, 1),
-                              params["bn2"]))
+                              params["bn2"], per_row=per_row))
     h = torch.relu(_batchnorm(_conv_transpose(h, params["c3"]["w"], 2, 1),
-                              params["bn3"]))
+                              params["bn3"], per_row=per_row))
     h = torch.tanh(_conv_transpose(h, params["c4"]["w"], 2, 1))
     return h.permute(0, 2, 3, 1)
 
@@ -219,7 +224,11 @@ def conv_g_apply(params, z, cfg: ConvGanConfig):
 
 @dataclasses.dataclass(frozen=True)
 class GanPair:
-    """Callable bundle: init + apply for one (G, D) family."""
+    """Callable bundle: init + apply for one (G, D) family.  ``g_rows`` /
+    ``d_rows`` apply G / D to a batch in which every row is a batch of its
+    own (what the reference computes under ``vmap`` over rows, serving's
+    form); ``None`` where the pair couples no rows (the MLP), so
+    ``g_apply`` / ``d_apply`` serve."""
 
     cfg: object
     g_decls: object
@@ -227,6 +236,8 @@ class GanPair:
     g_apply: object
     d_apply: object
     z_dim: int
+    g_rows: object = None
+    d_rows: object = None
 
     def init(self, generator: torch.Generator, device=None,
              dtype=torch.float32):
@@ -253,4 +264,6 @@ def make_conv_pair(cfg: ConvGanConfig | None = None) -> GanPair:
     cfg = cfg or ConvGanConfig()
     return GanPair(cfg, conv_g_decls(cfg), conv_d_decls(cfg),
                    lambda p, z: conv_g_apply(p, z, cfg), conv_d_apply,
-                   cfg.z_dim)
+                   cfg.z_dim,
+                   g_rows=lambda p, z: conv_g_apply(p, z, cfg, per_row=True),
+                   d_rows=lambda p, x: conv_d_apply(p, x, per_row=True))

@@ -8,10 +8,10 @@ construction and the whole spec round-trips through ``to_dict`` /
 ``from_dict`` / JSON with the same keys as the reference, so one manifest
 describes a run of either package.
 
-The registries hold only what the port has.  A manifest that names a
-part of the reference not yet ported (the serve and decode sections)
-raises ``NotImplementedError`` naming the ROADMAP item that brings it; an
-unknown name raises ``KeyError`` as in the reference.
+The registries hold only what the port has; an unknown name raises
+``KeyError`` as in the reference.  The ``serve`` and ``decode`` sections
+describe how a trained generator and an LM are served
+(``repro_torch.serve``); a checkpoint's manifest carries them.
 """
 
 from __future__ import annotations
@@ -23,20 +23,6 @@ from typing import Any, Callable
 DEFAULT_ROUNDS_PER_JIT = 16
 
 _ENGINE_KINDS = ("fused", "per_step")
-
-# reference features this slice does not run yet -> the ROADMAP item
-_LATER = {
-    "serve": "the serve section (ROADMAP queue A item 11)",
-    "decode": "the decode section (ROADMAP queue A item 12)",
-}
-
-
-def _not_ported(name: str):
-    return NotImplementedError(
-        f"{_LATER[name]} is not ported to repro_torch yet; the port runs "
-        f"federation (full or cohort-virtualized participation) on the "
-        f"device, host, spmd and multihost backends")
-
 
 # ---------------------------------------------------------------------------
 # Registries
@@ -67,8 +53,7 @@ def _load_builtins() -> None:
 
 class Registry:
     """String-keyed implementation registry: duplicate registration and
-    unknown lookup both raise; a reference key the port has not reached
-    yet raises ``NotImplementedError``."""
+    unknown lookup both raise."""
 
     def __init__(self, kind: str):
         self.kind = kind
@@ -89,8 +74,6 @@ class Registry:
         try:
             return self.entries[name]
         except KeyError:
-            if name in _LATER:
-                raise _not_ported(name) from None
             raise KeyError(
                 f"unknown {self.kind} {name!r}; registered: "
                 f"{sorted(self.entries)}") from None
@@ -364,6 +347,173 @@ class CombineSpec:
                 f"got {self.compression!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """How a trained generator is served (repro_torch.serve): requests of any
+    size run through a small set of padded power-of-two batch buckets —
+    the service builds O(log max_batch) programs (CUDA graphs on the
+    card), never one per request size.
+
+    ``max_batch``   — the largest bucket (must be a power of two when
+                      ``bucket_sizes`` is not given; buckets are then
+                      1, 2, 4, ..., max_batch);
+    ``bucket_sizes``— explicit ascending bucket widths (overrides the
+                      power-of-two derivation; need not be powers of 2);
+    ``flush_ms``    — micro-batcher deadline: a partial bucket is
+                      dispatched once its oldest request has waited this
+                      long (milliseconds);
+    ``oversample``  — candidate factor for the per-user discriminator-
+                      scored rejection filter (k*n candidates keep n);
+    ``rate_limit``  — per-tenant admission control: at most this many
+                      requests (sample AND decode, they share the
+                      window) per ``rate_window_s`` sliding window;
+                      ``None`` disables it.  Over-limit submissions
+                      raise ``repro_torch.serve.service.RateLimitExceeded``
+                      and count in the tenant's ``rejected`` accounting
+                      row."""
+
+    max_batch: int = 64
+    bucket_sizes: tuple | None = None
+    flush_ms: float = 2.0
+    oversample: int = 4
+    rate_limit: int | None = None
+    rate_window_s: float = 1.0
+
+    def __post_init__(self):
+        if self.bucket_sizes is not None:
+            # JSON round-trips tuples as lists; normalize on the way in
+            object.__setattr__(self, "bucket_sizes",
+                               tuple(self.bucket_sizes))
+            bs = self.bucket_sizes
+            if not bs or any(not isinstance(b, int) or b < 1 for b in bs) \
+                    or list(bs) != sorted(set(bs)):
+                raise ValueError(
+                    f"bucket_sizes must be strictly ascending positive "
+                    f"ints, got {self.bucket_sizes!r}")
+            object.__setattr__(self, "max_batch", bs[-1])
+        if not isinstance(self.max_batch, int) or self.max_batch < 1:
+            raise ValueError(f"max_batch must be a positive int, got "
+                             f"{self.max_batch!r}")
+        if self.bucket_sizes is None and self.max_batch & (
+                self.max_batch - 1):
+            raise ValueError(
+                f"max_batch must be a power of two when bucket_sizes is "
+                f"not given (got {self.max_batch}); pass explicit "
+                f"bucket_sizes for other ladders")
+        if not (float(self.flush_ms) >= 0.0):
+            raise ValueError(f"flush_ms must be >= 0, got "
+                             f"{self.flush_ms!r}")
+        if not isinstance(self.oversample, int) or self.oversample < 1:
+            raise ValueError(f"oversample must be a positive int, got "
+                             f"{self.oversample!r}")
+        if self.rate_limit is not None and (
+                not isinstance(self.rate_limit, int) or self.rate_limit < 1):
+            raise ValueError(f"rate_limit must be a positive int or None, "
+                             f"got {self.rate_limit!r}")
+        if not (float(self.rate_window_s) > 0.0):
+            raise ValueError(f"rate_window_s must be > 0, got "
+                             f"{self.rate_window_s!r}")
+
+    def buckets(self) -> tuple:
+        """The bucket ladder, ascending."""
+        if self.bucket_sizes is not None:
+            return self.bucket_sizes
+        out, b = [], 1
+        while b <= self.max_batch:
+            out.append(b)
+            b *= 2
+        return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSpec:
+    """How LM decode traffic is served (repro_torch.serve.decode): a fixed pool
+    of ``slots`` decode slots shares one pre-allocated KV/state cache
+    sized ``(slots, max_seq)`` (priced by ``models.cache.cache_nbytes``);
+    each step advances every occupied slot one token and freed slots
+    admit queued requests at the next step boundary.
+
+    ``slots``          — pool width (the decode step's batch);
+    ``max_seq``        — per-slot sequence capacity: a request needs
+                         ``prompt_len + max_new <= max_seq``;
+    ``prefill_buckets``— ascending prompt-length ladder: a prefill
+                         dispatch pads its prompts to the smallest bucket
+                         >= the longest admitted prompt and runs that
+                         many steps (powers of two from 8 to ``max_seq``
+                         when not given);
+    ``flush_ms``       — admission deadline (the MicroBatcher
+                         size-or-deadline policy applied to prompt
+                         ingestion): a partial prefill batch dispatches
+                         once its oldest queued request has waited this
+                         long;
+    ``admit_min``      — re-admission batching: while the pool is busy,
+                         wait until at least this many slots are free
+                         before paying a prefill dispatch (each prefill
+                         scans a whole bucket at pool width, so admitting
+                         one slot at a time wastes most of the scan).
+                         Admission never waits when the pool is idle or
+                         the whole queue fits the free slots, so progress
+                         is unconditional.  0 (default) = auto:
+                         ``max(1, slots // 4)``;
+    ``eos_id``         — optional stop token: a slot emitting it frees at
+                         the next step boundary;
+    ``temperature``    — 0.0 = greedy argmax; > 0 samples each token with
+                         a key folded from (seed, request_id, position),
+                         so sampled tokens stay a pure function of the
+                         request identity, never of batch-mates."""
+
+    slots: int = 8
+    max_seq: int = 128
+    prefill_buckets: tuple | None = None
+    flush_ms: float = 2.0
+    admit_min: int = 0
+    eos_id: int | None = None
+    temperature: float = 0.0
+
+    def __post_init__(self):
+        if not isinstance(self.slots, int) or self.slots < 1:
+            raise ValueError(f"slots must be a positive int, got "
+                             f"{self.slots!r}")
+        if not isinstance(self.max_seq, int) or self.max_seq < 2:
+            raise ValueError(f"max_seq must be an int >= 2, got "
+                             f"{self.max_seq!r}")
+        if self.prefill_buckets is not None:
+            object.__setattr__(self, "prefill_buckets",
+                               tuple(self.prefill_buckets))
+            bs = self.prefill_buckets
+            if not bs or any(not isinstance(b, int) or b < 1 for b in bs) \
+                    or list(bs) != sorted(set(bs)) or bs[-1] > self.max_seq:
+                raise ValueError(
+                    f"prefill_buckets must be strictly ascending positive "
+                    f"ints <= max_seq, got {self.prefill_buckets!r}")
+        if not (float(self.flush_ms) >= 0.0):
+            raise ValueError(f"flush_ms must be >= 0, got "
+                             f"{self.flush_ms!r}")
+        if not isinstance(self.admit_min, int) or not (
+                0 <= self.admit_min <= self.slots):
+            raise ValueError(f"admit_min must be an int in [0, slots], "
+                             f"got {self.admit_min!r}")
+        if self.eos_id is not None and (
+                not isinstance(self.eos_id, int) or self.eos_id < 0):
+            raise ValueError(f"eos_id must be an int >= 0 or None, got "
+                             f"{self.eos_id!r}")
+        if not (float(self.temperature) >= 0.0):
+            raise ValueError(f"temperature must be >= 0, got "
+                             f"{self.temperature!r}")
+
+    def buckets(self) -> tuple:
+        """The prompt-length ladder, ascending (largest covers max_seq so
+        any admissible prompt fits some bucket)."""
+        if self.prefill_buckets is not None:
+            return self.prefill_buckets
+        out, b = [], 8
+        while b < self.max_seq:
+            out.append(b)
+            b *= 2
+        out.append(self.max_seq)
+        return tuple(out)
+
+
 def _sub_spec(cls, d: dict, section: str):
     """Build a sub-spec from a manifest dict, rejecting unknown keys."""
     fields = {f.name for f in dataclasses.fields(cls)}
@@ -378,8 +528,10 @@ def _sub_spec(cls, d: dict, section: str):
 @dataclasses.dataclass(frozen=True)
 class FederationSpec:
     """Complete declarative description of one federation run (minus the
-    model pair, the DistGANConfig and the dataset).  ``serve`` and
-    ``decode`` keep their manifest keys and must be ``None`` here."""
+    model pair, the DistGANConfig and the dataset).  ``serve`` (``None``:
+    serving defaults) says how the trained generator is served
+    (``GenerationService`` reads it from a restored session's manifest);
+    ``decode`` says how the continuous-batching LM decode engine runs."""
 
     approach: str
     batch_size: int = 64
@@ -390,8 +542,8 @@ class FederationSpec:
         default_factory=ParticipationSpec)
     backend: BackendSpec = dataclasses.field(default_factory=BackendSpec)
     combine: CombineSpec = dataclasses.field(default_factory=CombineSpec)
-    serve: Any = None
-    decode: Any = None
+    serve: ServeSpec | None = None
+    decode: DecodeSpec | None = None
 
     def __post_init__(self):
         approach = resolve_approach(self.approach)  # raises on unknown
@@ -403,12 +555,16 @@ class FederationSpec:
         if not isinstance(self.eval_samples, int) or self.eval_samples < 0:
             raise ValueError(f"eval_samples must be an int >= 0, got "
                              f"{self.eval_samples!r}")
-        for section in ("serve", "decode"):
-            if getattr(self, section) is not None:
-                raise _not_ported(section)
         if not isinstance(self.participation, ParticipationSpec):
             raise ValueError(f"participation must be a ParticipationSpec, "
                              f"got {self.participation!r}")
+        if self.serve is not None and not isinstance(self.serve, ServeSpec):
+            raise ValueError(f"serve must be a ServeSpec or None, got "
+                             f"{self.serve!r}")
+        if self.decode is not None and not isinstance(self.decode,
+                                                      DecodeSpec):
+            raise ValueError(f"decode must be a DecodeSpec or None, got "
+                             f"{self.decode!r}")
         if not approach.user_axis and self.cohort_virtual:
             raise ValueError(
                 f"approach {self.approach!r} has no user axis to "
@@ -479,7 +635,8 @@ class FederationSpec:
         d = dict(d)
         for key, sub in (("engine", EngineSpec),
                          ("participation", ParticipationSpec),
-                         ("backend", BackendSpec), ("combine", CombineSpec)):
+                         ("backend", BackendSpec), ("combine", CombineSpec),
+                         ("serve", ServeSpec), ("decode", DecodeSpec)):
             if key in d and isinstance(d[key], dict):
                 d[key] = _sub_spec(sub, d[key], key)
         return cls(**d)

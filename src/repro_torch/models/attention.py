@@ -4,8 +4,10 @@ none) for train / prefill / scoring.
 
 The plain path (``sdpa`` with ``causal_mask``) is the reference's default
 jnp path; ``use_flash=True`` sends q/k/v to ``kernels.ops.flash_attention``
-(the Hopper kernel on a CUDA tensor).  Not ported yet: MLA, cross-attention,
-``blockwise_sdpa`` and the single-token decode (ROADMAP queue A item 12).
+(the Hopper kernel on a CUDA tensor).  ``attn_decode`` is the
+single-token decode against a KV cache, with a ring buffer for sliding
+windows and one position per batch row.  Not ported yet: MLA,
+cross-attention and ``blockwise_sdpa`` (ROADMAP queue A item 12).
 """
 
 from __future__ import annotations
@@ -129,8 +131,44 @@ def attn_forward(params, x, cfg, *, positions, causal=True, window=0,
     return out.reshape(B, S, H * hd) @ params["wo"].reshape(H * hd, d)
 
 
-def attn_decode(*args, **kwargs):
-    not_ported("attn_decode")
+def _row_positions(index, B: int, device) -> torch.Tensor:
+    """``index`` (an int or a (B,) tensor) as (B,) int64 positions."""
+    if isinstance(index, torch.Tensor):
+        return index.to(device=device, dtype=torch.int64).expand(B)
+    return torch.full((B,), int(index), dtype=torch.int64, device=device)
+
+
+def attn_decode(params, x, cfg, cache, index, *, window=0):
+    """One-token decode.  x: (B,1,d); cache: {"k": (B,T,K,hd), "v": ...}, T
+    the window for sliding-window layers (a ring buffer: position i in slot
+    i % T), else max_seq.  ``index`` is the new token's absolute position:
+    an int, or a (B,) tensor with each row's own (the decode engine's
+    slots).  Returns (y (B,1,d), the updated cache, new tensors)."""
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    pos = _row_positions(index, B, x.device)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    T = cache["k"].shape[1]
+    # the reference's dynamic_update_slice clamps a start past the end
+    slot = pos % T if window > 0 else torch.clamp(pos, max=T - 1)
+    rows = torch.arange(B, device=x.device)
+    k = cache["k"].index_put((rows, slot), k_new[:, 0].to(cache["k"].dtype))
+    v = cache["v"].index_put((rows, slot), v_new[:, 0].to(cache["v"].dtype))
+    kp = torch.arange(T, device=x.device)
+    at = pos[:, None]
+    if window:
+        # ring buffer: slot s holds position index - ((index - s) mod T)
+        pos_of_slot = at - torch.remainder(at - kp, T)
+        valid = (pos_of_slot >= 0) & (pos_of_slot > at - window) & \
+            (pos_of_slot <= at)
+    else:
+        valid = kp <= at
+    out = sdpa(q, k, v, valid[:, None, None, None, :],
+               1.0 / math.sqrt(cfg.head_dim))
+    H, hd, d = params["wo"].shape
+    y = out.reshape(B, 1, H * hd) @ params["wo"].reshape(H * hd, d)
+    return y, {"k": k, "v": v}
 
 
 def cross_attn_decls(cfg):

@@ -131,13 +131,33 @@ def apply_norm(params, x, cfg):
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 
+def silu(x):
+    """SiLU.  On the CPU as ``x / (1 + exp(-x))`` in f32: torch's vectorised
+    CPU ``silu`` evaluates the tail of a tensor another way than its body,
+    so a row's bits would depend on where it sits in the batch, which the
+    serving contract forbids (a slot's bytes are the same in any batch).
+    On CUDA every element takes the same path already."""
+    if x.is_cuda:
+        return F.silu(x)
+    xf = x.to(torch.float32)
+    return (xf / (1.0 + torch.exp(-xf))).to(x.dtype)
+
+
+def softplus(x):
+    """``log(1 + exp(x))`` (x above 20 passes through), position-free on
+    the CPU for the reason ``silu`` gives."""
+    if x.is_cuda:
+        return F.softplus(x)
+    return torch.where(x > 20.0, x, torch.log1p(torch.exp(x)))
+
+
 def _gelu_tanh(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
 
 
 def activation(name: str):
-    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+    return {"silu": silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,10 @@ Batch convention (text / vlm / ssm): ``{"tokens": (B,S) int, "targets":
 (B,S) int}``.  ``forward`` is the prefill / scoring forward: with
 ``use_flash=True`` attention runs the Hopper flash kernel, with
 ``use_ssm_kernel=True`` the SSD scan runs the Hopper SSD kernel (each on a
-CUDA tensor; a CPU tensor takes the kernel's plain version).  Not ported
-yet: ``decode_step``, ``init_cache`` and the audio family (ROADMAP queue A
-item 12).
+CUDA tensor; a CPU tensor takes the kernel's plain version).
+``decode_step`` runs one token per row against a decode cache
+(``models/cache.py``, whose ``init_cache`` and ``cache_spec`` this module
+re-exports).  Not ported yet: the audio family (ROADMAP queue A item 12).
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models.cache import cache_spec, init_cache  # re-export
 from repro_torch.models.common import (P, apply_norm, build, dtype_of,
-                                       norm_decl, not_ported, softcap)
+                                       norm_decl, softcap)
 
-__all__ = ["model_decls", "init_params", "forward", "loss_fn"]
+__all__ = ["model_decls", "init_params", "forward", "loss_fn",
+           "decode_step", "init_cache", "cache_spec"]
 
 
 def model_decls(cfg):
@@ -95,9 +98,12 @@ def loss_fn(params, batch, cfg, **kw):
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
-def decode_step(*args, **kwargs):
-    not_ported("decode_step")
-
-
-def init_cache(*args, **kwargs):
-    not_ported("init_cache")
+def decode_step(params, cache, tokens, index, cfg):
+    """One decode step.  tokens: (B,1), the tokens at position ``index``
+    (an int, or a (B,) tensor of each row's own).  Returns (logits (B,1,V),
+    the new cache)."""
+    _check_dtypes(cfg)
+    x = _embed(params, tokens, cfg)
+    x, new_cache = tfm.backbone_decode(params, x, cfg, cache, index)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _logits(params, x, cfg), new_cache

@@ -2,17 +2,17 @@
 ``models/ssm.py``): declarations, the depthwise causal conv, the model's
 own chunked SSD (``ssd_chunked``, the plain path) and the full-sequence
 block forward.  ``use_kernel=True`` sends the scan to
-``kernels.ops.ssd_scan`` (the Hopper kernel on a CUDA tensor).  Not ported
-yet: ``ssm_decode`` (ROADMAP queue A item 12).
+``kernels.ops.ssd_scan`` (the Hopper kernel on a CUDA tensor).
+``conv_step`` and ``ssm_decode`` are the one-token recurrence against the
+(conv, SSD state) cache.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import P, not_ported, rms_norm
+from repro_torch.models.common import P, rms_norm, silu, softplus
 
 
 def _a_log_init(generator, shape, dtype):
@@ -136,11 +136,11 @@ def ssm_forward(params, x, cfg, use_kernel: bool = False):
     Cm = x @ params["w_C"]
     dt_raw = x @ params["w_dt"]
 
-    xin = F.silu(causal_conv1d(xin, params["conv_x"]))
-    Bm = F.silu(causal_conv1d(Bm, params["conv_B"]))
-    Cm = F.silu(causal_conv1d(Cm, params["conv_C"]))
+    xin = silu(causal_conv1d(xin, params["conv_x"]))
+    Bm = silu(causal_conv1d(Bm, params["conv_B"]))
+    Cm = silu(causal_conv1d(Cm, params["conv_C"]))
 
-    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
+    dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"].to(torch.float32))
 
     xh = xin.reshape(B, S, H, P_)
@@ -153,10 +153,56 @@ def ssm_forward(params, x, cfg, use_kernel: bool = False):
         y, _ = ssd_chunked(xh, dt, A, Bh, Ch, cfg.chunk_size)
     y = y + xh * params["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, cfg.d_inner)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
+    y = rms_norm(y * silu(z.to(torch.float32)).to(y.dtype),
                  params["gate_norm"]["scale"], cfg.norm_eps)
     return y @ params["w_out"]
 
 
-def ssm_decode(*args, **kwargs):
-    not_ported("ssm_decode")
+def conv_step(x_new, conv_state, w):
+    """x_new: (B,C); conv_state: (B,W-1,C) of the previous inputs, oldest
+    first; w: (W,C).  Returns (y (B,C), the new state).  The taps are
+    summed in order, as ``causal_conv1d`` sums them."""
+    full = torch.cat([conv_state, x_new[:, None, :]], dim=1)   # (B,W,C)
+    y = sum(full[:, i, :] * w[i] for i in range(w.shape[0]))
+    return y, full[:, 1:, :]
+
+
+def ssm_decode(params, x, cfg, state):
+    """One-step decode.  x: (B,1,d); state = {"ssd": (B,H,N,P) f32,
+    "conv_x": (B,W-1,di), "conv_B": ..., "conv_C": ...}.  Returns (y
+    (B,1,d), the new state)."""
+    B = x.shape[0]
+    H, P_, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_n_groups, cfg.ssm_state
+    f32 = torch.float32
+    xt = x[:, 0, :]
+
+    z = xt @ params["w_z"]
+    xin = xt @ params["w_x"]
+    Bm = xt @ params["w_B"]
+    Cm = xt @ params["w_C"]
+    dt_raw = xt @ params["w_dt"]
+
+    xin, conv_x = conv_step(xin, state["conv_x"], params["conv_x"])
+    Bm, conv_B = conv_step(Bm, state["conv_B"], params["conv_B"])
+    Cm, conv_C = conv_step(Cm, state["conv_C"], params["conv_C"])
+    xin, Bm, Cm = silu(xin), silu(Bm), silu(Cm)
+
+    dt = softplus(dt_raw.to(f32) + params["dt_bias"])      # (B,H)
+    A = -torch.exp(params["A_log"].to(f32))
+    dA = torch.exp(dt * A)                                    # (B,H)
+
+    xh = xin.reshape(B, H, P_)
+    rep = H // G
+    Bh = torch.repeat_interleave(Bm.reshape(B, G, N), rep, dim=1)   # (B,H,N)
+    Ch = torch.repeat_interleave(Cm.reshape(B, G, N), rep, dim=1)
+
+    upd = Bh.to(f32)[..., :, None] * (xh.to(f32) * dt[..., None])[..., None, :]
+    ssd = state["ssd"] * dA[..., None, None] + upd
+    y = torch.einsum("bhn,bhnp->bhp", Ch.to(f32), ssd)
+    y = y.to(x.dtype) + xh * params["D"].to(x.dtype)[None, :, None]
+    y = y.reshape(B, cfg.d_inner)
+    y = rms_norm(y * silu(z.to(f32)).to(y.dtype),
+                 params["gate_norm"]["scale"], cfg.norm_eps)
+    out = y @ params["w_out"]
+    return out[:, None, :], {"ssd": ssd, "conv_x": conv_x,
+                             "conv_B": conv_B, "conv_C": conv_C}

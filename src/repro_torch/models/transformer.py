@@ -7,12 +7,15 @@ reference's ``scan_stack`` (``lax.scan`` over that dimension) becomes a
 Python loop over the layer index.  ``cfg.remat`` and ``cfg.seq_shard`` are
 training and sharding levers (rematerialisation under autodiff, Megatron
 sequence sharding over a mesh); an eager forward on one device has neither,
-so they change nothing here.  Not ported yet: the MoE, MLA, hybrid
-(RG-LRU) and audio encoder-decoder families and the decode path (ROADMAP
-queue A item 12).
+so they change nothing here.  ``backbone_decode`` runs one token through
+the stack against a decode cache (``models/cache.py``), layer by layer.
+Not ported yet: the MoE, MLA, hybrid (RG-LRU) and audio encoder-decoder
+families (ROADMAP queue A item 12).
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -100,3 +103,46 @@ def backbone_forward(params, x, cfg, positions, *, use_flash=False,
         lambda p, h: dense_layer_fwd(p, h, cfg, positions, window=cfg.window,
                                      use_flash=use_flash),
         params["layers"], x)
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token)
+# ---------------------------------------------------------------------------
+
+def dense_layer_decode(p, x, cfg, cache_l, index, window):
+    h, nc = attn.attn_decode(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
+                             cache_l, index, window=window)
+    x = x + h
+    x = x + mlp_mod.mlp_forward(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
+    return x, nc
+
+
+def ssm_layer_decode(p, x, cfg, cache_l):
+    h, nc = ssm_mod.ssm_decode(p["ssm"], apply_norm(p["norm"], x, cfg), cfg,
+                               cache_l)
+    return x + h, nc
+
+
+def run_stack_cache(layer_fn, stacked_params, x, cache):
+    """``layer_fn(params_l, x, cache_l) -> (x, new cache_l)`` over the
+    stacked parameters and the (L, ...) cache (the reference's
+    ``scan_stack_cache``); the new per-layer caches are stacked back."""
+    new = []
+    for i in range(tree_leaves(stacked_params)[0].shape[0]):
+        x, nc = layer_fn(tree_map(lambda a: a[i], stacked_params), x,
+                         tree_map(lambda c: c[i], cache))
+        new.append(nc)
+    return x, tree_map(lambda *ls: torch.stack(ls), *new)
+
+
+def backbone_decode(params, x, cfg, cache, index):
+    """x: (B,1,d) -> (hidden (B,1,d), new cache); ``index`` the token's
+    position (an int or one per row, see ``attention.attn_decode``)."""
+    _check_family(cfg)
+    if cfg.arch_type == "ssm":
+        return run_stack_cache(
+            lambda p, h, c: ssm_layer_decode(p, h, cfg, c),
+            params["layers"], x, cache)
+    return run_stack_cache(
+        lambda p, h, c: dense_layer_decode(p, h, cfg, c, index, cfg.window),
+        params["layers"], x, cache)

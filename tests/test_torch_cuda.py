@@ -739,3 +739,167 @@ def test_optimizer_step_on_the_card_equals_the_cpu_step_bitwise(cuda, name):
     for k in p0:
         assert torch.equal(out["cpu"][k].view(torch.int32),
                            out["cuda"][k].view(torch.int32)), k
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: prng, the sampler's and the decode engine's graphs
+# ---------------------------------------------------------------------------
+
+def test_prng_on_the_card_equals_the_cpu_bitwise(cuda):
+    """Integer hashing and IEEE-exact float steps: every draw is the same
+    bits on the card as on the CPU."""
+    from repro_torch import prng
+    rng = np.random.default_rng(0)
+    seeds = rng.integers(-2**40, 2**40, 64)
+    rids, offs = rng.integers(0, 2**32, 64), np.arange(64)
+    keys = {dev: prng.fold_in(prng.fold_in(prng.key(seeds, dev), rids), offs)
+            for dev in ("cpu", cuda)}
+    logits = _rows((64, 1000), 3)
+    for fn in (lambda k: prng.bits(k, (5, 7)),
+               lambda k: prng.split(k, 3),
+               lambda k: prng.uniform(k, (129,), -2.0, 3.0),
+               lambda k: prng.normal(k, (129,)),
+               lambda k: prng.gumbel(k, (129,)),
+               lambda k: prng.randint(k, (33,), -7, 32000),
+               lambda k: prng.categorical(k, logits.to(k.device) / 0.8)):
+        assert torch.equal(fn(keys[cuda]).cpu(), fn(keys["cpu"]))
+
+
+def _small_pairs():
+    from repro_torch.core.gan import (ConvGanConfig, MLPGanConfig,
+                                      make_conv_pair, make_mlp_pair)
+    return {"mlp": make_mlp_pair(MLPGanConfig(data_dim=784, z_dim=64,
+                                              g_hidden=256, d_hidden=256)),
+            "conv": make_conv_pair(ConvGanConfig(image_size=32, channels=3,
+                                                 z_dim=16, base_filters=8))}
+
+
+@pytest.mark.parametrize("kind", ["mlp", "conv"])
+def test_sampler_graphs_keep_a_slot_bitwise_in_every_bucket(cuda, kind):
+    """Under CUDA graphs a slot is the same bytes alone, in every bucket
+    and among any batch-mates; a D score ignores padding; one graph a
+    bucket; the card agrees with the CPU engine to f32 rounding."""
+    from repro_torch.serve.sampler import SamplerEngine
+    pair = _small_pairs()[kind]
+    g, d = pair.init(torch.Generator().manual_seed(0), cuda)
+    ladder = (1, 2, 4, 8, 16, 32, 64)
+    eng = SamplerEngine(pair, ladder, device=cuda)
+    want = eng.sample_bucket(g, 1, [5], [9], [3])[0]
+    rng = np.random.default_rng(1)
+    for b in ladder:
+        m = rng.integers(0, 2**31, (3, b - 1))
+        got = eng.sample_bucket(g, b, list(m[0]) + [5], list(m[1]) + [9],
+                                list(m[2] % 100) + [3])[b - 1]
+        assert torch.equal(got, want), b
+    x = eng.sample_request(g, 2, 4, 64)
+    s0 = eng.score_bucket(d, x[:1])[0]
+    for b in ladder:
+        assert eng.score_bucket(d, x[:b])[0] == s0, b
+    assert eng.program_counts == {"request": 7, "score": 7, "stream": 0}
+    cpu = SamplerEngine(pair, ladder, device="cpu")
+    gc = {k: {n: t.cpu() for n, t in v.items()} for k, v in g.items()}
+    np.testing.assert_allclose(cpu.sample_request(gc, 2, 4, 64), x, rtol=0,
+                               atol=1e-5)
+
+
+def test_service_under_graphs_hot_swaps_and_replays(cuda):
+    """Pump-served bytes equal replay; a batch after ``session.run`` but
+    before ``refresh`` sees the old G, one after it the new."""
+    from repro_torch.core.approaches import DistGANConfig
+    from repro_torch.core.session import FederationSession
+    from repro_torch.core.spec import FederationSpec, ServeSpec
+    from repro_torch.data import federated_split
+    from repro_torch.serve import GenerationService
+    pair = _small_pairs()["mlp"]
+    data = np.random.default_rng(0).normal(size=(400, 784)).astype(np.float32)
+    ds = federated_split(data, np.arange(400) % 4, [[0], [1], [2], [3]])
+    sess = FederationSession(pair, DistGANConfig(num_users=4), ds,
+                             FederationSpec("approach1", batch_size=16,
+                                            eval_samples=0,
+                                            serve=ServeSpec(max_batch=32)),
+                             device=cuda)
+    sess.run(4)
+    svc = GenerationService.from_session(sess)
+    svc.batcher.start()
+    try:
+        sizes = [1, 7, 33, 70, 2, 31]
+        futs = [svc.submit(u % 4, n, seed=u) for u, n in enumerate(sizes)]
+        for rid, (n, f) in enumerate(zip(sizes, futs)):
+            assert np.array_equal(f.result(timeout=120),
+                                  svc.replay(rid, rid, n))
+        old = svc.submit(0, 9, seed=3, request_id=100).result(timeout=60)
+        sess.run(4)                     # the session's G changes in place
+        stale = svc.submit(0, 9, seed=3, request_id=100).result(timeout=60)
+        svc.refresh()
+        new = svc.submit(0, 9, seed=3, request_id=100).result(timeout=60)
+    finally:
+        svc.batcher.stop()
+    assert np.array_equal(stale, old) and not np.array_equal(new, old)
+    assert np.array_equal(new, svc.replay(3, 100, 9))
+    assert svc.stats()["programs"]["request"] <= len(svc.serve.buckets())
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m"])
+def test_decode_engine_graphs_replay_and_order(cuda, arch):
+    """The decode engine's CUDA graphs (one step, one per prefill bucket):
+    served == replay and reverse submission order gives the same bytes,
+    at temperature 0 and 0.7; programs <= len(buckets) + 1."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.spec import DecodeSpec
+    from repro_torch.models import model as TM
+    from repro_torch.serve.decode import DecodeEngine, DecodeRequest
+    cfg = get_config(arch).reduced()
+    params = TM.init_params(cfg, 1, device=cuda)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32), int(g))
+            for n, g in zip(rng.integers(2, 30, 6), rng.integers(2, 9, 6))]
+    for temp in (0.0, 0.7):
+        eng = DecodeEngine(cfg, params, DecodeSpec(slots=3, max_seq=40,
+                                                   temperature=temp),
+                           device=cuda)
+
+        def serve(order):
+            futs = {i: eng.submit(DecodeRequest(
+                user_id=0, prompt=reqs[i][0], max_new=reqs[i][1], seed=i),
+                request_id=i) for i in order}
+            eng.drain()
+            return {i: f.result() for i, f in futs.items()}
+
+        a, b = serve(range(6)), serve(range(5, -1, -1))
+        for i, (p, g) in enumerate(reqs):
+            assert np.array_equal(a[i], b[i])
+            assert np.array_equal(a[i], eng.replay(p, g, i, request_id=i))
+        pc = eng.program_counts
+        assert pc["prefill"] + pc["decode"] <= len(eng.spec.buckets()) + 1
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m"])
+@pytest.mark.parametrize("temp", [0.0, 0.7])
+def test_decode_engine_on_the_card_serves_the_cpu_engines_tokens(cuda, arch,
+                                                                 temp):
+    """The reduced f32 engine under CUDA graphs on the card serves the
+    tokens the eager CPU engine serves (which tests/test_torch_decode.py
+    holds to the reference's engine), on the same weights, requests and
+    seeds."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.spec import DecodeSpec
+    from repro_torch.models import model as TM
+    from repro_torch.serve.decode import DecodeEngine, DecodeRequest
+    cfg = get_config(arch).reduced()
+    params = TM.init_params(cfg, 1, device="cpu")
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32), int(g))
+            for n, g in zip(rng.integers(2, 30, 6), rng.integers(2, 9, 6))]
+
+    def serve(device):
+        eng = DecodeEngine(cfg, params, DecodeSpec(slots=3, max_seq=40,
+                                                   temperature=temp),
+                           device=device)
+        futs = [eng.submit(DecodeRequest(user_id=0, prompt=p, max_new=g,
+                                         seed=20 + i), request_id=i)
+                for i, (p, g) in enumerate(reqs)]
+        eng.drain()
+        return [f.result() for f in futs]
+
+    for got, want in zip(serve(cuda), serve("cpu")):
+        assert np.array_equal(got, want)

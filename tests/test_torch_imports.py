@@ -31,7 +31,13 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.examples.distgan_spmd_multiuser, "
             "repro_torch.multihost.wire, repro_torch.multihost.rpc, "
             "repro_torch.multihost.worker, repro_torch.multihost.launch, "
-            "repro_torch.multihost.backend; "
+            "repro_torch.multihost.backend, repro_torch.prng, "
+            "repro_torch.serve, repro_torch.serve.sampler, "
+            "repro_torch.serve.scheduler, repro_torch.serve.service, "
+            "repro_torch.serve.decode, repro_torch.serve.program, "
+            "repro_torch.models.cache, repro_torch.models.model, "
+            "repro_torch.data.synthetic, repro_torch.launch.serve, "
+            "repro_torch.profile_serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -220,25 +220,21 @@ def test_fused_equals_per_step_and_windowing_is_neutral(codec, stochastic):
     {"decode": {"slots": 4}},
 ])
 def test_unported_parts_of_a_spec_raise(section):
-    """A manifest naming a part of the reference not yet ported (serve,
-    decode) raises NotImplementedError naming its ROADMAP item; a multihost
-    backend section, ported, is read as the reference reads it (its
-    ValueError where the reference raises one, the same manifest where it
-    does not); the cohort schedulers and the spmd backend are ported."""
+    """The sections once refused as not yet ported are read as the
+    reference reads them: a multihost backend section (its ValueError where
+    the reference raises one, the same manifest where it does not) and,
+    since the serve slice, the serve and decode sections (the same
+    manifest); the cohort schedulers and the spmd backend are ported."""
     from repro.core.spec import FederationSpec as JaxSpec
     manifest = {"approach": "approach1", **section}
-    if "backend" not in section:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    try:
+        want = JaxSpec.from_dict(manifest).to_json()
+    except ValueError as e:
+        with pytest.raises(ValueError, match="workers"):
             FederationSpec.from_dict(manifest)
+        assert "workers" in str(e)
     else:
-        try:
-            want = JaxSpec.from_dict(manifest).to_json()
-        except ValueError as e:
-            with pytest.raises(ValueError, match="workers"):
-                FederationSpec.from_dict(manifest)
-            assert "workers" in str(e)
-        else:
-            assert FederationSpec.from_dict(manifest).to_json() == want
+        assert FederationSpec.from_dict(manifest).to_json() == want
     with pytest.raises(ValueError, match="workers"):
         BackendSpec("multihost")
     assert BackendSpec("spmd", async_rounds=1).kind == "spmd"
