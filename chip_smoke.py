@@ -191,7 +191,34 @@ it goes wrong:
    request 0's first-token logits in bf16 at width 1 and 8 and from the
    plain forward, each against the f32 weights' (max |diff|, relative L2),
    and the f32 top-two gap;
-15. the result: a ``kernels`` JSON line, the card line, and as the last
+15. B3 at head dim 256 — recurrentgemma-9b's attention (B 2, S = T = 4096,
+   16 q heads over 1 kv head, hd 256, causal, window 2048) on both routes:
+   bf16 on the wgmma kernel (64-key kv tiles) within 2e-2, f32 on the
+   split-TF32 kernel (8-key tiles) within 2e-5 of the plain version, and
+   small f32 cases at hd 256 (causal, windowed, no mask, S not a multiple
+   of the tile) within 2e-5; event and device ms, the bound (2.06e11 FLOP
+   over the 2.0e8 in-window (query, key) pairs), the plain version's ms and
+   SDPA's with the window as a boolean mask and enable_gqa;
+16. the rest of the LM zoo, one model at a time, weights drawn on the card
+   from seed 0 (``ZOO_ARCHS``): (a) one scoring request through
+   ``loss_fn`` at full width and depth in bf16 (``ZOO_SCORE``): the CE
+   finite and near ln V, the MoE routers' aux loss finite and the share of
+   (token, slot) pairs dropped at capacity printed; recurrentgemma-9b with
+   use_flash (12 launches a forward, all on the wgmma route at hd 256,
+   asserted), the others with B1-B5 at 0 (asserted); recurrentgemma's
+   logits held to its own plain path as phase 10 holds tinyllama's (a B 1
+   x 3072 request, in bf16 and with the same weights in f32, whose kernel
+   forward launches the f32 route 12 times); (b) decode at full width in
+   bf16 with the depth cut to ``ZOO_DECODE_LAYERS`` (the hybrid and both
+   MoE families; each slot its own MoE routing group), as phase 14:
+   ``DecodeSpec(slots=8, max_seq=256)`` at T 0 and 0.8, both submission
+   orders equal, replays equal, graphs <= buckets + 1, no kernel launched,
+   every T 0 request equal to a plain decode_step loop at the pool's
+   width; ms a step, tokens/s; (c) seamless-m4t-medium at full width and
+   depth through ``greedy_decode`` with ``src_embeds``; (d) the reduced
+   f32 config of each family from one seed on the card and on the CPU:
+   forward logits within ``ZOO_CPU_TOL`` and greedy tokens equal;
+17. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -233,9 +260,11 @@ SSD_BF16_RATIO, SSD_BF16_REL_L2 = 1.25, 1e-2
 # bf16 the two paths sit equally far from the f32 logits (0.30 tinyllama,
 # 0.49-0.50 mamba2) and ~9 % / ~44 % from each other; in f32 they differ by
 # 1.4e-4 / 7.3e-3 (the SSD's exp(cum_i - cum_j) over sums in the hundreds
-# is sensitive to summation order).  Each bound is about twice what this
-# script measured (PERF.md).
-LM_REL_L2 = {"tinyllama-1.1b": (0.2, 1e-3), "mamba2-780m": (0.8, 2e-2)}
+# is sensitive to summation order); recurrentgemma-9b's: 0.18 in bf16,
+# 4.2e-4 in f32.  Each bound is about twice what this script measured
+# (PERF.md).
+LM_REL_L2 = {"tinyllama-1.1b": (0.2, 1e-3), "mamba2-780m": (0.8, 2e-2),
+             "recurrentgemma-9b": (0.4, 1e-3)}
 # ... and the bf16 kernel path must be no farther from the f32 logits than
 # the bf16 plain path is, up to this factor.
 LM_F32_RATIO = 1.05
@@ -266,6 +295,26 @@ DECODE_REQUESTS, DECODE_PROMPTS, DECODE_NEW = 16, (16, 128), 32
 DECODE_TEMPS = (0.0, 0.8)
 DECODE_REPLAYS = (0, 15)             # requests replayed (served == replay)
 DECODE_GREEDY = 4                     # requests held to greedy_decode
+# The rest of the LM zoo (phases 15-16): B3 at recurrentgemma-9b's
+# attention shape; each family's scoring request (B, S) at full width and
+# depth in bf16; the hybrid's logits held to its plain path on (B, S);
+# decode at full width with the depth cut to fit the time limit; the
+# audio family through greedy_decode; card vs CPU on the reduced f32
+# configs within ZOO_CPU_TOL, the reference's own decode-vs-forward bound
+# (tests/test_decode.py): f32 sums in another order (cuBLAS against
+# oneDNN), grown by the random-init stacks, and the card's f32 flash
+# route (the reduced MoE: 6.3e-4).
+FLASH256 = dict(B=2, S=4096, H=16, K=1, hd=256, window=2048)
+ZOO_ARCHS = ("recurrentgemma-9b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+             "seamless-m4t-medium")
+ZOO_SCORE = {"recurrentgemma-9b": (2, 4096), "deepseek-moe-16b": (2, 2048),
+             "deepseek-v2-lite-16b": (2, 2048),
+             "seamless-m4t-medium": (2, 2048)}
+ZOO_VS_PLAIN = (1, 3072)
+ZOO_DECODE_LAYERS = {"recurrentgemma-9b": 5, "deepseek-moe-16b": 3,
+                     "deepseek-v2-lite-16b": 3}
+AUDIO_GREEDY = dict(batch=4, prompt=16, new=32)
+ZOO_CPU_TOL = 2e-3
 
 
 def _fail(msg: str) -> int:
@@ -3027,114 +3076,128 @@ def _drive(eng, reqs: list, order) -> tuple:
     return out, steps, prefills, wall
 
 
-def _decode_phase(torch, dev, weights: dict) -> list:
-    """Continuous-batching decode of both LMs at full width in bf16: at
-    each temperature, DECODE_REQUESTS requests served twice (forward, then
-    reverse submission order: equal bytes), DECODE_REPLAYS replayed (equal
-    bytes); the pool == cache_nbytes == the allocation; graphs <=
-    len(buckets) + 1; no kernel launched; every greedy request equal to a
-    plain decode_step loop at the pool's width (the graphs held to eager
-    code).  Then the greedy engine's agreement with per-request
-    greedy_decode and the first-token logits at widths 1 and 8 and in f32
-    (reported, not asserted: greedy_decode runs its matmuls at another
-    width)."""
+def _decode_contracts(torch, dev, cfg, params) -> tuple:
+    """The decode engine's contracts for one LM: at each temperature,
+    DECODE_REQUESTS requests served twice (forward, then reverse submission
+    order: equal bytes), DECODE_REPLAYS replayed (equal bytes); the pool ==
+    cache_nbytes == the allocation; graphs <= len(buckets) + 1; no kernel
+    launched; every greedy request equal to a plain decode_step loop at the
+    pool's width (the graphs held to eager code; each slot its own MoE
+    routing group, as the engine routes).  Returns (a line per temperature
+    and one for the eager loop, the requests, the greedy tokens served, the
+    eager loop's first-token logits of request 0)."""
     import statistics
 
     import numpy as np
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core.spec import DecodeSpec
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import greedy_decode
     from repro_torch.models import model as M
     from repro_torch.models.cache import cache_nbytes
     from repro_torch.models.common import tree_leaves
     from repro_torch.serve.decode import DecodeEngine
 
+    arch = cfg.name
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(
+        DECODE_PROMPTS[0], DECODE_PROMPTS[1] + 1))).astype(np.int32),
+             int(rng.integers(0, 2**31))) for _ in range(DECODE_REQUESTS)]
+    lines, served = [], {}
+    for temp in DECODE_TEMPS:
+        spec = DecodeSpec(temperature=temp, **DECODE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = DecodeEngine(cfg, params, spec, device=dev)
+        pool = sum(t.numel() * t.element_size() for t in tree_leaves(eng.pool))
+        if not eng.pool_nbytes == pool == cache_nbytes(cfg, spec.slots,
+                                                       spec.max_seq):
+            raise AssertionError(f"{arch}: pool {pool} B != priced "
+                                 f"{eng.pool_nbytes}")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        fwd, _, cold_prefills, cold_s = _drive(eng, reqs, range(len(reqs)))
+        rev, steps, prefills, wall = _drive(eng, reqs,
+                                            range(len(reqs) - 1, -1, -1))
+        for i in DECODE_REPLAYS:
+            if not np.array_equal(fwd[i], eng.replay(
+                    reqs[i][0], DECODE_NEW, reqs[i][1], request_id=i)):
+                raise AssertionError(f"{arch} T={temp}: request {i} served "
+                                     f"!= replay")
+        bad = [i for i in fwd if not np.array_equal(fwd[i], rev[i])]
+        if bad:
+            raise AssertionError(f"{arch} T={temp}: submission order "
+                                 f"changed requests {bad}")
+        _no_kernel_launches(ops, f"{arch} decode")
+        pc = eng.program_counts
+        if pc["prefill"] + pc["decode"] > len(spec.buckets()) + 1:
+            raise AssertionError(f"{arch}: graphs {pc}")
+        served[temp] = fwd
+        lines.append({
+            "model": arch, "layers": cfg.num_layers, "temperature": temp,
+            "requests": len(reqs), "slots": spec.slots,
+            "max_seq": spec.max_seq,
+            "ms_per_step_median": statistics.median(steps),
+            "steps_timed": len(steps),
+            "tokens_per_s": len(reqs) * DECODE_NEW / wall, "drain_s": wall,
+            "first_drain_s_with_capture": cold_s,
+            "prefill_plus_step_ms": {b: statistics.median(v)
+                                     for b, v in sorted(prefills.items())},
+            "first_prefill_ms_with_capture": {
+                b: v[0] for b, v in sorted(cold_prefills.items())},
+            "mean_occupancy": eng.engine_stats().get("mean_occupancy"),
+            "graphs": pc, "buckets": spec.buckets(), "pool_nbytes": pool,
+            "params_copy_nbytes": sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(params)),
+            "peak_gb_above_weights": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+            "replayed": len(DECODE_REPLAYS)})
+        del eng
+        _free(torch)
+    step_cfg = (dataclasses.replace(cfg, moe_groups=DECODE["slots"])
+                if cfg.arch_type == "moe" else cfg)
+    t = time.perf_counter()
+    eager, first_w8 = _eager_greedy(torch, M, step_cfg, params,
+                                     [r[0] for r in reqs], dev)
+    bad = [i for i, toks in enumerate(eager)
+           if not np.array_equal(toks, served[0.0][i])]
+    if bad:
+        raise AssertionError(f"{arch}: engine tokens != the eager "
+                             f"decode_step loop's for requests {bad}")
+    lines.append({"model": arch, "engine_eq_eager_loop_at_width_8":
+                  len(reqs), "eager_loop_s": time.perf_counter() - t})
+    return lines, reqs, served[0.0], first_w8
+
+
+def _decode_phase(torch, dev, weights: dict) -> list:
+    """Continuous-batching decode of both LMs at full width in bf16, held
+    to ``_decode_contracts``.  Then the greedy engine's agreement with
+    per-request greedy_decode and the first-token logits at widths 1 and 8
+    and in f32 (reported, not asserted: greedy_decode runs its matmuls at
+    another width)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import model as M
+
     lines = []
     for arch in DECODE_ARCHS:
         cfg, params = get_config(arch), weights[arch]
-        rng = np.random.default_rng(1)
-        reqs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(
-            DECODE_PROMPTS[0], DECODE_PROMPTS[1] + 1))).astype(np.int32),
-                 int(rng.integers(0, 2**31))) for _ in range(DECODE_REQUESTS)]
-        served = {}
-        for temp in DECODE_TEMPS:
-            spec = DecodeSpec(temperature=temp, **DECODE)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            eng = DecodeEngine(cfg, params, spec, device=dev)
-            pool = sum(t.numel() * t.element_size()
-                       for t in tree_leaves(eng.pool))
-            if not eng.pool_nbytes == pool == cache_nbytes(
-                    cfg, spec.slots, spec.max_seq):
-                raise AssertionError(f"{arch}: pool {pool} B != priced "
-                                     f"{eng.pool_nbytes}")
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_launch_counts()
-            fwd, _, cold_prefills, cold_s = _drive(eng, reqs,
-                                                   range(len(reqs)))
-            rev, steps, prefills, wall = _drive(
-                eng, reqs, range(len(reqs) - 1, -1, -1))
-            for i in DECODE_REPLAYS:
-                if not np.array_equal(fwd[i], eng.replay(
-                        reqs[i][0], DECODE_NEW, reqs[i][1], request_id=i)):
-                    raise AssertionError(f"{arch} T={temp}: request {i} "
-                                         f"served != replay")
-            bad = [i for i in fwd if not np.array_equal(fwd[i], rev[i])]
-            if bad:
-                raise AssertionError(f"{arch} T={temp}: submission order "
-                                     f"changed requests {bad}")
-            _no_kernel_launches(ops, f"{arch} decode")
-            pc = eng.program_counts
-            if pc["prefill"] + pc["decode"] > len(spec.buckets()) + 1:
-                raise AssertionError(f"{arch}: graphs {pc}")
-            st = eng.engine_stats()
-            served[temp] = fwd
-            lines.append({
-                "model": arch, "temperature": temp, "requests": len(reqs),
-                "slots": spec.slots, "max_seq": spec.max_seq,
-                "ms_per_step_median": statistics.median(steps),
-                "steps_timed": len(steps),
-                "tokens_per_s": len(reqs) * DECODE_NEW / wall,
-                "drain_s": wall, "first_drain_s_with_capture": cold_s,
-                "prefill_plus_step_ms": {b: statistics.median(v)
-                                         for b, v in sorted(prefills.items())},
-                "first_prefill_ms_with_capture": {
-                    b: v[0] for b, v in sorted(cold_prefills.items())},
-                "mean_occupancy": st.get("mean_occupancy"),
-                "graphs": pc, "buckets": spec.buckets(),
-                "pool_nbytes": pool, "params_copy_nbytes": sum(
-                    t.numel() * t.element_size() for t in tree_leaves(params)),
-                "peak_gb_above_weights": (torch.cuda.max_memory_allocated()
-                                          - base) / 1e9,
-                "replayed": len(DECODE_REPLAYS)})
-            del eng
-            torch.cuda.empty_cache()
-        # every greedy request against a plain decode_step loop at the
-        # pool's width and max_seq (no graph, no engine): equal bytes
-        t = time.perf_counter()
-        eager, first_w8 = _eager_greedy(torch, M, cfg, params,
-                                         [r[0] for r in reqs], dev)
-        bad = [i for i, toks in enumerate(eager)
-               if not np.array_equal(toks, served[0.0][i])]
-        if bad:
-            raise AssertionError(f"{arch}: engine tokens != the eager "
-                                 f"decode_step loop's for requests {bad}")
-        eager_s = time.perf_counter() - t
+        got, reqs, greedy, first_w8 = _decode_contracts(torch, dev, cfg,
+                                                        params)
+        lines += got
         # the greedy engine against per-request greedy_decode (width 1)
         agree, first_diff = [], []
         for i in range(DECODE_GREEDY):
             prompt = torch.from_numpy(reqs[i][0]).to(dev)[None].long()
             want = greedy_decode(cfg, params, prompt, DECODE_NEW)[0].cpu()
-            same = (want == torch.from_numpy(served[0.0][i]).long()).numpy()
+            same = (want == torch.from_numpy(greedy[i]).long()).numpy()
             agree.append(float(same.mean()))
             first_diff.append(int(np.argmin(same)) if not same.all()
                               else None)
-        lines.append({"model": arch, "engine_eq_eager_loop_at_width_8": len(
-            reqs), "eager_loop_s": eager_s, "engine_vs_greedy_decode": {
-                "requests": DECODE_GREEDY, "token_agreement": agree,
-                "first_differing_token": first_diff},
+        lines[-1].update({"engine_vs_greedy_decode": {
+            "requests": DECODE_GREEDY, "token_agreement": agree,
+            "first_differing_token": first_diff},
             "first_token_logits_request_0": _width_probe(
                 torch, M, cfg, params, reqs[0][0], first_w8, dev)})
     return lines
@@ -3212,6 +3275,387 @@ def _width_probe(torch, M, cfg, params, prompt, at_w8, dev) -> dict:
                argmax={k: int(v.argmax()) for k, v in
                        dict(got, f32=truth).items()})
     return out
+
+# ---------------------------------------------------------------------------
+# the rest of the LM zoo: B3 at hd 256, scoring forwards, decode
+# ---------------------------------------------------------------------------
+
+# (B, S, H, K, hd, causal, window): f32 cases at recurrentgemma-9b's hd 256
+FLASH256_F32_CASES = [(1, 256, 4, 1, 256, True, 0),
+                      (1, 256, 4, 1, 256, True, 64),
+                      (1, 128, 2, 2, 256, False, 0),
+                      (2, 200, 4, 1, 256, True, 0),
+                      (1, 300, 2, 1, 256, True, 100)]
+
+
+def _flash256_phase(torch, dev):
+    """B3 at recurrentgemma-9b's attention shape (B 2, S = T = 4096, 16 q
+    heads over 1 kv head, hd 256, causal, window 2048) on both routes,
+    held to the plain version (bf16 2e-2, f32 2e-5), and the small f32
+    cases at hd 256; timed beside the plain version and SDPA with the
+    window as a boolean mask.  Returns the two records and what was
+    checked."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as tfl
+    from repro_torch.kernels import ref
+    from repro_torch.timing import BF16_OPS_PER_S
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    info = {"flash256_f32_cases_worst": 0.0}
+    for B, S, H, K, hd, causal, window in FLASH256_F32_CASES:
+        q, k, v = randn((B, S, H, hd)), randn((B, S, K, hd)), \
+            randn((B, S, K, hd))
+        err = float((tfl.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=S, bkv=S)
+                     - ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)).abs().max())
+        if not err <= 2e-5:
+            raise AssertionError(f"flash f32 hd 256 {(B, S, H, K)} causal="
+                                 f"{causal} window={window}: {err} > 2e-5")
+        info["flash256_f32_cases_worst"] = max(
+            info["flash256_f32_cases_worst"], err)
+    B, S, H, K, hd, W = (FLASH256[k] for k in ("B", "S", "H", "K", "hd",
+                                               "window"))
+    q, k, v = randn((B, S, H, hd)), randn((B, S, K, hd)), randn((B, S, K, hd))
+    pairs = _flash_pairs(S, S, True, W)
+    flops = 4 * hd * B * H * pairs
+    info.update(flash256_pairs=B * H * pairs, flash256_flops=flops)
+    live = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    live &= ~torch.ones_like(live).tril(-W)
+    recs = []
+    for name, source, dtype, peak, tol in (
+            ("flash_attention_hd256", "flash_attention_wgmma.cu",
+             torch.bfloat16, BF16_OPS_PER_S, 2e-2),
+            ("flash_attention_hd256_f32", "flash_attention_tf32.cu",
+             torch.float32, None, 2e-5)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        got = tfl.flash_attention(qd, kd, vd, causal=True, window=W)
+        err = float((got.float() - ref.flash_attention_ref(
+            qd, kd, vd, causal=True, window=W).float()).abs().max())
+        del got
+        if not err <= tol:
+            raise AssertionError(f"{name} at {FLASH256}: {err} > {tol}")
+        qh, kh, vh = (t.transpose(1, 2) for t in (qd, kd, vd))
+        rec = _record(
+            torch, name, f"src/repro_torch/kernels/csrc/{source}",
+            "src/repro/kernels/flash_attention.py:87",
+            lambda: tfl.flash_attention(qd, kd, vd, causal=True, window=W),
+            lambda: ref.flash_attention_ref(qd, kd, vd, causal=True,
+                                            window=W),
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=live, enable_gqa=True),
+            nbytes=qd.element_size() * (2 * qd.numel() + kd.numel()
+                                        + vd.numel()),
+            ops=flops, err=err, peak=peak, split_tf32=peak is None)
+        rec["shape"] = dict(FLASH256)
+        recs.append(rec)
+        del qd, kd, vd, qh, kh, vh
+        torch.cuda.empty_cache()
+    return recs, info
+
+
+def _free(torch) -> float:
+    """Collect what the decode engines' graphs and their buffers leave in
+    reference cycles, empty the allocator's cache; returns the GB still
+    allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _draw_params(torch, M, cfg, dev, seed: int = 0):
+    """Random weights drawn on the card (a CUDA generator; ~seconds at
+    9-16B parameters, where the port's CPU draws take minutes)."""
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _zoo_cfg(arch: str, layers=None):
+    """The config at full width, its depth cut to ``layers`` if given."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def _zoo_batch(torch, cfg, B: int, S: int, dev, seed: int = 0) -> dict:
+    """Tokens and targets from a numpy seed; for audio, frame embeddings
+    (B, S // downsample, d) in the compute type."""
+    import numpy as np
+
+    from repro_torch.models.common import dtype_of
+    rng = np.random.default_rng(seed)
+    batch = {key: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(dev) for key in ("tokens", "targets")}
+    if cfg.arch_type == "audio":
+        batch["src_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, S // cfg.encoder_downsample, cfg.d_model)).astype(
+                np.float32)).to(dev).to(dtype_of(cfg.compute_dtype))
+    return batch
+
+
+def _drop_share(torch, cfg, params, batch) -> float:
+    """The share of (token, slot) pairs the MoE layers drop at capacity in
+    this request (the first MoE layer's router on the embedded tokens is
+    not what a deep layer sees, so every layer's router is run on its own
+    input through a forward hook on ``moe.route``)."""
+    import math
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import model as M
+    seen = []
+    route = moe_mod.route
+
+    def counting(router_w, x, c):
+        top_w, top_i, aux = route(router_w, x, c)
+        E, k = c.num_experts, c.experts_per_token
+        C = max(int(math.ceil(x.shape[0] * k / E * c.capacity_factor)), 1)
+        counts = torch.bincount(top_i.reshape(-1), minlength=E)
+        seen.append((int(torch.clamp(counts - C, min=0).sum()),
+                     top_i.numel()))
+        return top_w, top_i, aux
+
+    moe_mod.route = counting
+    try:
+        with torch.no_grad():
+            M.forward(params, batch, cfg)
+    finally:
+        moe_mod.route = route
+    return sum(d for d, _ in seen) / max(sum(n for _, n in seen), 1)
+
+
+def _zoo_score(torch, dev, arch: str) -> tuple:
+    """One scoring request through ``loss_fn`` at full width and depth in
+    bf16 (the hybrid with use_flash), launch counts zeroed just before and
+    read just after; returns (the line, the params)."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = _zoo_cfg(arch)
+    params, init_s = _draw_params(torch, M, cfg, dev)
+    B, S = ZOO_SCORE[arch]
+    batch = _zoo_batch(torch, cfg, B, S, dev)
+    flag = {"use_flash": True} if cfg.arch_type == "hybrid" else {}
+    ln_v = math.log(cfg.vocab_size)
+    with torch.no_grad():
+        M.loss_fn(params, _zoo_batch(torch, cfg, 1, 256, dev), cfg, **flag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        _, metrics = M.loss_fn(params, batch, cfg, **flag)
+        ce, aux = float(metrics["ce"]), float(metrics["aux"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts, routes = ops.launch_counts(), ops.flash_route_counts()
+    n_attn = sum(k == "attention" for k in cfg.block_pattern) * (
+        cfg.num_layers // max(len(cfg.block_pattern), 1))
+    want = {k: 0 for k in counts}
+    if cfg.arch_type == "hybrid":
+        want["flash_attention"] = n_attn
+        if routes != {"wgmma": n_attn, "f32": 0}:
+            raise AssertionError(f"{arch}: flash routes {routes}, want "
+                                 f"{n_attn} on wgmma")
+    if counts != want:
+        raise AssertionError(f"{arch}: launches {counts}, want {want}")
+    if not (math.isfinite(ce) and abs(ce - ln_v) < 2.0 and
+            math.isfinite(aux)):
+        raise AssertionError(f"{arch}: CE {ce} (ln V {ln_v}), aux {aux}")
+    line = {"model": arch, "layers": cfg.num_layers, "batch": B, "seq": S,
+            "ms": wall * 1e3, "tokens_per_s": B * S / wall, "ce": ce,
+            "ln_v": ln_v, "aux": aux, "init_s": init_s,
+            "params": sum(t.numel() for t in _np_leaves(params)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_launches_per_forward": counts["flash_attention"],
+            "flash_routes": routes}
+    if cfg.arch_type == "moe":
+        line["dropped_share"] = _drop_share(torch, cfg, params, batch)
+    del batch
+    torch.cuda.empty_cache()
+    return line, params
+
+
+def _zoo_decode(torch, dev, arch: str) -> list:
+    """Continuous-batching decode at full width in bf16, depth cut to
+    ZOO_DECODE_LAYERS, held to ``_decode_contracts``."""
+    from repro_torch.models import model as M
+
+    cfg = _zoo_cfg(arch, ZOO_DECODE_LAYERS[arch])
+    params, init_s = _draw_params(torch, M, cfg, dev, seed=1)
+    lines = _decode_contracts(torch, dev, cfg, params)[0]
+    for line in lines:
+        line["init_s"] = init_s
+    del params
+    return lines
+
+
+def _audio_greedy(torch, dev) -> dict:
+    """seamless-m4t-medium at full width and depth in bf16 through
+    greedy_decode with src_embeds: finite, in the vocabulary, the same
+    tokens twice; ms a token."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import model as M
+
+    cfg = _zoo_cfg("seamless-m4t-medium")
+    params, init_s = _draw_params(torch, M, cfg, dev, seed=1)
+    batch = _zoo_batch(torch, cfg, AUDIO_GREEDY["batch"],
+                       AUDIO_GREEDY["prompt"], dev, seed=3)
+    ops.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen = greedy_decode(cfg, params, batch["tokens"], AUDIO_GREEDY["new"],
+                            src_embeds=batch["src_embeds"])
+        torch.cuda.synchronize()
+        runs.append((gen.cpu(), time.perf_counter() - t))
+    _no_kernel_launches(ops, "audio greedy_decode")
+    toks = runs[0][0]
+    if toks.shape != (AUDIO_GREEDY["batch"], AUDIO_GREEDY["new"]) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size or \
+            not torch.equal(toks, runs[1][0]):
+        raise AssertionError(f"audio greedy_decode: {toks.shape}, not "
+                             f"repeatable or out of the vocabulary")
+    steps = AUDIO_GREEDY["prompt"] + AUDIO_GREEDY["new"] - 1
+    del params
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.num_layers, **AUDIO_GREEDY,
+            "init_s": init_s, "s": runs[1][1],
+            "ms_per_step": runs[1][1] / steps * 1e3}
+
+
+def _zoo_cpu_agreement(torch, dev) -> dict:
+    """The reduced f32 config of each family from one seed on the card and
+    on the CPU: forward logits within ZOO_CPU_TOL (the hybrid with
+    use_flash: the f32 route on the card, the plain version on the CPU),
+    and the greedy tokens of a few requests (the engine; greedy_decode
+    with src_embeds for audio) equal."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.spec import DecodeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import DecodeEngine, DecodeRequest
+
+    worst = {}
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch).reduced()
+        flag = {"use_flash": True} if cfg.arch_type == "hybrid" else {}
+        batch = _zoo_batch(torch, cfg, 2, 32, "cpu", seed=1)
+        out = {}
+        for d in (dev, "cpu"):
+            params = M.init_params(cfg, 0, device=d)
+            b = {k: v.to(d) for k, v in batch.items()}
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                logits = M.forward(params, b, cfg, **flag)[0].cpu()
+            prompts = [np.random.default_rng(i).integers(
+                1, cfg.vocab_size, 5 + 3 * i).astype(np.int32)
+                for i in range(3)]
+            if cfg.arch_type == "audio":
+                p = torch.from_numpy(np.stack([x[:5] for x in prompts]))
+                toks = greedy_decode(cfg, params, p.long().to(d), 6,
+                                     src_embeds=b["src_embeds"][:1].expand(
+                                         3, -1, -1)).cpu().numpy()
+            else:
+                eng = DecodeEngine(cfg, params, DecodeSpec(slots=2,
+                                                           max_seq=32),
+                                   device=d)
+                futs = [eng.submit(DecodeRequest(user_id=i, prompt=x,
+                                                 max_new=6), request_id=i)
+                        for i, x in enumerate(prompts)]
+                eng.drain()
+                toks = np.stack([f.result() for f in futs])
+            out[str(d)] = (logits, toks, ops.flash_route_counts())
+        (lc, tc, rc), (lp, tp, _) = out[str(dev)], out["cpu"]
+        if flag and rc["f32"] < 1:
+            raise AssertionError(f"{arch}: card forward did not take the "
+                                 f"f32 flash route: {rc}")
+        np.testing.assert_allclose(lc.numpy(), lp.numpy(), rtol=0,
+                                   atol=ZOO_CPU_TOL)
+        if not np.array_equal(tc, tp):
+            raise AssertionError(f"{arch}: card greedy tokens {tc.tolist()} "
+                                 f"!= CPU {tp.tolist()}")
+        worst[arch] = float((lc - lp).abs().max())
+    return worst
+
+
+def _zoo_phases(torch, dev, card: str) -> list:
+    """Phases 15 and 16: B3 at hd 256, then per model its scoring request
+    (and the hybrid's logits against its plain path) and its decode, the
+    audio greedy decode, and the card-vs-CPU agreement of the reduced
+    configs.  Returns the two hd-256 kernel records, their launches those
+    of the hybrid's bf16 and f32 forwards."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    print(f"[zoo] GB still allocated from the earlier phases: "
+          f"{_free(torch):.2f}", flush=True)
+    t0 = time.perf_counter()
+    recs, info = _flash256_phase(torch, dev)
+    print(f"[kernels] flash hd 256 vs plain ({time.perf_counter() - t0:.1f}"
+          f" s): {json.dumps(info)}", flush=True)
+    print("[zoo] depth cuts (width never): scoring at full depth; decode "
+          "at " + json.dumps(ZOO_DECODE_LAYERS) + " layers", flush=True)
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        line, params = _zoo_score(torch, dev, arch)
+        print(f"[zoo] {card} | " + json.dumps(line), flush=True)
+        if arch == "recurrentgemma-9b":
+            for rec in recs:
+                if rec["name"] == "flash_attention_hd256":
+                    rec["launches"] = line["flash_launches_per_forward"]
+            cfg = _zoo_cfg(arch)
+            B, S = ZOO_VS_PLAIN
+            vs = _lm_vs_plain(torch, M, cfg, params, "use_flash",
+                              {"tokens": _zoo_batch(torch, cfg, B, S, dev,
+                                                    seed=4)["tokens"]})
+            counts = vs.pop("f32_forward_launches")
+            routes = vs["f32_forward_flash_attention_routes"]
+            if routes["f32"] != line["flash_launches_per_forward"] or \
+                    routes["wgmma"] or counts["flash_attention"] != \
+                    routes["f32"]:
+                raise AssertionError(f"{arch}: f32 forward flash routes "
+                                     f"{routes}")
+            for rec in recs:
+                if rec["name"] == "flash_attention_hd256_f32":
+                    rec["launches"] = routes["f32"]
+            print(f"[zoo] {card} | " + json.dumps(vs), flush=True)
+            _check_lm_vs_plain(vs)
+        del params
+        left = _free(torch)
+        if arch in ZOO_DECODE_LAYERS:
+            for dl in _zoo_decode(torch, dev, arch):
+                print(f"[zoo-decode] {card} | " + json.dumps(dl), flush=True)
+        print(f"[zoo] {arch}: {time.perf_counter() - t0:.1f} s; GB left "
+              f"after scoring {left:.2f}, after decode {_free(torch):.2f}",
+              flush=True)
+    ops.reset_launch_counts()
+    print(f"[zoo-decode] {card} | " + json.dumps(_audio_greedy(torch, dev)),
+          flush=True)
+    worst = _zoo_cpu_agreement(torch, dev)
+    print(f"[check] card vs CPU reduced zoo forwards (atol {ZOO_CPU_TOL}) "
+          f"and greedy tokens, worst |diff|: {json.dumps(worst)}", flush=True)
+    for rec in recs:
+        if rec["launches"] < 1:
+            raise AssertionError(f"{rec['name']} never launched on its path")
+    return recs
+
 
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3388,7 +3832,9 @@ def main() -> int:
     del lm_weights
     print(f"[decode] {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": recs + [block_rec] + lm_recs}))
+    zoo_recs = _zoo_phases(torch, dev, card)
+
+    print(json.dumps({"kernels": recs + [block_rec] + lm_recs + zoo_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@
 // (repro_torch.profile_mma), so ~0.65 ms is this design's floor.
 //
 // Design.  One CTA of eight warps per (b, h, 128-query tile), two CTAs to
-// an SM (the launch bound caps the registers at 128), issued longest tile
+// an SM (the launch bound caps the registers at 128; one at hd 256, see
+// below), issued longest tile
 // first (the tile is the slowest part of blockIdx.x); each warp owns 16
 // query rows.  q, k and v are read in place from (B, L, heads, hd); keys
 // and rows past the end read as zero.  The q tile is loaded once with
@@ -52,6 +53,13 @@
 // barriers, q held as split pairs in shared memory or in registers, the
 // three products of a split in three accumulator sets, one CTA to an SM,
 // 64-query CTAs, 16- and 64-key tiles.
+//
+// Head dim 256 (recurrentgemma-9b's MQA attention).  The q block alone is
+// 128 rows x 260 floats = 133 KB, and a warp's O is 16 x 256 f32, 128
+// registers a lane.  At hd 256 the kv tiles hold 8 keys (two stages of
+// pairs, 66 KB: 199 KB in all), one CTA fills an SM, so the launch bound
+// lets a thread have 255 registers, and O += p v loads v's fragments eight
+// n-tiles at a time rather than all 32 at once.
 
 #include "tf32_mma.cuh"
 
@@ -61,7 +69,6 @@ using namespace tf32;
 
 constexpr int kRows = 128;               // query rows per CTA
 constexpr int kKeysPerTile = 32;         // keys per kv tile (hd <= 64)
-constexpr int kMinBlocks = 2;            // CTAs per SM (launch bound)
 constexpr int kWarps = kRows / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kMaskValue = -2.0e38f;
@@ -69,8 +76,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  // keys per kv tile (half as many at hd 128)
-  static constexpr int kKeys = HD == 128 ? kKeysPerTile / 2 : kKeysPerTile;
+  // keys per kv tile (half as many at hd 128, a quarter at hd 256)
+  static constexpr int kKeys = HD == 256   ? kKeysPerTile / 4
+                               : HD == 128 ? kKeysPerTile / 2
+                                           : kKeysPerTile;
+  // CTAs per SM (the launch bound): one at hd 256, whose O takes 128
+  // registers a thread and whose shared memory fills an SM
+  static constexpr int kMinBlocks = HD == 256 ? 1 : 2;
+  // n-tiles of O whose v fragments one p v step loads at once
+  static constexpr int kPvTiles = HD == 256 ? 8 : HD / 8;
   static constexpr int kLdQ = HD + 4;      // q raw rows (floats)
   static constexpr int kLdK = HD + 4;      // k pair rows
   static constexpr int kLdV = HD + 2;      // v pair rows
@@ -99,7 +113,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Tile<HD>::kMinBlocks)
 flash_tf32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out, int B,
            int S, int T_len, int H, int K, float scale_log2, int causal,
@@ -285,13 +299,17 @@ flash_tf32(const float* __restrict__ q, const float* __restrict__ k,
         FragA a;
         a.set(s[j][0], s[j][2], s[j][1], s[j][3]);
         const float2* vr = vs + (8 * j + 2 * tig) * LDV + gid;
-        float2 bf[HD / 8][2];
+        constexpr int NB = G::kPvTiles;
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          bf[n][0] = vr[8 * n];
-          bf[n][1] = vr[LDV + 8 * n];
+        for (int n0 = 0; n0 < HD / 8; n0 += NB) {
+          float2 bf[NB][2];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            bf[n][0] = vr[8 * (n0 + n)];
+            bf[n][1] = vr[LDV + 8 * (n0 + n)];
+          }
+          mma3<NB>(o + n0, a, bf);
         }
-        mma3<HD / 8>(o, a, bf);
       }
     }
     if (it + 1 < n_tiles) {
@@ -345,7 +363,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // q: (B, S, H, hd), k/v: (B, T, K, hd), out: (B, S, H, hd), all contiguous
-// f32 with 16-byte aligned bases.  hd in {32, 64, 128}, H % K == 0.
+// f32 with 16-byte aligned bases.  hd in {32, 64, 128, 256}, H % K == 0.
 // Returns the launch's CUDA error code (0 on success).
 int flash_attention_tf32_fwd(const void* q, const void* k, const void* v,
                              void* out, int B, int S, int T_len, int H,
@@ -364,6 +382,9 @@ int flash_attention_tf32_fwd(const void* q, const void* k, const void* v,
                         causal, window, stream);
     case 128:
       return launch<128>(q, k, v, out, B, S, T_len, H, K, scale,
+                         causal, window, stream);
+    case 256:
+      return launch<256>(q, k, v, out, B, S, T_len, H, K, scale,
                          causal, window, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

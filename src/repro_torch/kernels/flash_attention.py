@@ -3,7 +3,7 @@ reference's ``kernels/flash_attention.py::flash_attention_pallas``.
 
 ``flash_attention(q, k, v, causal=, window=, scale=, bq=, bkv=)`` takes
 q ``(B, S, H, hd)`` and k/v ``(B, T, K, hd)`` on a CUDA device (f32 or
-bf16, one type, hd in {32, 64, 128}, H % K == 0) and returns
+bf16, one type, hd in {32, 64, 128, 256}, H % K == 0) and returns
 ``(B, S, H, hd)`` in q's type.  The route depends on the type alone:
 
 * bf16 -> ``csrc/flash_attention_wgmma.cu`` (tensor cores: wgmma fed by
@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 # dtype -> (route name, kernel source, C entry point)
 ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_wgmma",
                            "flash_attention_wgmma_fwd"),
@@ -65,7 +65,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (H // K)``.  ``bq``/``bkv`` are the TPU kernel's tiling hints:
     they are checked as the reference checks them (``S % bq == 0``,
     ``T % bkv == 0``) and do not reach the CUDA kernels, whose tiles are
-    their own (128 query rows on both routes; ragged ends are masked)."""
+    their own (128 query rows on both routes, kv tiles of 128 or 64 keys
+    at hd 256 on the bf16 route, 32, 16 or 8 on the f32 route; ragged ends
+    are masked)."""
     global launches
     for t in (q, k, v):
         if t.device.type != "cuda":

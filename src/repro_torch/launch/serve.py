@@ -26,13 +26,20 @@ from repro_torch.models import model as M
 from repro_torch.models.cache import cache_nbytes  # noqa: F401  (re-export)
 
 
-def greedy_decode(cfg, params, prompt: torch.Tensor,
-                  gen_len: int) -> torch.Tensor:
+def greedy_decode(cfg, params, prompt: torch.Tensor, gen_len: int, *,
+                  src_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """prompt: (B, S0) token tensor -> generated (B, gen_len), on the
     prompt's device.  Prefill is token-by-token decode (uniform across the
-    SSM and attention families)."""
+    SSM and attention families); the audio family first fills its cross
+    K/V from ``src_embeds`` (B, S_src, d).  The whole batch routes as one
+    MoE group, as the reference's batched step does."""
     B, S0 = prompt.shape
     cache = M.init_cache(cfg, B, S0 + gen_len, device=prompt.device)
+    if cfg.arch_type == "audio":
+        if src_embeds is None:
+            raise ValueError("the audio family decodes against src_embeds")
+        with torch.no_grad():
+            cache = M.prefill_audio_cache(params, cache, src_embeds, cfg)
     tok = prompt[:, 0:1]
     out = []
     with torch.no_grad():
@@ -47,7 +54,10 @@ def greedy_decode(cfg, params, prompt: torch.Tensor,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="any config id (configs/base.py ARCH_IDS, with "
+                         "dashes); --continuous takes every family but "
+                         "audio")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -94,7 +104,8 @@ def main(argv=None):
               f"{st.get('mean_occupancy', 0):.1f}")
     else:
         t0 = time.perf_counter()
-        gen = greedy_decode(cfg, params, prompts, args.gen).cpu()
+        gen = greedy_decode(cfg, params, prompts, args.gen,
+                            src_embeds=batch.get("src_embeds")).cpu()
         dt = time.perf_counter() - t0
         print(f"[serve] {cfg.name} on {dev}: generated {tuple(gen.shape)} "
               f"in {dt:.1f}s ({args.batch * args.gen / dt:.1f} tok/s)")

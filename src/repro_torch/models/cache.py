@@ -1,17 +1,21 @@
 """Decode caches per architecture family (port of the reference's
-``models/cache.py``) for the dense / vlm and ssm families.
+``models/cache.py``): dense / vlm / MoE self-attention K/V (a ring buffer
+of the window, if any), the ssm conv and SSD states, the hybrid's
+per-group RG-LRU and windowed K/V states, MLA's compressed ``c_kv`` /
+``k_rope`` and the audio decoder's self and cross K/V.
 
-Caches are nested dicts whose leaves carry a leading ``layers`` dim, as the
-stacked layer parameters do.  ``cache_spec`` gives each leaf's shape and
-dtype with nothing allocated; ``init_cache`` allocates zeros.
+Caches are nested dicts whose leaves carry a leading ``layers`` (or
+``groups``) dim, as the stacked layer parameters do.  ``cache_spec`` gives
+each leaf's shape and dtype with nothing allocated; ``init_cache`` allocates
+zeros.
 
 Slot-pool layout (``repro_torch.serve.decode``): every leaf carries the
 batch dim at **axis 1** — ``(L, B, ...)`` — so a cache of width S is a
-pool of S independent decode slots.  ``cache_nbytes`` prices the pool from
-the spec; ``reset_slots`` zeroes some slots and ``merge_slots`` publishes
-freshly prefilled rows into theirs, every other slot keeping its bits.
-Not ported yet: the hybrid, MLA and audio layouts (ROADMAP queue A item
-12) and ``cache_logical_axes`` (sharding, item 13).
+pool of S independent decode slots, in every family.  ``cache_nbytes``
+prices the pool from the spec; ``reset_slots`` zeroes some slots and
+``merge_slots`` publishes freshly prefilled rows into theirs, every other
+slot keeping its bits.  Not ported: ``cache_logical_axes`` (sharding,
+ROADMAP queue A item 13).
 """
 
 from __future__ import annotations
@@ -20,8 +24,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import dtype_of, not_ported, tree_leaves, \
-    tree_map
+from repro_torch.models.common import dtype_of, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +63,30 @@ def cache_spec(cfg, batch: int, max_len: int):
             "conv_C": LeafSpec((L, B, W - 1, GN), dt),
         }
     if at == "hybrid":
-        not_ported("the hybrid (RG-LRU) decode cache")
+        period = len(cfg.block_pattern)
+        G = cfg.num_layers // period
+        tail = cfg.num_layers - G * period
+        r, W = cfg.lru_width, cfg.conv_width
+        Tw = min(max_len, cfg.window) if cfg.window else max_len
+        rec = lambda n: {"h": LeafSpec((n, B, r), torch.float32),
+                         "conv": LeafSpec((n, B, W - 1, r), dt)}
+        spec = {"groups": {"rec1": rec(G), "rec2": rec(G),
+                           "attn": _attn_kv(G, B, Tw, cfg.num_kv_heads,
+                                            cfg.head_dim, dt)}}
+        if tail:
+            spec["tail"] = rec(tail)
+        return spec
     if cfg.use_mla:
-        not_ported("the MLA decode cache")
+        return {
+            "c_kv": LeafSpec((L, B, max_len, cfg.kv_lora_rank), dt),
+            "k_rope": LeafSpec((L, B, max_len, cfg.rope_head_dim), dt),
+        }
     if cfg.is_encoder_decoder:
-        not_ported("the audio (encoder-decoder) decode cache")
-    if at not in ("dense", "vlm"):
-        not_ported(f"the {at} decode cache")
-    # dense / vlm self-attention: a ring buffer of the window, if any
+        S_src = max(max_len // cfg.encoder_downsample, 1)
+        K, hd = cfg.num_kv_heads, cfg.head_dim
+        return {"self": _attn_kv(L, B, max_len, K, hd, dt),
+                "cross": _attn_kv(L, B, S_src, K, hd, dt)}
+    # dense / moe / vlm self-attention: a ring buffer of the window, if any
     T = min(max_len, cfg.window) if cfg.window else max_len
     return _attn_kv(L, B, T, cfg.num_kv_heads, cfg.head_dim, dt)
 

@@ -6,7 +6,9 @@ Parameter trees are plain nested dicts of tensors.  ``build`` walks the
 declarations in sorted-key order, the order jax flattens a dict in, so the
 n-th leaf drawn here is the n-th leaf of the reference's tree.  The draws
 themselves come from a CPU ``torch.Generator`` (jax's threefry stream
-cannot be reproduced), so one seed gives the same weights on every device.
+cannot be reproduced), so one seed gives the same weights on every device;
+a CUDA generator draws on its card instead (other values, drawn fast: the
+full-width smoke runs on the card use it).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import prng
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -39,20 +43,24 @@ class P:
 
     def materialize(self, generator: torch.Generator, dtype: torch.dtype):
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=dtype)
+            return torch.zeros(self.shape, dtype=dtype,
+                               device=generator.device)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=dtype)
+            return torch.ones(self.shape, dtype=dtype,
+                              device=generator.device)
         if self.init == "custom":
             return self.fn(generator, self.shape, dtype)
         fan_in = self.shape[0]
         if self.init == "uniform_scaled":
             bound = math.sqrt(3.0 / fan_in)
-            u = torch.rand(self.shape, generator=generator, dtype=torch.float32)
+            u = torch.rand(self.shape, generator=generator,
+                           dtype=torch.float32, device=generator.device)
             return (u * (2 * bound) - bound).to(dtype)
         std = self.scale
         if std is None:
             std = 1.0 / math.sqrt(max(fan_in, 1))
-        z = torch.randn(self.shape, generator=generator, dtype=torch.float32)
+        z = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
         return (z * std).to(dtype)
 
 
@@ -74,17 +82,10 @@ def tree_map(fn, tree, *rest):
 def build(decls, generator: torch.Generator, dtype=torch.float32,
           device=None):
     """Materialize a nested dict of :class:`P` declarations into tensors,
-    drawing leaves in sorted-key order from ``generator`` (a CPU
-    generator), then moving them to ``device``."""
+    drawing leaves in sorted-key order from ``generator`` (on its device),
+    then moving them to ``device``."""
     return tree_map(
         lambda d: d.materialize(generator, dtype).to(device), decls)
-
-
-def not_ported(what: str):
-    """Raise for a part of the reference's LM zoo the port does not have
-    yet."""
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A "
-                              f"item 12, LM zoo and decode)")
 
 
 def stack_decls(decls, n: int, axis_name: str = "layers"):
@@ -132,28 +133,86 @@ def apply_norm(params, x, cfg):
 
 
 def silu(x):
-    """SiLU.  On the CPU as ``x / (1 + exp(-x))`` in f32: torch's vectorised
-    CPU ``silu`` evaluates the tail of a tensor another way than its body,
-    so a row's bits would depend on where it sits in the batch, which the
-    serving contract forbids (a slot's bytes are the same in any batch).
-    On CUDA every element takes the same path already."""
+    """SiLU, ``x * sigmoid(x)`` as jax writes it.  On the CPU in f32 with
+    the reference's own exp (``prng.exp``): torch's vectorised CPU loops
+    evaluate the tail of a tensor (and of each thread's chunk) another way
+    than its body, in ``silu`` and in ``exp`` alike, so a row's bits would
+    depend on where it sits in the batch, which the serving contract
+    forbids (a slot's bytes are the same in any batch).  On CUDA every
+    element takes the same path already."""
     if x.is_cuda:
         return F.silu(x)
     xf = x.to(torch.float32)
-    return (xf / (1.0 + torch.exp(-xf))).to(x.dtype)
+    return (xf * (1.0 / (prng.exp(-xf) + 1.0))).to(x.dtype)
 
 
 def softplus(x):
-    """``log(1 + exp(x))`` (x above 20 passes through), position-free on
-    the CPU for the reason ``silu`` gives."""
+    """jax's ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``; on the CPU
+    with the reference's exp and log1p (``prng``), position-free for the
+    reason ``silu`` gives."""
     if x.is_cuda:
         return F.softplus(x)
-    return torch.where(x > 20.0, x, torch.log1p(torch.exp(x)))
+    xf = x.to(torch.float32)
+    out = torch.clamp(xf, min=0.0) + prng.log1p(prng.exp(-torch.abs(xf)))
+    return out.to(x.dtype)
+
+
+def exp(x):
+    """e^x.  On the CPU, in f32, the reference's own formula (XLA's CPU
+    exp, bit for bit: ``prng.exp``), which differs from torch's in a tenth
+    of all entries by an ULP; on CUDA torch's."""
+    if x.is_cuda:
+        return torch.exp(x)
+    return prng.exp(x).to(x.dtype)
+
+
+def sigmoid(x):
+    """``1 / (exp(-x) + 1)``, XLA's expansion of the logistic; on the CPU
+    by ``exp`` (position-free, as ``silu``: torch's CPU ``sigmoid`` takes
+    another path at a tensor's tail)."""
+    if x.is_cuda:
+        return torch.sigmoid(x)
+    xf = x.to(torch.float32)
+    return (1.0 / (prng.exp(-xf) + 1.0)).to(x.dtype)
+
+
+def log_sigmoid(x):
+    """jax's ``-softplus(-x) = min(x, 0) - log1p(exp(-|x|))``; on the CPU
+    with XLA's exp and log1p (``prng``), position-free."""
+    if x.is_cuda:
+        return F.logsigmoid(x)
+    xf = x.to(torch.float32)
+    out = torch.clamp(xf, max=0.0) - prng.log1p(prng.exp(-torch.abs(xf)))
+    return out.to(x.dtype)
+
+
+def _f32(c: float) -> float:
+    return torch.tensor(c, dtype=torch.float32).item()
+
+
+def tanh(x):
+    """tanh.  On the CPU, in f32, the reference's own formula (XLA's CPU
+    tanh, bit for bit: ``prng.tanh``), which differs from torch's in a
+    third of all entries by an ULP; on CUDA torch's."""
+    if x.is_cuda:
+        return torch.tanh(x)
+    return prng.tanh(x).to(x.dtype)
+
+
+_SQRT_2_OVER_PI = _f32(math.sqrt(2.0 / math.pi))
 
 
 def _gelu_tanh(x):
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x, approximate="tanh")
+    """jax.nn.gelu's default tanh approximation, ``x * 0.5 * (1 + tanh(
+    sqrt(2/pi) (x + 0.044715 x^3)))``; on the CPU in f32 as the reference's
+    jitted program evaluates it (``x + 0.044715 x^3`` one fused
+    multiply-add, the reference's ``tanh``), by elementwise ops (torch's
+    fused CPU ``gelu`` is not position-free, as ``silu``)."""
+    if x.is_cuda:
+        return F.gelu(x, approximate="tanh")
+    xf = x.to(torch.float32)
+    inner = _SQRT_2_OVER_PI * prng.fma(xf * xf * xf, _f32(0.044715), xf)
+    return (xf * (0.5 * (1.0 + tanh(inner)))).to(x.dtype)
 
 
 def activation(name: str):
@@ -187,5 +246,5 @@ def apply_rope(x, positions, theta: float):
 
 def softcap(x, cap: float):
     if cap and cap > 0:
-        return torch.tanh(x / cap) * cap
+        return tanh(x / cap) * cap
     return x

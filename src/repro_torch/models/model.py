@@ -1,15 +1,19 @@
 """Top-level model API (port of the reference's ``models/model.py``):
-declarations, init, the full-sequence forward and the loss, for the
-dense / vlm and ssm families.
+declarations, init, the full-sequence forward, the loss and decode, for
+every family of the zoo (dense, vlm, MoE with or without MLA, ssm, hybrid,
+audio encoder-decoder).
 
-Batch convention (text / vlm / ssm): ``{"tokens": (B,S) int, "targets":
-(B,S) int}``.  ``forward`` is the prefill / scoring forward: with
-``use_flash=True`` attention runs the Hopper flash kernel, with
+Batch conventions: text / vlm / ssm ``{"tokens": (B,S) int, "targets":
+(B,S) int}``; audio adds ``"src_embeds": (B, S // downsample, d)``, the
+frame embeddings of a stubbed frontend.  ``forward`` is the prefill /
+scoring forward: with ``use_flash=True`` attention runs the Hopper flash
+kernel (the hybrid's hd-256 windowed attention too), with
 ``use_ssm_kernel=True`` the SSD scan runs the Hopper SSD kernel (each on a
 CUDA tensor; a CPU tensor takes the kernel's plain version).
 ``decode_step`` runs one token per row against a decode cache
 (``models/cache.py``, whose ``init_cache`` and ``cache_spec`` this module
-re-exports).  Not ported yet: the audio family (ROADMAP queue A item 12).
+re-exports); ``prefill_audio_cache`` fills the audio decoder's cross K/V
+from the encoder once per request.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from repro_torch.models.common import (P, apply_norm, build, dtype_of,
                                        norm_decl, softcap)
 
 __all__ = ["model_decls", "init_params", "forward", "loss_fn",
-           "decode_step", "init_cache", "cache_spec"]
+           "decode_step", "prefill_audio_cache", "init_cache", "cache_spec"]
 
 
 def model_decls(cfg):
@@ -40,8 +44,10 @@ def model_decls(cfg):
 
 def init_params(cfg, seed_or_generator, *, device=None):
     """Random parameters in ``cfg.param_dtype``, drawn leaf by leaf in the
-    reference's (sorted-key) order from a CPU generator — an int seed or a
-    ``torch.Generator`` — and placed on ``device`` (CUDA unless asked)."""
+    reference's (sorted-key) order from a generator — an int seed (a CPU
+    generator: the same weights on every device) or a ``torch.Generator``
+    (a CUDA one draws on its card) — and placed on ``device`` (CUDA unless
+    asked)."""
     dev = resolve_device(device)
     gen = seed_or_generator
     if not isinstance(gen, torch.Generator):
@@ -71,19 +77,34 @@ def _logits(params, x, cfg):
     return softcap(logits.to(dtype_of(cfg.logits_dtype)), cfg.logit_softcap)
 
 
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def _encode(params, src_embeds, cfg):
+    """The audio encoder over (B, S_src, d) frame embeddings."""
+    src = src_embeds.to(dtype_of(cfg.compute_dtype))
+    return tfm.encoder_forward(params, src, cfg,
+                               _positions(src.shape[0], src.shape[1],
+                                          src.device))
+
+
 def forward(params, batch, cfg, *, use_flash=False, use_ssm_kernel=False):
     """Full-sequence forward -> (logits (B,S,V) in ``cfg.logits_dtype``,
-    aux loss, a zero f32 scalar for these families)."""
+    aux loss f32: the MoE routers' load-balance loss, zero for the other
+    families)."""
     _check_dtypes(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
     x = _embed(params, tokens, cfg)
-    x = tfm.backbone_forward(params, x, cfg, positions, use_flash=use_flash,
-                             use_ssm_kernel=use_ssm_kernel)
+    enc_out = None
+    if cfg.arch_type == "audio":
+        enc_out = _encode(params, batch["src_embeds"], cfg)
+    x, aux = tfm.backbone_forward(params, x, cfg,
+                                  _positions(B, S, tokens.device),
+                                  enc_out=enc_out, use_flash=use_flash,
+                                  use_ssm_kernel=use_ssm_kernel)
     x = apply_norm(params["final_norm"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
 
 
@@ -107,3 +128,19 @@ def decode_step(params, cache, tokens, index, cfg):
     x, new_cache = tfm.backbone_decode(params, x, cfg, cache, index)
     x = apply_norm(params["final_norm"], x, cfg)
     return _logits(params, x, cfg), new_cache
+
+
+def prefill_audio_cache(params, cache, src_embeds, cfg):
+    """Audio serving: run the encoder once over ``src_embeds`` (B, S_src,
+    d) and fill the decoder's cross K/V cache with every layer's
+    projections of its output (the forward's own products, layer by
+    layer)."""
+    enc_out = _encode(params, src_embeds, cfg)
+    cross = params["decoder"]["cross"]
+
+    def stacked(w, like):
+        return torch.stack([tfm.attn._heads(enc_out, w[l])
+                            for l in range(w.shape[0])]).to(like.dtype)
+
+    return {**cache, "cross": {"k": stacked(cross["wk"], cache["cross"]["k"]),
+                               "v": stacked(cross["wv"], cache["cross"]["v"])}}

@@ -17,7 +17,8 @@ from repro_torch.models.common import P, rms_norm, silu, softplus
 
 def _a_log_init(generator, shape, dtype):
     """log of uniform(1, 16), as the reference draws ``A_log``."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
     return torch.log(u * 15.0 + 1.0).to(dtype)
 
 

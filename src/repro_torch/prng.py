@@ -24,7 +24,9 @@ multiplications, divisions, square roots and selects only, which torch
 rounds the same way on every device and at every position of a tensor
 (its vectorised CPU loops would otherwise evaluate the tail of a tensor
 with another ``log`` than the body), so a slot's draw never depends on the
-batch it is computed in.
+batch it is computed in.  The same forms of exp and tanh (and ``fma``)
+serve the models on the CPU (``models/common.py``), where the reference's
+jitted programs evaluate them so.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ _TINY = float(np.finfo(np.float32).tiny)
 _NEG_ONE_UP = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 __all__ = ["key", "fold_in", "split", "bits", "uniform", "normal",
-           "randint", "gumbel", "categorical", "threefry2x32"]
+           "randint", "gumbel", "categorical", "threefry2x32", "fma", "exp",
+           "tanh", "log", "log1p"]
 
 
 def _u32(x, device=None) -> torch.Tensor:
@@ -122,10 +125,11 @@ def bits(keys: torch.Tensor, shape) -> torch.Tensor:
     return y0 ^ y1
 
 
-def _fma(a, b, c):
-    """f32 fused multiply-add, rounded once: the product is exact in f64,
-    so only the f64 sum's rounding (never seen to matter) separates it
-    from a true FMA."""
+def fma(a, b, c):
+    """f32 fused multiply-add ``a * b + c`` (``a`` a tensor; ``b``, ``c``
+    tensors or floats), rounded once, as XLA's CPU backend fuses a multiply
+    and an add: the product is exact in f64, so only the f64 sum's
+    rounding (never seen to matter) separates it from a true FMA."""
     return (a.to(torch.float64) * b + c).to(torch.float32)
 
 
@@ -142,7 +146,7 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
     it."""
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    u = _fma(_unit(keys, shape), span, float(lo))
+    u = fma(_unit(keys, shape), span, float(lo))
     return torch.clamp_min(u, float(lo))
 
 
@@ -182,28 +186,75 @@ def log(x: torch.Tensor) -> torch.Tensor:
     m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
     x2 = m * m
     x3 = x2 * m
-    y = _fma(m, _LOG_P[0], _LOG_P[1])
-    y1 = _fma(m, _LOG_P[3], _LOG_P[4])
-    y2 = _fma(m, _LOG_P[6], _LOG_P[7])
-    y = _fma(y, m, _LOG_P[2])
-    y1 = _fma(y1, m, _LOG_P[5])
-    y2 = _fma(y2, m, _LOG_P[8])
-    y = _fma(y, x3, y1)
-    y = _fma(y, x3, y2)
+    y = fma(m, _LOG_P[0], _LOG_P[1])
+    y1 = fma(m, _LOG_P[3], _LOG_P[4])
+    y2 = fma(m, _LOG_P[6], _LOG_P[7])
+    y = fma(y, m, _LOG_P[2])
+    y1 = fma(y1, m, _LOG_P[5])
+    y2 = fma(y2, m, _LOG_P[8])
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
     y = y * x3
     y = y + e * _LOG_Q1
-    out = _fma(x2, -0.5, m)
+    out = fma(x2, -0.5, m)
     out = out + y
-    out = _fma(e, _LOG_Q2, out)
+    out = fma(e, _LOG_Q2, out)
     out = torch.where(x == 0, float("-inf"), out)
     out = torch.where(x == float("inf"), float("inf"), out)
     return torch.where((x < 0) | torch.isnan(x), float("nan"), out)
 
 
+# XLA's f32 exp on the CPU (Cephes' expf): e^x = 2^n e^r with n = floor(x
+# log2 e + 1/2) clamped to +-127, r = x - n ln 2 in two steps, e^r by a
+# polynomial of degree 7, 2^n written into the exponent bits (0 at -127)
+_EXP_P = [_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1)]
+_EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(-2.12194440e-4)
+_LOG2E = _f32(1.44269504088896341)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 e^x in XLA's CPU form (bit for bit), input clamped to [-87.8,
+    88.8]."""
+    x = torch.clamp(x.to(torch.float32), _f32(-87.8), _f32(88.8))
+    n = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_EXP_C1, x)
+    r = fma(n, -_EXP_C2, r)
+    z = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = fma(z, r, c)
+    z = fma(z, r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return z * pow2
+
+
+# XLA's f32 tanh on the CPU: x clamped to +-_TANH_CLAMP, then a rational
+# function of x^2 by Horner's rule in fused multiply-adds; x itself below
+# 4e-4
+_TANH_CLAMP = _f32(7.99881172180175781)
+_TANH_NUM = [_f32(c) for c in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03)]
+_TANH_DEN = [_f32(c) for c in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03)]
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 tanh in XLA's CPU form (bit for bit)."""
+    x = x.to(torch.float32)
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    r = (xc * _horner(_TANH_NUM, x2)) / _horner(_TANH_DEN, x2)
+    return torch.where(torch.abs(x) < _f32(0.0004), x, r)
+
+
 def _horner(coeffs, x):
     p = torch.zeros_like(x)
     for c in coeffs:
-        p = _fma(p, x, c)
+        p = fma(p, x, c)
     return p
 
 
@@ -211,7 +262,7 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     """f32 ``log(1 + x)`` in XLA's form: a rational function below sqrt(2)
     - 1, else ``log(x + 1)``."""
     x2 = x * x
-    small = x + _fma(x2, -0.5, x * x2 * (_horner(_LOG1P_NUM, x)
+    small = x + fma(x2, -0.5, x * x2 * (_horner(_LOG1P_NUM, x)
                                          / _horner(_LOG1P_DEN, x)))
     return torch.where(x.abs() < _f32(0.41421356237309504880), small,
                        log(x + 1.0))
@@ -234,7 +285,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, _f32(a), _f32(b)))
+        p = fma(p, w, torch.where(lt, _f32(a), _f32(b)))
     out = p * x
     return torch.where(x.abs() == 1.0, x * float("inf"), out)
 

@@ -1,5 +1,8 @@
 """Slot-based continuous-batching LM decode engine (port of the reference's
-``serve/decode.py``) for the dense, vlm and ssm families.
+``serve/decode.py``) for every decoder-only family: dense, vlm, ssm,
+hybrid (RG-LRU), MoE with or without MLA.  The audio encoder-decoder
+needs per-request source embeddings and is served by
+``launch.serve.greedy_decode``, as in the reference.
 
 A fixed pool of ``slots`` decode slots shares ONE pre-allocated KV/state
 cache block, shaped ``(slots, max_seq)`` per the layouts of
@@ -29,7 +32,10 @@ Byte-determinism contract: a request's tokens are a pure function of
 ``(params, prompt, seed, request_id)``.  Every program runs at the fixed
 width ``slots``, so every matmul has one shape (one algorithm); a row's
 math touches only its own cache row, token and position (``attn_decode``
-takes one position per row); sampling keys are ``fold_in(fold_in(
+takes one position per row; MoE routing runs each slot as its own group,
+as the reference's per-row ``vmap`` routes one token at a time, so a slot
+never shares an expert's capacity with its batch-mates); sampling keys
+are ``fold_in(fold_in(
 key(seed), request_id), position)`` (``repro_torch.prng``); a larger
 prefill bucket only adds masked steps that are exact identities.  So slot
 assignment, batch-mates, admission order and the prefill bucket show only
@@ -120,8 +126,8 @@ class DecodeEngine:
     """Continuous-batching decode over one LM's params on ``device`` (CUDA
     unless ``"cpu"``).
 
-    ``cfg`` is a ``ModelConfig`` of the dense, vlm or ssm family,
-    ``params`` its parameter tree (the engine keeps its own copy, which
+    ``cfg`` is a ``ModelConfig`` of any family but audio, ``params`` its
+    parameter tree (the engine keeps its own copy, which
     :meth:`publish` overwrites).  Futures resolve to the
     ``(n_generated,)`` int32 token array (n <= max_new; an emitted
     ``eos_id`` is included and ends the request)."""
@@ -130,17 +136,20 @@ class DecodeEngine:
                  device=None, clock: Callable = time.monotonic):
         if cfg.arch_type == "audio":
             raise NotImplementedError(
-                "encoder-decoder decode needs per-request source embeds "
-                "(the audio family is ROADMAP queue A item 12)")
+                "encoder-decoder decode needs per-request source embeds; "
+                "use launch.serve.greedy_decode for the audio family")
         self.cfg = cfg
         self.spec = spec or DecodeSpec()
+        # one routing group per slot (C = max(ceil(k / E * cf), 1)), as the
+        # reference routes each row alone under vmap
+        self._step_cfg = (dataclasses.replace(cfg, moe_groups=self.spec.slots)
+                          if cfg.arch_type == "moe" else cfg)
         self.clock = clock
         self.device = resolve_device(device)
         S, T = self.spec.slots, self.spec.max_seq
         self._params = tree_map(
             lambda t: t.detach().to(self.device, copy=True), params)
-        # THE cache block, reused forever (cache_spec refuses the families
-        # not ported before anything is allocated)
+        # THE cache block, reused forever
         self.pool = M.init_cache(cfg, S, T, device=self.device)
         self._slot_req: list = [None] * S     # _Pending per occupied slot
         self._toks = np.zeros(S, np.int64)    # next token to feed, per slot
@@ -199,7 +208,7 @@ class DecodeEngine:
     def _step_rows(self, params, cache, toks, pos):
         """Every row one token: ((S, V) logits, the new cache)."""
         logits, nc = M.decode_step(params, cache, toks[:, None], pos,
-                                   self.cfg)
+                                   self._step_cfg)
         return logits[:, 0], nc
 
     def _decode_rows(self, st):

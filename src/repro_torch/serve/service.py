@@ -207,8 +207,8 @@ class GenerationService:
                   ) -> DecodeEngine:
         """Bind a continuous-batching decode engine so this facade
         serves LM decode alongside GAN sampling.  ``cfg``/``params`` are
-        a ``ModelConfig`` + parameter tree of the dense, vlm or ssm family
-        (the reference's federation-trained critic export,
+        a ``ModelConfig`` + parameter tree of any family but audio (the
+        reference's federation-trained critic export,
         ``core/distgan_lm.py``, is ROADMAP queue A item 12).
         ``decode`` defaults to the session spec's ``decode`` block, then
         to ``DecodeSpec()``.  The engine runs on the service's device."""

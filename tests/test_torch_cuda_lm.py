@@ -59,13 +59,15 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
-# bf16 cases of the wgmma kernel: hd 32/64/128, the ragged S 192 (a
-# 128-row tile half past S), window edges, unmasked, and one full-width
-# tinyllama head group (S 2048, 8 query heads over one kv head)
+# bf16 cases of the wgmma kernel: hd 32/64/128/256, the ragged S 192 (a
+# 128-row tile half past S), window edges, unmasked, one full-width
+# tinyllama head group (S 2048, 8 query heads over one kv head) and
+# recurrentgemma-9b's hd 256 MQA with a window (64-key kv tiles)
 _WGMMA = [(2, 192, 4, 2, 32, True, 0), (1, 192, 8, 1, 64, True, 64),
           (1, 192, 2, 2, 128, False, 0), (1, 384, 4, 1, 128, True, 128),
           (2, 256, 8, 2, 32, False, 0), (1, 2048, 8, 1, 64, True, 0),
-          (1, 2048, 8, 1, 64, True, 128)]
+          (1, 2048, 8, 1, 64, True, 128), (1, 192, 4, 1, 256, True, 0),
+          (1, 1024, 16, 1, 256, True, 300), (1, 256, 2, 2, 256, False, 0)]
 
 
 @pytest.mark.parametrize("case", _WGMMA, ids=lambda c: "-".join(map(str, c)))
@@ -183,7 +185,7 @@ def test_ssd_tf32_smem_sums_are_the_kernels(cuda, P):
 
 
 # f32 cases of the split-TF32 flash kernel (B, S, T, H, K, hd, causal,
-# window): hd 32 and 128, a window that is not a multiple of the 64-key
+# window): hd 32, 128 and 256 (8-key tiles), a window that is not a multiple of the 64-key
 # tile, unmasked, T != S (causal and not), and H / K = 8
 _FLASH_TF32 = [(2, 192, 192, 4, 2, 32, True, 0),
                (1, 256, 256, 4, 1, 128, True, 0),
@@ -192,7 +194,9 @@ _FLASH_TF32 = [(2, 192, 192, 4, 2, 32, True, 0),
                (2, 128, 320, 4, 2, 64, False, 0),
                (1, 320, 128, 4, 2, 32, True, 0),
                (1, 256, 256, 16, 2, 64, True, 0),
-               (1, 2048, 2048, 8, 1, 64, True, 0)]
+               (1, 2048, 2048, 8, 1, 64, True, 0),
+               (1, 320, 320, 16, 1, 256, True, 100),
+               (2, 128, 192, 4, 2, 256, False, 0)]
 
 
 @pytest.mark.parametrize("case", _FLASH_TF32,

@@ -162,13 +162,23 @@ def test_per_row_positions_equal_one_row_at_a_time():
 
 
 def test_cache_sizes_and_the_families_still_to_port():
+    """The SSM cache is O(1) in sequence length; the families ported last
+    (hybrid, MoE + MLA, audio, MoE) have the reference's cache sizes, the
+    hybrid's bounded by its window."""
+    from repro.configs.base import get_config as jax_config
+    from repro.models.cache import cache_spec as jax_spec
     cfg = get_config("mamba2-780m").reduced()
     size = lambda c: sum(np.prod(s.shape) for s in tree_leaves(c))
     assert size(cache_spec(cfg, 2, 1024)) == size(cache_spec(cfg, 2, 524288))
     for arch in ("recurrentgemma-9b", "deepseek-v2-lite-16b",
                  "seamless-m4t-medium", "deepseek-moe-16b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cache_spec(get_config(arch).reduced(), 2, 16)
+        for T in (16, 524288):
+            assert size(cache_spec(get_config(arch).reduced(), 2, T)) == \
+                sum(np.prod(s.shape) for s in jax.tree.leaves(
+                    jax_spec(jax_config(arch).reduced(), 2, T)))
+    hybrid = get_config("recurrentgemma-9b").reduced()
+    assert size(cache_spec(hybrid, 2, 1024)) == \
+        size(cache_spec(hybrid, 2, 524288))
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-780m",

@@ -3,8 +3,8 @@ on the CPU: an emulation of its arithmetic in PyTorch held to the JAX
 reference, and the dtype routing of the wrapper.
 
 The emulation repeats what the kernel does, tile by tile: bf16 inputs,
-128-row query tiles and 128-key kv tiles (keys past T zero, as TMA fills
-them), f32 scores, the row max taken on the raw scores and moved to units
+128-row query tiles and 128-key kv tiles (64-key at hd 256; keys past T
+zero, as TMA fills them), f32 scores, the row max taken on the raw scores and moved to units
 of ``scale * log2(e)``, ``p = exp2(s * scale * log2(e) - m)`` (one FMA in
 the kernel), kv tiles that the mask hides entirely skipped, masks only on
 tiles that straddle the diagonal, a window edge or T, ``p`` rounded to bf16
@@ -39,7 +39,8 @@ def wgmma_emulation(q, k, v, *, causal, window, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
-    t_pad = -(-T // TILE) * TILE
+    KV = 64 if hd == 256 else TILE         # keys per kv tile
+    t_pad = -(-T // KV) * KV
     kf = torch.zeros((B, t_pad, H, hd))
     vf = torch.zeros((B, t_pad, H, hd))
     kf[:, :T] = k.float().repeat_interleave(H // K, dim=2)
@@ -56,14 +57,14 @@ def wgmma_emulation(q, k, v, *, causal, window, scale=None):
         m = torch.full((B, H, TILE), MASK)
         l = torch.zeros((B, H, TILE))
         acc = torch.zeros((B, H, TILE, hd))
-        for t in range(kv_first // TILE, -(-kv_end // TILE)):
-            k0 = t * TILE
-            keys = torch.arange(k0, k0 + TILE)
-            s = torch.einsum("bqhd,bkhd->bhqk", qt, kf[:, k0:k0 + TILE])
-            need_mask = (k0 + TILE > T or (causal and k0 + TILE - 1 > q0)
+        for t in range(kv_first // KV, -(-kv_end // KV)):
+            k0 = t * KV
+            keys = torch.arange(k0, k0 + KV)
+            s = torch.einsum("bqhd,bkhd->bhqk", qt, kf[:, k0:k0 + KV])
+            need_mask = (k0 + KV > T or (causal and k0 + KV - 1 > q0)
                          or (window > 0 and k0 <= q0 + TILE - 1 - window))
             if need_mask:
-                ok = (keys < T)[None, :].expand(TILE, TILE)
+                ok = (keys < T)[None, :].expand(TILE, KV)
                 if causal:
                     ok = ok & (keys[None, :] <= rows[:, None])
                 if window:
@@ -77,7 +78,7 @@ def wgmma_emulation(q, k, v, *, causal, window, scale=None):
             l = alpha * l + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
-                vf[:, k0:k0 + TILE])
+                vf[:, k0:k0 + KV])
             m = mx
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n] = o.permute(0, 2, 1, 3)[:, :n].to(torch.bfloat16)
@@ -90,8 +91,9 @@ def _qkv(B, S, H, K, hd, seed):
                  ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
 
 
-# (B, S, H, K, hd, causal, window): head dims 32/64/128; MHA, GQA 2 and 8;
-# causal, windows 64 and 128, unmasked; S 192 runs a ragged 128-row tile
+# (B, S, H, K, hd, causal, window): head dims 32/64/128/256; MHA, GQA 2
+# and 8, MQA at hd 256 (recurrentgemma-9b's); causal, windows 64, 100 and
+# 128, unmasked; S 192 runs a ragged 128-row tile
 _CASES = [
     (1, 256, 2, 2, 32, True, 0),
     (1, 256, 4, 2, 64, True, 0),
@@ -105,6 +107,8 @@ _CASES = [
     (1, 192, 2, 2, 128, True, 64),
     (1, 192, 8, 1, 32, False, 0),
     (2, 192, 4, 4, 64, True, 128),
+    (1, 256, 4, 1, 256, True, 64),
+    (1, 192, 2, 1, 256, True, 100),
 ]
 
 

@@ -36,6 +36,7 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.serve.scheduler, repro_torch.serve.service, "
             "repro_torch.serve.decode, repro_torch.serve.program, "
             "repro_torch.models.cache, repro_torch.models.model, "
+            "repro_torch.models.moe, repro_torch.models.rglru, "
             "repro_torch.data.synthetic, repro_torch.launch.serve, "
             "repro_torch.profile_serve; "
             "bad = sorted(m for m in sys.modules "

@@ -254,10 +254,20 @@ def test_init_params_tree_matches_reference(arch):
 
 
 def test_unported_families_raise():
+    """The families ported last (MoE, hybrid, audio, MoE + MLA) raise no
+    more: their declarations equal the reference's, reduced and at full
+    width, and their parameter trees have the reference's leaves."""
     for arch in ("deepseek-moe-16b", "recurrentgemma-9b",
                  "seamless-m4t-medium", "deepseek-v2-lite-16b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.model_decls(get_config(arch).reduced())
+        for jcfg, tcfg in ((jget_config(arch), get_config(arch)),
+                           _cfgs(arch)):
+            assert _decl_table(TM.model_decls(tcfg), tcommon.P) == \
+                _decl_table(JM.model_decls(jcfg), jcommon.P)
+        jcfg, tcfg = _cfgs(arch)
+        jp = jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.key(0)))
+        tp = TM.init_params(tcfg, 0, device="cpu")
+        assert [tuple(l.shape) for l in jax.tree.leaves(jp)] == \
+            [tuple(t.shape) for t in tcommon.tree_leaves(tp)]
 
 
 def test_params_round_trip_through_numpy():
