@@ -218,7 +218,42 @@ it goes wrong:
    depth through ``greedy_decode`` with ``src_embeds``; (d) the reduced
    f32 config of each family from one seed on the card and on the CPU:
    forward logits within ``ZOO_CPU_TOL`` and greedy tokens equal;
-17. the result: a ``kernels`` JSON line, the card line, and as the last
+17. LM training at full width (``launch/steps.py``; every kernel off, as
+   the reference trains: B1-B5's counts, zeroed before it, must stay 0) —
+   tinyllama-1.1b in bf16, weights drawn on the card, ``TokenStream``
+   batches, ``make_train_step`` at B 1 x 2048 with ``remat`` none and
+   full, and at B 4 x 2048 with full and offloadable-dots (B 4 without
+   remat is reckoned, not run: its attention scores alone take ~71 GB);
+   per run the median ms of TRAIN_STEPS steps after TRAIN_WARM, peak GB,
+   the forward + backward and the optimizer (``opt.update`` +
+   ``apply_updates``) timed apart, the bound (6 x matmul parameters x
+   tokens + the dense attention's 3 x 4 B H S^2 hd a layer, at 989
+   TFLOP/s; the optimizer's 38 B a parameter at 3.35 TB/s), a finite loss
+   and grad norm, and weights that moved;
+18. train step card vs CPU — every family's reduced f32 config, one step
+   from the same weights and batch: the loss at rtol 1e-5, the grad norm
+   and every gradient leaf within TRAIN_ULP_FACTOR x the port's own
+   one-ULP floor on the CPU (weights, or elementwise outputs, moved one
+   ULP);
+19. the train launcher (``python -m repro_torch.launch.train``, the
+   reference's launcher case) on the card: 16 steps with checkpoints every
+   8, the loss falls; 8 steps into a fresh directory, then 16 into the
+   same: ``restored step 8``, the restored weights the saved ones bitwise
+   (sha256), finite losses (weights only are restored, as the reference);
+20. the Distributed-GAN protocol over backbone critics
+   (``core/distgan_lm.py``): (a) the reference's own case, approach 2, 2
+   users, tinyllama-1.1b and mamba2-780m critics reduced to V 64, d 64,
+   seq 16, 6 rounds (chunks of 3), batch 8, the fused engine under
+   graphs: finite losses, samples (16, 16, 64), the same run on the CPU
+   within CRITIC_CPU_TOL; (b) approach 1, ``topk_int8`` + EF, a cohort of all 8
+   users, tinyllama-1.1b's reduced() critic (row N printed), 32 rounds
+   under graphs: one B1, quantize and dequantize launch a round
+   (asserted), then one more round eagerly whose rows B1 and B2 are held
+   BITWISE to their plain versions on and timed at; ms a round; (c) (b)'s
+   server D exported by ``critic_lm_params`` and served through
+   ``GenerationService.attach_lm``: every T 0 request equal to a plain
+   ``decode_step`` loop at the pool's width, bitwise;
+21. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -315,6 +350,42 @@ ZOO_DECODE_LAYERS = {"recurrentgemma-9b": 5, "deepseek-moe-16b": 3,
                      "deepseek-v2-lite-16b": 3}
 AUDIO_GREEDY = dict(batch=4, prompt=16, new=32)
 ZOO_CPU_TOL = 2e-3
+# LM training (phases 17-20): tinyllama-1.1b at full width in bf16 through
+# launch.steps.make_train_step, (batch, seq, remat) per run; B 4 x 2048
+# without remat is reckoned, not run (TRAIN_RECKONED).  Step ms: median of
+# TRAIN_STEPS after TRAIN_WARM; the fwd + bwd and the optimizer (update +
+# apply) timed apart over TRAIN_PHASE_STEPS more.
+TRAIN_ARCH, TRAIN_LR = "tinyllama-1.1b", 3e-4
+TRAIN_RUNS = ((1, 2048, "none"), (1, 2048, "full"), (4, 2048, "full"),
+              (4, 2048, "offloadable-dots"))
+TRAIN_RECKONED = (4, 2048)
+TRAIN_WARM, TRAIN_STEPS, TRAIN_PHASE_STEPS = 2, 5, 3
+# The optimizer's bytes a parameter (bf16 weights and grads, f32 moments,
+# the f64 update tree): read p, g, mu, nu; write mu, nu, the update; read
+# the update; write p
+OPT_BYTES_PER_PARAM = 2 + 2 + 8 + 8 + 8 + 8 + 2
+# card vs CPU train step, every family's reduced f32 config: within
+# TRAIN_ULP_FACTOR x the port's own one-ULP floor on the CPU (how far its
+# gradients and grad norm move when every weight, or every elementwise
+# output, moves one ULP), at least the family logits tolerance of the CPU
+# tests (tests/test_torch_train.py)
+TRAIN_ULP_FACTOR = 3
+TRAIN_FAMILY_TOL = {"seamless-m4t-medium": 5e-4}
+# the train launcher as a user runs it (tests/test_system.py's case)
+LAUNCH_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "4",
+               "--seq", "64", "--lr", "2e-3", "--warmup", "2",
+               "--ckpt-every", "8"]
+# Distributed-GAN over backbone critics: (a) the reference's own case
+# (tests/test_perf_variants.py), approach 2, 2 users, reduced critics at
+# these widths, seq 16, 6 rounds in chunks of 3, batch 8, card vs CPU
+# within CRITIC_CPU_TOL (losses and samples; measured 1.2e-5); (b)
+# approach 1, topk_int8 + EF, a cohort of all 8 users, tinyllama-1.1b's
+# reduced() critic, 32 rounds under graphs
+CRITIC_SMALL = dict(vocab_size=64, d_model=64, num_heads=2, num_kv_heads=2,
+                    head_dim=32, d_ff=128)
+CRITIC_A = dict(users=2, seq=16, rounds=6, batch=8, samples=16, rpj=3)
+CRITIC_B = dict(users=8, seq=32, rounds=32, batch=8, rpj=16)
+CRITIC_CPU_TOL = 1e-4
 
 
 def _fail(msg: str) -> int:
@@ -2127,20 +2198,21 @@ def _conv_width_kernels(torch, dev, recs) -> int:
 
 
 def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
-                key: str) -> int:
+                key: str, x=None) -> int:
     """B1 and B2 on (rows, n) Adam-sized deltas (one row of heavy ties,
-    one half sparse where there are enough rows), held BITWISE to their
-    plain versions and timed; the times go into each record under
-    ``key``.  Returns the number of cases."""
+    one half sparse where there are enough rows), or on the given rows
+    ``x``, held BITWISE to their plain versions and timed; the times go
+    into each record under ``key``.  Returns the number of cases."""
     from repro_torch.kernels import quantize as tq
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_select as tt
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((rows, n), generator=gen, device=dev) * 2e-4
-    if rows > 5:
-        x[1] = torch.round(x[1] * 2e4) / 2e4             # heavy ties
-        x[5, : n // 2] = 0.0                             # half-sparse row
+    if x is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((rows, n), generator=gen, device=dev) * 2e-4
+        if rows > 5:
+            x[1] = torch.round(x[1] * 2e4) / 2e4         # heavy ties
+            x[5, : n // 2] = 0.0                         # half-sparse row
     cases = 0
     for frac in (FRAC, 0.01, 1.0):
         cases += 1
@@ -3657,6 +3729,493 @@ def _zoo_phases(torch, dev, card: str) -> list:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# LM training (phases 17-20)
+# ---------------------------------------------------------------------------
+
+def _matmul_params(cfg) -> int:
+    """Parameters of a dense stack's weight matmuls (every layer's
+    attention and MLP projections, the unembedding): what a token's
+    forward multiplies by, twice an element."""
+    d, L = cfg.d_model, cfg.num_layers
+    attn = d * cfg.num_heads * cfg.head_dim * 2 + \
+        d * cfg.num_kv_heads * cfg.head_dim * 2
+    return L * (attn + 3 * d * cfg.d_ff) + d * cfg.vocab_size
+
+
+def _train_reckoning(cfg, B: int, S: int, n_params: int) -> dict:
+    """GB a dense train step needs without remat: the plain attention
+    keeps its f32 softmax and the bf16 copy (6 B a score) for each layer
+    under autograd, on top of bf16 weights and grads, f32 moments and the
+    f64 update tree (20 B a parameter)."""
+    scores = 6 * B * cfg.num_heads * S * S * cfg.num_layers / 1e9
+    fixed = 20 * n_params / 1e9
+    return {"batch": B, "seq": S, "remat": "none",
+            "attention_scores_gb": scores, "fixed_gb": fixed,
+            "total_gb": scores + fixed}
+
+
+def _events(torch):
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _train_full_phase(torch, dev, card: str) -> list:
+    """Phase 17: tinyllama-1.1b at full width in bf16, weights drawn on the
+    card, TokenStream batches, through launch.steps.make_train_step, per
+    TRAIN_RUNS: ms a step (median), peak GB, fwd + bwd and optimizer ms
+    timed apart, the bound, a finite loss and grad norm, weights moved.
+    Kernels are off (training runs the plain path, as the reference):
+    B1-B5's counts must stay 0."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (loss_and_grads, make_optimizer,
+                                          make_train_step)
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import apply_updates, global_norm_clip
+    from repro_torch.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S, bound_ms
+
+    base = _zoo_cfg(TRAIN_ARCH)
+    held = _free(torch)                 # GB the earlier phases still hold
+    params, draw_s = _draw_params(torch, M, base, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_mm = _matmul_params(base)
+    lines = [{"arch": TRAIN_ARCH, "params": n_params,
+              "matmul_params": n_mm, "dtype": base.param_dtype,
+              "weights_drawn_s": draw_s},
+             dict(_train_reckoning(base, *TRAIN_RECKONED, n_params),
+                  not_run="the reckoning is past the card's 80 GB")]
+    for line in lines:
+        print(f"[train] {card} | " + json.dumps(line), flush=True)
+    probe = lambda: (params["final_norm"]["scale"].clone(),
+                     params["layers"]["mlp"]["w_down"][0, :4].clone())
+    for B, S, remat in TRAIN_RUNS:
+        cfg = dataclasses.replace(base, remat=remat)
+        stream = TokenStream(cfg.vocab_size, S, B, seed=0)
+        batches = [{k: v.to(dev) for k, v in stream.batch(i).items()}
+                   for i in range(TRAIN_WARM + TRAIN_STEPS
+                                  + TRAIN_PHASE_STEPS)]
+        step, opt = make_train_step(cfg, make_optimizer(cfg, TRAIN_LR))
+        st = opt.init(params)
+        before = probe()
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms = []
+        for i in range(TRAIN_WARM + TRAIN_STEPS):
+            s_ev, e_ev = _events(torch)
+            s_ev.record()
+            params, st, m = step(params, st, batches[i])
+            e_ev.record()
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARM:
+                ms.append(s_ev.elapsed_time(e_ev))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        moved = [not torch.equal(a, b) for a, b in zip(before, probe())]
+        if not (np.isfinite(loss) and np.isfinite(gnorm) and all(moved)):
+            raise AssertionError(f"train step B {B} remat {remat}: loss "
+                                 f"{loss} grad norm {gnorm} moved {moved}")
+        fb_ms, opt_ms = [], []
+        for batch in batches[TRAIN_WARM + TRAIN_STEPS:]:
+            a0, a1 = _events(torch)
+            b0, b1 = _events(torch)
+            a0.record()
+            _, _, grads = loss_and_grads(params, batch, cfg)
+            a1.record()
+            grads, _ = global_norm_clip(grads, 1.0)
+            b0.record()
+            with torch.no_grad():
+                apply_updates(params, opt.update(grads, st, params))
+            b1.record()
+            torch.cuda.synchronize()
+            del grads
+            fb_ms.append(a0.elapsed_time(a1))
+            opt_ms.append(b0.elapsed_time(b1))
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"training launched kernels: {counts}")
+        tokens = B * S
+        flops = 6 * n_mm * tokens + 3 * 4 * B * cfg.num_heads * S * S * \
+            cfg.head_dim * cfg.num_layers
+        opt_bytes = OPT_BYTES_PER_PARAM * n_params
+        bound, by = bound_ms(opt_bytes, flops, BF16_OPS_PER_S)
+        step_ms = statistics.median(ms)
+        opt_med = statistics.median(opt_ms)
+        lines.append({
+            "batch": B, "seq": S, "remat": remat, "ms_per_step": step_ms,
+            "ms_steps": ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": peak, "peak_gb_of_the_step": peak - held,
+            "fwd_bwd_ms": statistics.median(fb_ms),
+            "optimizer_ms": opt_med, "optimizer_share": opt_med / step_ms,
+            "optimizer_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+            "flop": flops, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / step_ms, "loss": loss,
+            "grad_norm": gnorm})
+        print(f"[train] {card} | " + json.dumps(lines[-1]), flush=True)
+        del st, batches, step, opt
+    del params
+    _free(torch)
+    return lines
+
+
+def _one_ulp_torch(torch, params, seed: int):
+    """Every f32 leaf moved one ULP up or down (seeded signs)."""
+    from repro_torch.models.common import tree_map
+    gen = torch.Generator().manual_seed(seed)
+
+    def bump(t):
+        up = torch.rand(t.shape, generator=gen) < 0.5
+        to = torch.where(up, torch.full_like(t, float("inf")),
+                         torch.full_like(t, float("-inf")))
+        return torch.nextafter(t, to)
+
+    return tree_map(bump, params)
+
+
+class _ElementwiseUlp:
+    """On the CPU, every output of ``models.common``'s elementwise
+    functions (exp, sigmoid, tanh, softplus, log_sigmoid: silu and gelu go
+    through them) moved one ULP up or down (seeded signs), the gradient
+    path kept: the size of the difference between XLA's formulas (the
+    CPU's) and the card's libm, each within an ULP or two."""
+
+    NAMES = ("_exp", "_sigmoid", "_tanh", "_softplus", "_log_sigmoid")
+
+    def __init__(self, torch, seed: int):
+        from repro_torch.models import common
+        self.torch, self.common = torch, common
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def _noisy(self, fn):
+        torch, gen = self.torch, self.gen
+
+        def noisy(x):
+            y = fn(x)
+            up = torch.rand(y.shape, generator=gen) < 0.5
+            to = torch.where(up, torch.full_like(y, float("inf")),
+                             torch.full_like(y, float("-inf")))
+            return y + (torch.nextafter(y, to) - y).detach()
+
+        return noisy
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.common, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(self.common, n, self._noisy(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.common, n, fn)
+
+
+def _train_cpu_agreement(torch, dev) -> dict:
+    """Phase 18: every family's reduced f32 config takes one train step on
+    the card and on the CPU from the same weights and batch: the loss at
+    rtol 1e-5, the grad norm and every gradient leaf within
+    TRAIN_ULP_FACTOR x the port's own one-ULP floor on the CPU (at least
+    the family tolerance): the larger of how far its gradients move when
+    every weight moves one ULP and when every elementwise output does
+    (``_ElementwiseUlp``: the card's libm against XLA's formulas).  The
+    hybrid's RG-LRU gate takes sqrt(1 - a^2) with a near 1, so its
+    gradients move ~60 % under the latter at random init: there the loss
+    is the sharp check.  Returns each family's gaps, floors and worst
+    leaf; raises after all families, naming those outside."""
+    import numpy as np
+
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.data.synthetic import synthetic_batch_for
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    out, bad = {}, []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        cpu = M.init_params(cfg, 1, device="cpu")
+        batch = synthetic_batch_for(cfg, 2, 32)
+        _, _, g0 = loss_and_grads(cpu, batch, cfg)
+        moved = [loss_and_grads(_one_ulp_torch(torch, cpu, 0), batch,
+                                cfg)[2]]
+        with _ElementwiseUlp(torch, 0):
+            moved.append(loss_and_grads(cpu, batch, cfg)[2])
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        floors = [max(rel(a, b) for a, b in zip(tree_leaves(g),
+                                                tree_leaves(g0)))
+                  for g in moved]
+        floor = max(floors)
+        step, opt = make_train_step(cfg)
+        _, _, mc = step(cpu, opt.init(cpu), batch)
+        card = tree_map(lambda t: t.to(dev), M.init_params(cfg, 1,
+                                                           device="cpu"))
+        dbatch = {k: v.to(dev) for k, v in batch.items()}
+        _, _, gd = loss_and_grads(card, dbatch, cfg)
+        step, opt = make_train_step(cfg)
+        _, _, mdev = step(card, opt.init(card), dbatch)
+        norm = lambda leaves: float(torch.sqrt(sum((g.double() ** 2).sum()
+                                                   for g in leaves)))
+        # |norm(a) - norm(b)| <= norm(a - b): the floor of the norm is the
+        # whole gradient's relative L2 move
+        norm_floor = max(norm([a - b for a, b in zip(tree_leaves(g),
+                                                     tree_leaves(g0))])
+                         for g in moved) / norm(tree_leaves(g0))
+        tol = max(TRAIN_FAMILY_TOL.get(cfg.name, 2e-4),
+                  TRAIN_ULP_FACTOR * floor)
+        norm_tol = max(1e-5, TRAIN_ULP_FACTOR * norm_floor)
+        paths = _leaf_paths(g0)
+        gaps = {p: rel(a.cpu(), b) for p, a, b in
+                zip(paths, tree_leaves(gd), tree_leaves(g0))}
+        worst = max(gaps, key=gaps.get)
+        loss_gap = abs(float(mdev["loss"]) - float(mc["loss"])) / abs(
+            float(mc["loss"]))
+        norm_gap = abs(float(mdev["grad_norm"]) - float(mc["grad_norm"])) \
+            / float(mc["grad_norm"])
+        out[cfg.name] = {"loss_rel": loss_gap, "grad_norm_rel": norm_gap,
+                         "grad_norm_tol": norm_tol, "grad_rel": gaps[worst],
+                         "worst_leaf": worst, "weights_floor": floors[0],
+                         "elementwise_floor": floors[1], "grad_tol": tol}
+        if not (loss_gap <= 1e-5 and norm_gap <= norm_tol
+                and gaps[worst] <= tol and np.isfinite(float(mdev["loss"]))):
+            bad.append(cfg.name)
+    if bad:
+        raise AssertionError(f"card vs CPU train step outside: {bad}: "
+                             f"{json.dumps(out)}")
+    return out
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """'/'-joined key paths of a nested dict's leaves, in ``tree_leaves``
+    order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def _launch_train(args: list, timeout: int = 300):
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args], capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"train launcher {args} failed: "
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return r.stdout
+
+
+def _launcher_phase() -> dict:
+    """Phase 19: ``python -m repro_torch.launch.train`` on the card as a
+    user runs it: 16 steps with checkpoints every 8 (the loss falls),
+    then 8 steps into a fresh directory and 16 into the same one, which
+    must restore step 8 with the saved weights bitwise (sha256 of the
+    weights' bytes at save and at restore) and log finite losses."""
+    import re
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_step
+
+    root = CKPT_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = _launch_train(LAUNCH_ARGS + ["--steps", "16", "--ckpt-dir",
+                                       str(root / "a")])
+    run_s = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"loss=([\d.]+)", out)]
+    if "step 15" not in out or not losses[-1] < losses[0] or \
+            latest_step(str(root / "a")) != 16:
+        raise AssertionError(f"train launcher: {out[-2000:]}")
+    first = _launch_train(LAUNCH_ARGS + ["--steps", "8", "--ckpt-dir",
+                                         str(root / "b")])
+    second = _launch_train(LAUNCH_ARGS + ["--steps", "16", "--ckpt-dir",
+                                          str(root / "b")])
+    saved = re.search(r"saved step 8 weights sha256 (\w+)", first)
+    restored = re.search(r"restored weights sha256 (\w+)", second)
+    resumed = [float(x) for x in re.findall(r"loss=([\d.]+)", second)]
+    if f"restored step 8 from {root / 'b'}" not in second or not saved or \
+            not restored or saved[1] != restored[1] or not resumed or \
+            not np.all(np.isfinite(resumed)):
+        raise AssertionError(f"train launcher resume: {second[-2000:]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"losses_first_last": [losses[0], losses[-1]],
+            "run_16_steps_s": run_s, "resumed_at": 8,
+            "weights_sha256_equal": True, "resumed_losses": resumed}
+
+
+def _critic_pair(small: bool, arch: str, seq: int):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.distgan_lm import LMGanConfig, make_lm_pair
+    bb = get_config(arch).reduced()
+    if small:
+        bb = dataclasses.replace(bb, **CRITIC_SMALL)
+    cfg = LMGanConfig(backbone=bb, seq_len=seq,
+                      **(dict(z_dim=32, g_hidden=64) if small else {}))
+    return cfg, make_lm_pair(cfg)
+
+
+def _token_dataset(users: int, vocab: int, seq: int):
+    """Each user's stream follows its own bigram (a, c)."""
+    from repro_torch.core.distgan_lm import user_token_stream
+    from repro_torch.data.federated import FederatedDataset
+    streams = [user_token_stream(vocab, seq, a=3 + 2 * u, c=7 + 4 * u)
+               for u in range(users)]
+    return FederatedDataset(streams, lambda rng, n: streams[0](rng, n), {})
+
+
+class _RecordingOps:
+    """``kernels.ops`` for ``core/federated.py`` that keeps a copy of the
+    rows handed to B1 and B2 (and the codec's arguments)."""
+
+    def __init__(self, ops):
+        self.ops, self.seen = ops, {}
+
+    def __getattr__(self, name):
+        return getattr(self.ops, name)
+
+    def topk_mask(self, rows, frac, mode="global"):
+        self.seen["topk"] = (rows.clone(), frac)
+        return self.ops.topk_mask(rows, frac, mode)
+
+    def quantize_rows(self, x, *, stochastic=False, seed=None):
+        self.seen["quantize"] = (x.clone(), stochastic, seed)
+        return self.ops.quantize_rows(x, stochastic=stochastic, seed=seed)
+
+
+def _distgan_lm_phase(torch, dev, recs, card: str):
+    """Phase 20: the Distributed-GAN protocol over backbone critics.  (a)
+    the reference's case on the fused engine under graphs, card vs CPU;
+    (b) approach 1 with topk_int8 + EF on tinyllama's reduced critic, 32
+    rounds under graphs, one B1, quantize and dequantize launch a round,
+    then B1 and B2 held bitwise to their plain versions on the rows of one
+    more round of that run (eager) and timed there.  Returns (lines,
+    launch totals of (b), the session of (b))."""
+    import numpy as np
+
+    from repro_torch.core import federated as tfed
+    from repro_torch.core.approaches import DistGANConfig, d_flat_layout
+    from repro_torch.kernels import ops
+
+    lines = []
+    a = CRITIC_A
+    for arch in ("tinyllama-1.1b", "mamba2-780m"):
+        runs = {}
+        for where in (dev, "cpu"):
+            cfg, pair = _critic_pair(True, arch, a["seq"])
+            sess = _session(pair, _token_dataset(a["users"], 64, a["seq"]),
+                            a["users"], "none", False, where,
+                            batch=a["batch"], rpj=a["rpj"],
+                            eval_samples=a["samples"],
+                            approach="approach2",
+                            fcfg=DistGANConfig(num_users=a["users"]))
+            ops.reset_launch_counts()
+            runs[str(where)] = sess.run(a["rounds"])
+            if str(where) != "cpu" and any(ops.launch_counts().values()):
+                raise AssertionError(f"approach 2 launched kernels: "
+                                     f"{ops.launch_counts()}")
+        r, c = runs[str(dev)], runs["cpu"]
+        gaps = {"g_loss": float(np.abs(r.g_losses - c.g_losses).max()),
+                "d_loss": float(np.abs(r.d_losses - c.d_losses).max()),
+                "samples": float(np.abs(r.samples - c.samples).max())}
+        if not (np.all(np.isfinite(r.g_losses))
+                and r.samples.shape == (a["samples"], a["seq"], 64)
+                and max(gaps.values()) <= CRITIC_CPU_TOL):
+            raise AssertionError(f"{arch} critic federation: {gaps}, "
+                                 f"samples {r.samples.shape}")
+        lines.append({"run": f"(a) approach2 {arch} critic U {a['users']}",
+                      "rounds": a["rounds"], "rounds_per_chunk": a["rpj"],
+                      "ms_per_round": r.step_time_s * 1e3,
+                      "first_chunk_s": r.extra["compile_s"],
+                      "card_vs_cpu": gaps, "samples": list(r.samples.shape)})
+
+    b = CRITIC_B
+    cfg, pair = _critic_pair(False, "tinyllama-1.1b", b["seq"])
+    n = d_flat_layout(pair).n
+    fcfg = DistGANConfig(num_users=b["users"], upload_frac=FRAC)
+    sess = _session(pair, _token_dataset(b["users"], cfg.backbone.vocab_size,
+                                         b["seq"]), b["users"], "topk_int8",
+                    False, dev, batch=b["batch"], rpj=b["rpj"],
+                    eval_samples=16, scheduler="uniform", cohort=b["users"],
+                    ef=True, fcfg=fcfg)
+    ops.reset_launch_counts()
+    res = sess.run(b["rounds"])
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(topk_mask_rows=b["rounds"], quantize_rows=b["rounds"],
+                dequantize_rows=b["rounds"])
+    if counts != want or not np.all(np.isfinite(res.g_losses)):
+        raise AssertionError(f"(b) launches {counts} != {want} or losses")
+    rec_ops = _RecordingOps(tfed.kops)
+    tfed.kops = rec_ops
+    try:
+        _eager_twin(sess).run(1)
+    finally:
+        tfed.kops = ops
+    rows, frac = rec_ops.seen["topk"]
+    qx, stochastic, seed = rec_ops.seen["quantize"]
+    if stochastic or tuple(rows.shape) != (b["users"], n):
+        raise AssertionError(f"(b) rows {tuple(rows.shape)}")
+    cases = _kernels_at(torch, dev, recs, b["users"], n, 0,
+                        "at_lm_critic_rows", x=rows)
+    cases += _kernels_at(torch, dev, recs, b["users"], n, 0,
+                         "at_lm_critic_codec_rows", x=qx)
+    lines.append({
+        "run": f"(b) approach1 topk_int8+EF {TRAIN_ARCH} reduced critic "
+               f"U {b['users']} (cohort of all)", "row_n": n,
+        "rounds": b["rounds"], "launches": counts,
+        "ms_per_round": res.step_time_s * 1e3,
+        "best_chunk_ms_per_round": res.extra["min_step_time_s"] * 1e3,
+        "first_chunk_s": res.extra["compile_s"],
+        "g_loss_first_last": [float(res.g_losses[0]),
+                              float(res.g_losses[-1])],
+        "kernels_bitwise_on_run_rows": cases})
+    return lines, counts, sess, cfg
+
+
+def _critic_serve_phase(torch, dev, sess, cfg) -> dict:
+    """Phase 20 (c): (b)'s server D exported by critic_lm_params under
+    critic_lm_config, attached to a GenerationService on the card: every
+    T 0 request equals a plain decode_step loop at the pool's width,
+    bitwise; no kernel launched."""
+    import numpy as np
+
+    from repro_torch.core.distgan_lm import (critic_lm_config,
+                                             critic_lm_params)
+    from repro_torch.core.spec import DecodeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationService
+
+    lm_cfg = critic_lm_config(cfg)
+    params = critic_lm_params(sess._driver.state.server_d)
+    svc = GenerationService.from_session(sess)
+    svc.attach_lm(lm_cfg, params, decode=DecodeSpec(**DECODE))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, lm_cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(*DECODE_PROMPTS, 4)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [svc.submit_decode(i, p, DECODE_NEW, request_id=i)
+            for i, p in enumerate(prompts)]
+    svc.drain()
+    served_s = time.perf_counter() - t0
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"critic decode launched kernels: "
+                             f"{ops.launch_counts()}")
+    want, _ = _eager_greedy(torch, M, lm_cfg, params, prompts, dev)
+    for f, w in zip(futs, want):
+        if not np.array_equal(f.result(), w):
+            raise AssertionError("served critic != plain decode_step loop")
+    return {"requests": len(prompts), "new_tokens": DECODE_NEW,
+            "served_s": served_s, "equal_to_plain_loop": True}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -3833,6 +4392,29 @@ def main() -> int:
     print(f"[decode] {time.perf_counter() - t0:.1f} s", flush=True)
 
     zoo_recs = _zoo_phases(torch, dev, card)
+
+    t0 = time.perf_counter()
+    _train_full_phase(torch, dev, card)
+    print(f"[train] {time.perf_counter() - t0:.1f} s", flush=True)
+    worst = _train_cpu_agreement(torch, dev)
+    print(f"[check] card vs CPU train step, every family reduced: "
+          f"{json.dumps(worst)}", flush=True)
+    t0 = time.perf_counter()
+    print(f"[train] launcher {card} | " + json.dumps(_launcher_phase()),
+          flush=True)
+    print(f"[train] launcher {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    lines, critic_counts, critic_sess, critic_cfg = _distgan_lm_phase(
+        torch, dev, recs, card)
+    for line in lines:
+        print(f"[critic] {card} | " + json.dumps(line), flush=True)
+    for rec in recs:
+        rec["launches"] += critic_counts.get(rec["name"], 0)
+    print(f"[critic] serve {card} | " + json.dumps(_critic_serve_phase(
+        torch, dev, critic_sess, critic_cfg)), flush=True)
+    del critic_sess
+    print(f"[critic] {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": recs + [block_rec] + lm_recs + zoo_recs}))
     print(card)

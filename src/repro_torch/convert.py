@@ -4,7 +4,9 @@ port as numpy.
 ``params_from_numpy(tree, device, dtype=None)`` takes any nested dict of
 numpy floating leaves (a model's parameter tree exported from JAX, bf16
 leaves included) and builds the port's tree of tensors on ``device``;
-``params_to_numpy`` goes the other way.
+``params_to_numpy`` goes the other way.  ``opt_state_from_numpy`` carries
+an optimizer state (the LM train step's ``{"mu", "nu", "step"}``): f32
+moments, the int32 step.
 
 ``state_from_numpy(tree, device)`` takes a reference ``DistGANState``
 exported as numpy — a mapping (or an object with the same attributes)
@@ -110,6 +112,12 @@ def params_from_numpy(tree, device, dtype=None):
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     return tree_map(leaf, tree)
+
+
+def opt_state_from_numpy(tree, device) -> dict:
+    """A reference optimizer state (numpy leaves: f32 moments, an int
+    step) -> the port's, moments f32 and the step int32, on ``device``."""
+    return tree_map(lambda a: _to_torch(a, device), tree)
 
 
 def params_to_numpy(params) -> dict:

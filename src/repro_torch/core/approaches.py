@@ -50,6 +50,7 @@ from repro_torch.core.federated import (codec_transport, make_flat_layout,
                                         random_uniforms, select_delta_flat,
                                         shared_random_idx)
 from repro_torch.core.spec import register_approach, resolve_combiner
+from repro_torch.device import deterministic_convolutions
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import adamw, apply_updates
 
@@ -498,6 +499,43 @@ def make_baseline_body(pair, fcfg: DistGANConfig):
         return state, {"d_loss": dl, "g_loss": gl, "kept_frac": _one(dev)}
 
     return body
+
+
+# ---------------------------------------------------------------------------
+# One-round steps
+# ---------------------------------------------------------------------------
+
+def _finalize_step(body):
+    """One round of ``body`` as a step, ``step(state, real, ...)`` with the
+    body's arguments and results; the state is updated in place (the
+    reference jits the body with the state donated).  It runs under
+    ``deterministic_convolutions``, as the engines run a round."""
+
+    def step(*args, **kw):
+        with deterministic_convolutions():
+            return body(*args, **kw)
+
+    return step
+
+
+def make_approach1_step(pair, fcfg: DistGANConfig):
+    return _finalize_step(make_approach1_body(pair, fcfg))
+
+
+def make_download_first_step(pair, fcfg: DistGANConfig):
+    return _finalize_step(make_download_first_body(pair, fcfg))
+
+
+def make_approach2_step(pair, fcfg: DistGANConfig):
+    return _finalize_step(make_approach2_body(pair, fcfg))
+
+
+def make_approach3_step(pair, fcfg: DistGANConfig):
+    return _finalize_step(make_approach3_body(pair, fcfg))
+
+
+def make_baseline_step(pair, fcfg: DistGANConfig):
+    return _finalize_step(make_baseline_body(pair, fcfg))
 
 
 register_approach("approach1", make_approach1_body, make_approach1_noise,

@@ -87,6 +87,7 @@ from repro_torch.core.approaches import (DistGANConfig, DistGANState, _opts,
                                          d_flat_layout, d_opt_flat_layout,
                                          init_state, state_template)
 from repro_torch.core.federated import (CohortStore, HostStateBackend,
+                                        as_batch,
                                         cohort_gather, cohort_scatter,
                                         make_cohort_store)
 from repro_torch.core.spec import DEFAULT_ROUNDS_PER_JIT, resolve_approach
@@ -783,8 +784,7 @@ def run_scanned(engine: Callable, state, reals,
     graph of its own length, where the reference pads it with masked
     rounds).  Returns ``(state, metrics)``, metrics numpy-concatenated over
     the rounds."""
-    reals = torch.as_tensor(np.asarray(reals, np.float32)).to(
-        state.step.device)
+    reals = torch.as_tensor(as_batch(reals)).to(state.step.device)
     total = reals.shape[0]
     rpj = min(rounds_per_jit, total)
     chunks, i = [], 0

@@ -124,6 +124,21 @@ def make_flat_layout(example_tree) -> FlatLayout:
                       dtypes)
 
 
+def as_batch(x) -> np.ndarray:
+    """A round's data as the reference stages it (``jax.device_put`` of the
+    sampler's array, jax's types with 64-bit values off): floating data as
+    f32 (images: every earlier contract), integer data as int32 (an LM
+    pair's token batches, which its critic one-hots); anything else is
+    refused by name."""
+    a = np.asarray(x)
+    if a.dtype.kind == "f":
+        return a.astype(np.float32, copy=False)
+    if a.dtype.kind in "iu":
+        return a.astype(np.int32, copy=False)
+    raise TypeError(f"a round's batch must hold floats or integers, got "
+                    f"{a.dtype}")
+
+
 # ---------------------------------------------------------------------------
 # Cohort-virtualized per-user state
 # ---------------------------------------------------------------------------
@@ -591,6 +606,23 @@ def select_delta_flat(rows: torch.Tensor, policy: Selection, *, frac=0.1,
     return torch.where(mask, rows, 0.0), kept
 
 
+def select_delta(delta_tree, policy: Selection, *, frac=0.1, tau=0.0,
+                 generator=None, uniforms=None, use_kernel: bool = False):
+    """Tree form of :func:`select_delta_flat` (the reference's
+    ``select_delta``): the tree's leaves flattened into one row in
+    FlatLayout order, selected, and unflattened.  Returns ``(masked tree,
+    kept fraction ())``; ``none`` returns the tree itself.  The engines
+    keep flat rows and call ``select_delta_flat`` instead."""
+    if policy == "none":
+        dev = tree_leaves(delta_tree)[0].device
+        return delta_tree, torch.ones((), dtype=torch.float32, device=dev)
+    layout = make_flat_layout(delta_tree)
+    masked, kept = select_delta_flat(
+        layout.flatten(delta_tree)[None], policy, frac=frac, tau=tau,
+        generator=generator, uniforms=uniforms, use_kernel=use_kernel)
+    return layout.unflatten(masked[0]), kept[0]
+
+
 # ---------------------------------------------------------------------------
 # Transport codecs
 # ---------------------------------------------------------------------------
@@ -776,6 +808,22 @@ def combine_shared_random_spmd(delta_tree, idx: torch.Tensor, mesh):
 
 # bytes per transported value on the wire, by codec
 _CODEC_VALUE_BYTES = {"none": 4, "bf16": 2, "int8": 1, "topk_int8": 1}
+
+
+def upload_bytes(delta_tree, policy: Selection, frac: float = 0.1, *,
+                 tau: float = 0.0, kept_frac: float | None = None,
+                 codec: str = "none") -> int:
+    """Bytes per user per round crossing the privacy boundary for a delta
+    TREE (the reference's ``upload_bytes``): ``n`` counted from its
+    leaves, and for ``threshold`` without ``kept_frac`` the kept count
+    of ``|leaf| > tau``; priced by :func:`upload_bytes_flat`."""
+    leaves = tree_leaves(delta_tree)
+    n = sum(int(leaf.numel()) for leaf in leaves)
+    if policy == "threshold" and kept_frac is None:
+        kept = sum(int((torch.abs(leaf) > tau).sum()) for leaf in leaves)
+        kept_frac = kept / n
+    return upload_bytes_flat(n, policy, frac, kept_frac=kept_frac,
+                             codec=codec)
 
 
 def upload_bytes_flat(n: int, policy: Selection | str, frac: float = 0.1, *,

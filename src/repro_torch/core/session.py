@@ -61,6 +61,7 @@ from repro_torch.core.engine import (CohortShared, CohortState,
                                      make_fused_store_engine,
                                      make_superbatch_engine, shared_template)
 from repro_torch.core.federated import (CohortStore, HostStateBackend,
+                                        as_batch,
                                         make_schedule_source,
                                         participation_weights,
                                         upload_bytes_flat, window_forwarding)
@@ -193,10 +194,11 @@ class _Stager:
         """Rounds ``[start, start + k)`` on the host, into the first k rows
         of ``out``, or of a new buffer of ``rows`` (default k) rounds,
         pinned on a CUDA device."""
-        first = np.asarray(self.batch_round(start), np.float32)
+        first = as_batch(self.batch_round(start))
         if out is None:
             out = torch.empty((rows or k,) + first.shape,
-                              dtype=torch.float32, pin_memory=self.cuda)
+                              dtype=torch.from_numpy(first).dtype,
+                              pin_memory=self.cuda)
         host = out.numpy()
         host[0] = first
         for j in range(1, k):
@@ -480,11 +482,10 @@ def stream_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
         return leg.up(r)
 
     def stage_data(r):
-        batch = np.asarray(batch_fn(r), np.float32)
+        batch = torch.from_numpy(as_batch(batch_fn(r)))
         if legs is None:
-            return torch.from_numpy(batch).to(dev), None
-        legs["data"].host(r, "x", batch.shape, torch.float32).numpy()[...] \
-            = batch
+            return batch.to(dev), None
+        legs["data"].host(r, "x", batch.shape, batch.dtype).copy_(batch)
         out, ev = legs["data"].up(r)
         return out["x"], ev
 
@@ -593,11 +594,12 @@ def superbatch_cohort_rounds(eng, shared, backend, schedule: np.ndarray,
         return blocks_of[k]
 
     def stage_data(start, k, turn):
-        first = np.asarray(batch_fn(start), np.float32)
+        first = as_batch(batch_fn(start))
         key = (k, turn % 2)
         if key not in data_bufs:
             data_bufs[key] = torch.empty((k,) + first.shape,
-                                         dtype=torch.float32, pin_memory=cuda)
+                                         dtype=torch.from_numpy(first).dtype,
+                                         pin_memory=cuda)
         buf = data_bufs[key]
         host = buf.numpy()
         host[0] = first
@@ -1151,15 +1153,16 @@ class FederationSession:
     def _batch_full(self) -> np.ndarray:
         """One full-participation round of data: (U, B, ...) per-user
         batches drawn from ``data_rng`` user by user, or a (B, ...) union
-        batch for an approach without a user axis; f32 (the reference's
-        arrays are f32)."""
+        batch for an approach without a user axis, in the dataset's type as
+        the reference stages it (``as_batch``: floats as f32, token ids as
+        int32)."""
         B = self.spec.batch_size
         if not self.approach.user_axis:
             batch = self.dataset.union_sampler(self.data_rng, B)
         else:
             batch = np.stack([np.asarray(self.dataset.user_batch(
                 u, self.data_rng, B)) for u in range(self.fcfg.num_users)])
-        return np.asarray(batch).astype(np.float32, copy=False)
+        return as_batch(batch)
 
     def _probe(self, sample) -> int:
         """nbytes of one round's batch, sampled from a throwaway rng so the
@@ -1178,11 +1181,10 @@ class FederationSession:
 
     def _batch_cohort(self, users) -> np.ndarray:
         """One cohort round of data: (C, B, ...) batches of ``users`` in
-        schedule order, drawn from ``data_rng``, as f32."""
+        schedule order, drawn from ``data_rng``, typed by ``as_batch``."""
         B = self.spec.batch_size
-        return np.stack([np.asarray(self.dataset.user_batch(
-            int(u), self.data_rng, B)) for u in users]).astype(
-                np.float32, copy=False)
+        return as_batch(np.stack([np.asarray(self.dataset.user_batch(
+            int(u), self.data_rng, B)) for u in users]))
 
     def _probe_nbytes_cohort(self, schedule) -> int:
         return self._probe(lambda: self._batch_cohort(schedule[0]))

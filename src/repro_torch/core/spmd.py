@@ -54,7 +54,8 @@ from repro_torch.core.collectives import (all_gather, all_gather_bits, pmean,
 from repro_torch.core.engine import (CohortShared, CohortState,
                                      _round_noise, _wants_residual,
                                      init_cohort_state)
-from repro_torch.core.federated import (CohortStore, codec_transport,
+from repro_torch.core.federated import (CohortStore, as_batch,
+                                        codec_transport,
                                         combine_max_abs_spmd,
                                         combine_mean_spmd,
                                         combine_shared_random_flat_spmd,
@@ -80,8 +81,7 @@ def _rows(x, start: int, stop: int, dim: int, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.narrow(dim, start, stop - start).to(device).contiguous()
     sl = (slice(None),) * dim + (slice(start, stop),)
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(
-        x, np.float32)[sl])).to(device)
+    return torch.from_numpy(np.ascontiguousarray(as_batch(x)[sl])).to(device)
 
 
 def shard_state(state: DistGANState, mesh: UsersMesh) -> DistGANState:

@@ -132,6 +132,54 @@ def apply_norm(params, x, cfg):
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 
+def _cpu_unary(name: str, fwd, bwd):
+    """An elementwise function for CPU tensors as an autograd Function:
+    the forward ``fwd(x)`` on ``x`` in f32 (XLA's formula, bit for bit,
+    position-free) rounded once to ``x``'s type; the backward ``bwd(x, y,
+    g)`` in f32, jax's derivative rule for the same primitive (``y`` the
+    f32 output), so a gradient never differentiates through ``prng``'s
+    bit manipulations (``prng.log`` builds its result from integer views,
+    which carry no gradient)."""
+
+    def forward(ctx, x):
+        xf = x.to(torch.float32)
+        y = fwd(xf)
+        ctx.save_for_backward(xf, y)
+        return y.to(x.dtype)
+
+    def backward(ctx, g):
+        xf, y = ctx.saved_tensors
+        return bwd(xf, y, g.to(torch.float32)).to(g.dtype)
+
+    return type(name, (torch.autograd.Function,),
+                {"forward": staticmethod(forward),
+                 "backward": staticmethod(backward)}).apply
+
+
+def _no_inf(x):
+    """jax's ``_replace_inf``: +inf -> 0 (the logaddexp rule's guard)."""
+    return torch.where(x == float("inf"), torch.zeros_like(x), x)
+
+
+# exp: t * y;  logistic: t * y * (1 - y);  tanh: (t + t y) * (1 - y);
+# logaddexp(x, 0): t * exp(x - out), both with +inf replaced by 0
+_exp = _cpu_unary("XlaExp", prng.exp, lambda x, y, g: g * y)
+_sigmoid = _cpu_unary("XlaLogistic",
+                      lambda x: 1.0 / (prng.exp(-x) + 1.0),
+                      lambda x, y, g: g * (y * (1.0 - y)))
+_tanh = _cpu_unary("XlaTanh", prng.tanh,
+                   lambda x, y, g: (g + g * y) * (1.0 - y))
+_softplus = _cpu_unary(
+    "XlaSoftplus",
+    lambda x: torch.clamp(x, min=0.0) + prng.log1p(prng.exp(-torch.abs(x))),
+    lambda x, y, g: g * prng.exp(_no_inf(x) - _no_inf(y)))
+# log_sigmoid(x) = -softplus(-x): its rule is softplus's at -x, -y
+_log_sigmoid = _cpu_unary(
+    "XlaLogSigmoid",
+    lambda x: torch.clamp(x, max=0.0) - prng.log1p(prng.exp(-torch.abs(x))),
+    lambda x, y, g: g * prng.exp(_no_inf(-x) - _no_inf(-y)))
+
+
 def silu(x):
     """SiLU, ``x * sigmoid(x)`` as jax writes it.  On the CPU in f32 with
     the reference's own exp (``prng.exp``): torch's vectorised CPU loops
@@ -139,51 +187,49 @@ def silu(x):
     than its body, in ``silu`` and in ``exp`` alike, so a row's bits would
     depend on where it sits in the batch, which the serving contract
     forbids (a slot's bytes are the same in any batch).  On CUDA every
-    element takes the same path already."""
+    element takes the same path already.  Its gradient is the product
+    rule over ``sigmoid``'s, as jax differentiates it."""
     if x.is_cuda:
         return F.silu(x)
     xf = x.to(torch.float32)
-    return (xf * (1.0 / (prng.exp(-xf) + 1.0))).to(x.dtype)
+    return (xf * _sigmoid(xf)).to(x.dtype)
 
 
 def softplus(x):
     """jax's ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``; on the CPU
     with the reference's exp and log1p (``prng``), position-free for the
-    reason ``silu`` gives."""
+    reason ``silu`` gives, and jax's gradient ``exp(x - softplus(x))``."""
     if x.is_cuda:
         return F.softplus(x)
-    xf = x.to(torch.float32)
-    out = torch.clamp(xf, min=0.0) + prng.log1p(prng.exp(-torch.abs(xf)))
-    return out.to(x.dtype)
+    return _softplus(x)
 
 
 def exp(x):
     """e^x.  On the CPU, in f32, the reference's own formula (XLA's CPU
     exp, bit for bit: ``prng.exp``), which differs from torch's in a tenth
-    of all entries by an ULP; on CUDA torch's."""
+    of all entries by an ULP, with the gradient ``t * e^x``; on CUDA
+    torch's."""
     if x.is_cuda:
         return torch.exp(x)
-    return prng.exp(x).to(x.dtype)
+    return _exp(x)
 
 
 def sigmoid(x):
     """``1 / (exp(-x) + 1)``, XLA's expansion of the logistic; on the CPU
     by ``exp`` (position-free, as ``silu``: torch's CPU ``sigmoid`` takes
-    another path at a tensor's tail)."""
+    another path at a tensor's tail), with the gradient ``t y (1 - y)``."""
     if x.is_cuda:
         return torch.sigmoid(x)
-    xf = x.to(torch.float32)
-    return (1.0 / (prng.exp(-xf) + 1.0)).to(x.dtype)
+    return _sigmoid(x)
 
 
 def log_sigmoid(x):
     """jax's ``-softplus(-x) = min(x, 0) - log1p(exp(-|x|))``; on the CPU
-    with XLA's exp and log1p (``prng``), position-free."""
+    with XLA's exp and log1p (``prng``), position-free, and softplus's
+    gradient at -x."""
     if x.is_cuda:
         return F.logsigmoid(x)
-    xf = x.to(torch.float32)
-    out = torch.clamp(xf, max=0.0) - prng.log1p(prng.exp(-torch.abs(xf)))
-    return out.to(x.dtype)
+    return _log_sigmoid(x)
 
 
 def _f32(c: float) -> float:
@@ -193,10 +239,20 @@ def _f32(c: float) -> float:
 def tanh(x):
     """tanh.  On the CPU, in f32, the reference's own formula (XLA's CPU
     tanh, bit for bit: ``prng.tanh``), which differs from torch's in a
-    third of all entries by an ULP; on CUDA torch's."""
+    third of all entries by an ULP, with jax's gradient ``(t + t y)(1 -
+    y)``; on CUDA torch's."""
     if x.is_cuda:
         return torch.tanh(x)
-    return prng.tanh(x).to(x.dtype)
+    return _tanh(x)
+
+
+def softmax(x, dim: int = -1):
+    """``exp(x - max) / sum`` over ``dim``, as ``jax.nn.softmax`` writes
+    it; on the CPU through ``exp`` (position-free), on CUDA torch's."""
+    if x.is_cuda:
+        return torch.softmax(x, dim=dim)
+    e = exp(x - torch.amax(x, dim=dim, keepdim=True).detach())
+    return e / torch.sum(e, dim=dim, keepdim=True)
 
 
 _SQRT_2_OVER_PI = _f32(math.sqrt(2.0 / math.pi))
@@ -207,7 +263,8 @@ def _gelu_tanh(x):
     sqrt(2/pi) (x + 0.044715 x^3)))``; on the CPU in f32 as the reference's
     jitted program evaluates it (``x + 0.044715 x^3`` one fused
     multiply-add, the reference's ``tanh``), by elementwise ops (torch's
-    fused CPU ``gelu`` is not position-free, as ``silu``)."""
+    fused CPU ``gelu`` is not position-free, as ``silu``); its gradient is
+    the chain rule over them, as jax differentiates the formula."""
     if x.is_cuda:
         return F.gelu(x, approximate="tanh")
     xf = x.to(torch.float32)

@@ -6,12 +6,35 @@ Parameters stay stacked per layer, with a leading layer dimension, as in
 the reference, so the two packages' trees are interchangeable.  The
 reference's ``scan_stack`` (``lax.scan`` over that dimension) becomes a
 Python loop over the layer index, summing each layer's auxiliary loss (the
-MoE router's; zero elsewhere) in f32.  ``cfg.remat`` and ``cfg.seq_shard``
-are training and sharding levers (rematerialisation under autodiff,
-Megatron sequence sharding over a mesh); an eager forward on one device
-has neither, so they change nothing here.  ``backbone_decode`` runs one
-token through the stack against a decode cache (``models/cache.py``),
-layer by layer.
+MoE router's; zero elsewhere) in f32.  ``backbone_decode`` runs one token
+through the stack against a decode cache (``models/cache.py``), layer by
+layer.
+
+``cfg.remat`` rematerialises each layer under autograd, as the reference's
+``_maybe_remat`` wraps the layer its scan runs:
+
+* ``"full"``: ``torch.utils.checkpoint`` (non-reentrant) around the layer;
+  its backward recomputes the whole layer forward, so only the layer's
+  inputs stay alive between forward and backward (``jax.checkpoint``);
+* ``"offloadable-dots"``: selective checkpointing that keeps the outputs
+  of the weight matmuls (``aten.mm`` / ``addmm``, what ``torch.matmul``
+  of an activation by a weight lowers to) and recomputes everything else,
+  batched products (``aten.bmm``: the attention scores and values, the
+  MoE experts' GEMMs) included: the counterpart of jax's
+  ``checkpoint_dots_with_no_batch_dims``.  The two differ where XLA would
+  fuse or simplify: jax picks by ``dot_general`` dimension numbers inside
+  one compiled program, torch by the aten op the eager layer dispatches,
+  so an einsum that torch lowers to ``bmm`` with a batch of one, or a
+  ``mm`` XLA folds into a neighbour, may fall on the other side.
+  Neither saves to host memory (the name's "offloadable" is the TPU
+  policy's option to; here the saved products stay on the device).
+
+Recomputation repeats the same operations on the same inputs, so the loss
+and every gradient equal ``"none"``'s bitwise.  Without autograd (decode,
+``torch.no_grad``) remat is a no-op.  ``cfg.seq_shard`` pins the residual
+stream's sequence dim to a mesh's model axis in the reference (Megatron
+sequence parallelism); on one device there is no such axis, so it changes
+nothing here.
 """
 
 from __future__ import annotations
@@ -19,6 +42,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -138,14 +162,40 @@ def dec_layer_fwd(p, x, enc_out, cfg, positions):
     return x + h, _zero(x)
 
 
-def run_stack(layer_fn, stacked_params, x):
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn(params_l, x)`` under ``cfg.remat`` (the module docstring)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return lambda p, x: ckpt.checkpoint(fn, p, x, use_reentrant=False)
+    if remat == "offloadable-dots":
+        return lambda p, x: ckpt.checkpoint(
+            fn, p, x, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _dots_policy))
+    raise ValueError(f"unknown remat {remat!r} (none | full | "
+                     f"offloadable-dots)")
+
+
+def run_stack(layer_fn, stacked_params, x, remat: str = "none"):
     """Apply ``layer_fn(params_l, x) -> (x, aux)`` over a stacked parameter
-    tree, layer by layer (the reference's ``scan_stack``); each layer's
-    parameters are views into the stacked tensors.  Returns (x, the sum
-    of the layers' aux in f32)."""
+    tree, layer by layer (the reference's ``scan_stack``), each layer
+    rematerialised under ``remat``; each layer's parameters are views into
+    the stacked tensors.  Returns (x, the sum of the layers' aux in
+    f32)."""
+    fn = _maybe_remat(layer_fn, remat)
     aux = _zero(x)
     for i in range(tree_leaves(stacked_params)[0].shape[0]):
-        x, a = layer_fn(tree_map(lambda t: t[i], stacked_params), x)
+        x, a = fn(tree_map(lambda t: t[i], stacked_params), x)
         aux = aux + a
     return x, aux
 
@@ -203,7 +253,7 @@ def backbone_forward(params, x, cfg, positions, *, enc_out=None,
     if at == "ssm":
         return run_stack(
             lambda p, h: ssm_layer_fwd(p, h, cfg, use_kernel=use_ssm_kernel),
-            params["layers"], x)
+            params["layers"], x, cfg.remat)
 
     if at == "hybrid":
         def group_fwd(gp, h):
@@ -219,10 +269,10 @@ def backbone_forward(params, x, cfg, positions, *, enc_out=None,
                 aux = aux + a
             return h, aux
 
-        x, aux = run_stack(group_fwd, params["groups"], x)
+        x, aux = run_stack(group_fwd, params["groups"], x, cfg.remat)
         if "tail" in params:
             x, a = run_stack(lambda p, h: rec_layer_fwd(p, h, cfg),
-                             params["tail"], x)
+                             params["tail"], x, cfg.remat)
             aux = aux + a
         return x, aux
 
@@ -233,9 +283,9 @@ def backbone_forward(params, x, cfg, positions, *, enc_out=None,
                 lambda p, h: (mla_layer_fwd(p, h, cfg, positions)
                               if cfg.use_mla else
                               dense_layer_fwd(p, h, cfg, positions)),
-                params["dense_layers"], x)
+                params["dense_layers"], x, cfg.remat)
         x, a = run_stack(lambda p, h: moe_layer_fwd(p, h, cfg, positions),
-                         params["layers"], x)
+                         params["layers"], x, cfg.remat)
         return x, aux + a
 
     if at == "audio":
@@ -243,20 +293,20 @@ def backbone_forward(params, x, cfg, positions, *, enc_out=None,
             raise ValueError("the audio family's decoder needs enc_out")
         return run_stack(
             lambda p, h: dec_layer_fwd(p, h, enc_out, cfg, positions),
-            params["decoder"], x)
+            params["decoder"], x, cfg.remat)
 
     # dense / vlm
     return run_stack(
         lambda p, h: dense_layer_fwd(p, h, cfg, positions, window=cfg.window,
                                      use_flash=use_flash),
-        params["layers"], x)
+        params["layers"], x, cfg.remat)
 
 
 def encoder_forward(params, src, cfg, positions):
     """Bidirectional encoder over frame embeddings.  src: (B,S_src,d)."""
     x, _ = run_stack(
         lambda p, h: dense_layer_fwd(p, h, cfg, positions, causal=False),
-        params["encoder"], src)
+        params["encoder"], src, cfg.remat)
     return apply_norm(params["enc_norm"], x, cfg)
 
 

@@ -138,8 +138,16 @@ def global_norm_clip(grads, max_norm: float):
 
 
 def apply_updates(params, updates) -> None:
-    """``p += u`` for every leaf, in place, in one kernel: ``p`` read as
-    f64, the sum taken in f64 and rounded once to ``p``'s dtype (f32 for
-    every caller), as the reference's compiled step rounds it."""
+    """``p += u`` for every leaf, in place: ``p`` read as f64, the sum
+    taken in f64 and rounded once to f32, as the reference's compiled step
+    rounds ``p.astype(f32) + u``; a leaf of another type (a bf16 LM
+    weight) is then rounded from that f32 to its own type, as the
+    reference's ``.astype(p.dtype)`` does (rounding the f64 sum straight
+    to bf16 would differ where the f32 lands on a bf16 tie).  An f32 leaf
+    takes one kernel."""
     for p, u in zip(tree_leaves(params), tree_leaves(updates)):
-        torch.add(p, u, out=p)
+        if p.dtype == torch.float32:
+            torch.add(p, u, out=p)
+        else:
+            f32 = torch.empty_like(p, dtype=torch.float32)
+            p.copy_(torch.add(p, u, out=f32))

@@ -207,9 +207,9 @@ class GenerationService:
                   ) -> DecodeEngine:
         """Bind a continuous-batching decode engine so this facade
         serves LM decode alongside GAN sampling.  ``cfg``/``params`` are
-        a ``ModelConfig`` + parameter tree of any family but audio (the
-        reference's federation-trained critic export,
-        ``core/distgan_lm.py``, is ROADMAP queue A item 12).
+        a ``ModelConfig`` + parameter tree of any family but audio, such
+        as a federation-trained critic exported by
+        ``core/distgan_lm.critic_lm_params`` under ``critic_lm_config``.
         ``decode`` defaults to the session spec's ``decode`` block, then
         to ``DecodeSpec()``.  The engine runs on the service's device."""
         if decode is None and self.session is not None:

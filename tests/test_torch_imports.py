@@ -38,7 +38,8 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.models.cache, repro_torch.models.model, "
             "repro_torch.models.moe, repro_torch.models.rglru, "
             "repro_torch.data.synthetic, repro_torch.launch.serve, "
-            "repro_torch.profile_serve; "
+            "repro_torch.profile_serve, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.core.distgan_lm; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -113,3 +114,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path):
     res = run_distgan(pair, fcfg, ds, "approach1", steps=2, batch_size=4,
                       eval_samples=0, device="cpu")
     assert res.extra["device"] == "cpu"
+
+
+def test_train_launcher_refuses_the_cpu_unless_asked(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch.train import main
+    args = ["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
+            "--batch", "1", "--seq", "8"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    main(args + ["--device", "cpu"])
+    assert "[train] step 0: loss=" in capsys.readouterr().out
