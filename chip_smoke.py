@@ -253,7 +253,23 @@ it goes wrong:
    server D exported by ``critic_lm_params`` and served through
    ``GenerationService.attach_lm``: every T 0 request equal to a plain
    ``decode_step`` loop at the pool's width, bitwise;
-21. the result: a ``kernels`` JSON line, the card line, and as the last
+21. contracts and roofline: (a) the contract checker's trace pass
+   (``repro_torch.analysis.tracecheck.run_tracecheck(device="cuda")``)
+   over every specimen of every registered approach on the card, each
+   graph engine captured and replayed under the CUDA sync debug mode, the
+   SPMD specimens on 2 gloo ranks sharing the card (``spawn_users``), the
+   serve and decode ladders: any violation fails the run; the programs
+   checked, each specimen's kernel launches in one call (B1 and B2 against
+   K rounds) and each SPMD specimen's collective bytes a call; (b) the
+   roofline of tinyllama-1.1b's train step at B 1 x 2048 in bf16 (remat
+   none, phase 17's shape): ``roofline.cost_analysis`` of one step (FLOPs,
+   unfused bytes), ``model_flops``, the useful-FLOP ratio, the three
+   terms and the step's measured ms (median of ROOF_STEPS) against the
+   dominant one; (c) the attained ceilings beside the rates of
+   ``repro_torch.timing``: a copy over CEIL_COPY_BYTES (HBM bytes/s) and
+   a bf16 CEIL_MM^3 ``torch.matmul`` (FLOP/s), best of CEIL_REPS; a
+   ceiling above CEIL_MARGIN x its rate fails the run (a timing fault);
+22. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -386,6 +402,13 @@ CRITIC_SMALL = dict(vocab_size=64, d_model=64, num_heads=2, num_kv_heads=2,
 CRITIC_A = dict(users=2, seq=16, rounds=6, batch=8, samples=16, rpj=3)
 CRITIC_B = dict(users=8, seq=32, rounds=32, batch=8, rpj=16)
 CRITIC_CPU_TOL = 1e-4
+# contracts and roofline (phase 21): the train step's roofline at phase
+# 17's first shape, its ms the median of ROOF_STEPS after one warm-up; the
+# attained ceilings: a copy of CEIL_COPY_BYTES (~80x the H100's 50 MB L2)
+# and a bf16 CEIL_MM^3 matmul, best of CEIL_REPS, each within CEIL_MARGIN
+# of its data-sheet rate
+ROOF_SHAPE, ROOF_STEPS = (1, 2048, "none"), 3
+CEIL_COPY_BYTES, CEIL_MM, CEIL_REPS, CEIL_MARGIN = 2 << 30, 8192, 10, 1.05
 
 
 def _fail(msg: str) -> int:
@@ -2891,7 +2914,9 @@ def _spmd_phase(torch, dev):
     dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
                             world_size=1)
     try:
+        # repro: allow(RPR002): a torch.distributed backend, no registry key
         mesh = make_users_mesh(1, backend="nccl", device=dev)
+        # repro: allow(RPR002): a torch.distributed backend, no registry key
         cpu_mesh = UsersMesh(dist.new_group(ranks=[0], backend="gloo"), 0, 1,
                              torch.device("cpu"))
         t0 = time.perf_counter()
@@ -2903,6 +2928,7 @@ def _spmd_phase(torch, dev):
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
     t0 = time.perf_counter()
+    # repro: allow(RPR002): a torch.distributed backend, no registry key
     ranks = spawn_users(_spmd_gloo_rank, SPMD_RANKS, backend="gloo",
                         device="cuda", args=(SPMD_RANK_ROUNDS,),
                         timeout_s=300)
@@ -4216,6 +4242,156 @@ def _critic_serve_phase(torch, dev, sess, cfg) -> dict:
             "served_s": served_s, "equal_to_plain_loop": True}
 
 
+# ---------------------------------------------------------------------------
+# Contracts and roofline
+# ---------------------------------------------------------------------------
+
+def _contracts_phase(torch, dev) -> tuple:
+    """Phase 21 (a): the trace pass of the contract checker on the card,
+    the SPMD leg on 2 gloo ranks sharing it.  Returns the lines to print
+    and this process's kernel launches (the single-process specimens; the
+    ranks count their own)."""
+    from repro_torch.analysis import render_report
+    from repro_torch.analysis.tracecheck import run_tracecheck
+    from repro_torch.kernels import ops
+
+    _free(torch)            # no old engine's graphs collected mid-round
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    violations, checked = run_tracecheck(device=dev, spmd=2)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if violations:
+        raise AssertionError("contract violations on the card:\n"
+                             + render_report(violations, checked))
+    # TRC004 held each call's launches to K times the round's
+    b1_b2 = {name: {"K": c["rounds"], **c["calls"]}
+             for name, c in checked["trace_kernel_calls"].items()}
+    lines = [{"violations": 0, "programs": checked["trace_programs"],
+              "backends": checked["trace_backends"],
+              "approaches": checked["trace_approaches"], "s": seconds,
+              "legs_s": checked["trace_seconds"]},
+             {"launches_per_call": b1_b2},
+             {"spmd_collective_bytes_per_call":
+              checked["spmd_collective_bytes"]},
+             {"launches_in_this_process": {k: v for k, v in counts.items()
+                                           if v}}]
+    return lines, counts
+
+
+def _roofline_phase(torch, dev) -> dict:
+    """Phase 21 (b): the roofline of tinyllama-1.1b's train step at B 1 x
+    2048 in bf16, its work counted over one real step."""
+    import statistics
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.roofline import (cost_analysis, model_flops,
+                                      param_count, roofline_terms)
+    from repro_torch.timing import BF16_OPS_PER_S
+
+    B, S, remat = ROOF_SHAPE
+    cfg = dataclasses.replace(_zoo_cfg(TRAIN_ARCH), remat=remat)
+    _free(torch)
+    params, _ = _draw_params(torch, M, cfg, dev)
+    stream = TokenStream(cfg.vocab_size, S, B, seed=0)
+    batches = [{k: v.to(dev) for k, v in stream.batch(i).items()}
+               for i in range(2 + ROOF_STEPS)]
+    step, opt = make_train_step(cfg, make_optimizer(cfg, TRAIN_LR))
+    st = opt.init(params)
+    params, st, _ = step(params, st, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def counted():
+        out["step"] = step(params, st, batches[1])
+
+    cost = cost_analysis(counted)
+    params, st, _ = out.pop("step")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = []
+    for batch in batches[2:]:
+        s_ev, e_ev = _events(torch)
+        s_ev.record()
+        params, st, m = step(params, st, batch)
+        e_ev.record()
+        torch.cuda.synchronize()
+        ms.append(s_ev.elapsed_time(e_ev))
+    step_ms = statistics.median(ms)
+    loss = float(m["loss"])
+    shape = ShapeConfig(f"train_{B}x{S}", S, B, "train")
+    rep = roofline_terms(arch=TRAIN_ARCH, shape=shape.name,
+                         mesh_name="1 card", chips=1, cost=cost,
+                         collective={"total": 0.0},
+                         model_fl=model_flops(cfg, shape),
+                         bytes_per_device=float(peak))
+    line = dict(rep.to_dict(), remat=remat, dtype=cfg.param_dtype,
+                params=param_count(cfg), ms_per_step=step_ms,
+                ms_steps=ms, loss=loss)
+    dominant_ms = {"compute": rep.compute_s, "memory": rep.memory_s,
+                   "collective": rep.collective_s}[rep.dominant] * 1e3
+    line.update(dominant_ms=dominant_ms,
+                share_of_dominant=dominant_ms / step_ms,
+                mfu=rep.model_flops / (step_ms / 1e3) / BF16_OPS_PER_S)
+    if not (math.isfinite(loss) and rep.hlo_flops > rep.model_flops > 0
+            and rep.hlo_bytes > 0):
+        raise AssertionError(f"train-step roofline: {line}")
+    del params, st, step, opt, batches, out
+    _free(torch)
+    return line
+
+
+def _ceilings_phase(torch, dev) -> dict:
+    """Phase 21 (c): the attained HBM copy rate and bf16 matmul rate, each
+    beside the data-sheet rate of ``repro_torch.timing`` it checks."""
+    from repro_torch.timing import BF16_OPS_PER_S, HBM_BYTES_PER_S
+
+    def best_ms(fn) -> float:
+        for _ in range(2):
+            fn()
+        best = float("inf")
+        for _ in range(CEIL_REPS):
+            s_ev, e_ev = _events(torch)
+            s_ev.record()
+            fn()
+            e_ev.record()
+            torch.cuda.synchronize()
+            best = min(best, s_ev.elapsed_time(e_ev))
+        return best
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = torch.empty(CEIL_COPY_BYTES // 4, dtype=torch.float32, device=dev)
+    src.uniform_(generator=gen)
+    dst = torch.empty_like(src)
+    copy_ms = best_ms(lambda: dst.copy_(src))
+    hbm = 2 * CEIL_COPY_BYTES / (copy_ms / 1e3)
+    del src, dst
+    a = torch.randn((CEIL_MM, CEIL_MM), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    b = torch.randn((CEIL_MM, CEIL_MM), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    mm_ms = best_ms(lambda: torch.matmul(a, b, out=c))
+    flops = 2 * CEIL_MM ** 3 / (mm_ms / 1e3)
+    del a, b, c
+    _free(torch)
+    line = {"copy_bytes": 2 * CEIL_COPY_BYTES, "copy_ms": copy_ms,
+            "hbm_bytes_per_s": hbm, "hbm_rate": HBM_BYTES_PER_S,
+            "hbm_share": hbm / HBM_BYTES_PER_S, "matmul": CEIL_MM,
+            "matmul_ms": mm_ms, "bf16_flop_per_s": flops,
+            "bf16_rate": BF16_OPS_PER_S, "bf16_share": flops / BF16_OPS_PER_S}
+    for key in ("hbm_share", "bf16_share"):
+        if line[key] > CEIL_MARGIN:
+            raise AssertionError(f"attained {key} {line[key]:.3f} beyond "
+                                 f"{CEIL_MARGIN} of the data sheet: a timing "
+                                 f"fault: {line}")
+    return line
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -4415,6 +4591,18 @@ def main() -> int:
         torch, dev, critic_sess, critic_cfg)), flush=True)
     del critic_sess
     print(f"[critic] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    lines, contract_counts = _contracts_phase(torch, dev)
+    for line in lines:
+        print(f"[contracts] {card} | " + json.dumps(line), flush=True)
+    for rec in recs:
+        rec["launches"] += contract_counts.get(rec["name"], 0)
+    print(f"[roofline] {card} | " + json.dumps(_roofline_phase(torch, dev)),
+          flush=True)
+    print(f"[ceilings] {card} | " + json.dumps(_ceilings_phase(torch, dev)),
+          flush=True)
+    print(f"[contracts] {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": recs + [block_rec] + lm_recs + zoo_recs}))
     print(card)

@@ -10,9 +10,17 @@ tensors of ranks sharing a card):
 
 The reference takes these from ``jax.lax``; here they sit below the
 combiners (``core/federated.py``) and the SPMD engines (``core/spmd.py``).
+
+Inside ``record_collectives()`` every call is noted as ``(kind, shape,
+dtype)`` of its result (``"all-reduce"`` / ``"all-gather"``, the HLO names
+and dtype spellings), which ``repro_torch.roofline.collective_bytes``
+prices as the reference's ``collective_bytes_from_hlo`` prices a compiled
+program's collectives.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -22,6 +30,32 @@ from repro_torch.launch.mesh import UsersMesh
 # torch >= 2.13 renames all_gather_into_tensor (same arguments)
 _all_gather_single = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+
+
+_recorders: list[list] = []
+
+# torch dtype -> the HLO element type names of the reference's parser
+_HLO_DTYPES = {torch.float32: "f32", torch.float64: "f64",
+              torch.bfloat16: "bf16", torch.float16: "f16",
+              torch.int8: "s8", torch.uint8: "u8", torch.int16: "s16",
+              torch.int32: "s32", torch.int64: "s64", torch.bool: "pred"}
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yield a list that collects ``(kind, shape, dtype)`` for each
+    collective this process calls until the block ends."""
+    records: list = []
+    _recorders.append(records)
+    try:
+        yield records
+    finally:
+        _recorders.remove(records)
+
+
+def _note(kind: str, out: torch.Tensor) -> None:
+    for records in _recorders:
+        records.append((kind, tuple(out.shape), _HLO_DTYPES[out.dtype]))
 
 
 def axis_index(mesh: UsersMesh) -> int:
@@ -40,6 +74,7 @@ class _Psum(torch.autograd.Function):
         ctx.mesh = mesh
         out = x.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        _note("all-reduce", out)
         if out.is_floating_point():
             out.add_(0.0)
         return out
@@ -73,11 +108,13 @@ def _ordered_reduce(x: torch.Tensor, mesh: UsersMesh, op, nan_bits: int):
     if x.dtype != torch.float32:
         out = x.contiguous().clone()
         dist.all_reduce(out, op=op, group=mesh.group)
+        _note("all-reduce", out)
         return out
     bits = x.contiguous().view(torch.int32)
     keys = _keys(torch.where(torch.isnan(x), torch.full_like(bits, nan_bits),
                              bits))
     dist.all_reduce(keys, op=op, group=mesh.group)
+    _note("all-reduce", keys)
     return _keys(keys).view(torch.float32)
 
 
@@ -102,6 +139,7 @@ def all_gather(x: torch.Tensor, mesh: UsersMesh) -> torch.Tensor:
     out = torch.empty(mesh.size * flat.numel(), dtype=x.dtype,
                       device=x.device)
     _all_gather_single(out, flat, group=mesh.group)
+    _note("all-gather", out)
     return out.view((mesh.size,) + tuple(x.shape))
 
 

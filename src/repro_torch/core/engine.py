@@ -78,7 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -91,7 +91,7 @@ from repro_torch.core.federated import (CohortStore, HostStateBackend,
                                         cohort_gather, cohort_scatter,
                                         make_cohort_store)
 from repro_torch.core.spec import DEFAULT_ROUNDS_PER_JIT, resolve_approach
-from repro_torch.device import deterministic_convolutions
+from repro_torch.device import deterministic_convolutions, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -242,6 +242,7 @@ class _ChunkGraphs:
         self.carry = None
         self.graphs: dict[int, _Graph] = {}
         self.stream = None
+        self.replays = 0          # replay() calls (the contract checker's)
 
     def _bind(self, carry):
         if self.carry is None:
@@ -267,6 +268,7 @@ class _ChunkGraphs:
         else:
             g.load(inputs, draws)
         g.graph.replay()
+        self.replays += 1
         kops.add_launch_counts(g.launches)
         return carry, g.metrics
 
@@ -795,3 +797,136 @@ def run_scanned(engine: Callable, state, reals,
         i += k
     return state, {key: np.concatenate([c[key] for c in chunks])
                    for key in chunks[0]}
+
+
+# ---------------------------------------------------------------------------
+# Contract-checker introspection (read by repro_torch.analysis.tracecheck)
+# ---------------------------------------------------------------------------
+
+class TraceSpecimen(NamedTuple):
+    """One engine call with tiny concrete inputs plus the contract it must
+    keep (the reference's ``core/engine.py:742``).
+
+    ``donate`` is the argument positions the factory updates IN PLACE: the
+    checker asserts their tensors keep their storage through a call and a
+    donated carry comes back as the one the engine bound; with ``donate``
+    empty the arguments must come back bitwise unchanged (the engine works
+    on a copy).  ``expect_graph``: on a CUDA carry one call is one replay
+    of one CUDA graph per chunk length, running ``rounds`` rounds.
+    ``launches`` is one round's kernel launches (``kernels.ops`` keys);
+    a call runs ``rounds`` times that.  ``kwargs`` are keyword arguments of
+    the call (an eager step's round noise, drawn before the round as the
+    graph engines draw it).  The reference's ``min_barriers`` has no
+    counterpart: eager torch fuses nothing, so there is no barrier pin to
+    prove."""
+
+    name: str
+    fn: Callable
+    args: tuple
+    donate: tuple
+    expect_graph: bool = True
+    rounds: int = 1
+    launches: dict | None = None
+    kwargs: dict | None = None
+
+
+def round_launches(fcfg: DistGANConfig, approach: str) -> dict:
+    """One round's kernel launches (``kernels.ops`` keys): an uploading
+    approach under ``use_topk_kernel`` selects with one B1 launch over all
+    its rows (top-k) and round-trips them through one quantize and one
+    dequantize launch (an int8 codec)."""
+    out = {}
+    if resolve_approach(approach).uploads and fcfg.use_topk_kernel:
+        if fcfg.selection == "topk":
+            out["topk_mask_rows"] = 1
+        if fcfg.codec in ("int8", "topk_int8"):
+            out["quantize_rows"] = out["dequantize_rows"] = 1
+    return out
+
+
+def sample_shape(pair) -> tuple:
+    """One data sample's shape, from the generator itself (so a specimen
+    tracks any pair architecture)."""
+    gen = torch.Generator().manual_seed(0)
+    g, _ = pair.init(gen, "cpu")
+    return tuple(pair.g_apply(g, pair.sample_z(gen, 1, "cpu")).shape[1:])
+
+
+def shared_of(state: DistGANState) -> CohortShared:
+    return CohortShared(state.g, state.g_opt, state.server_d, state.step,
+                        state.generator)
+
+
+def trace_specimens(pair, fcfg: DistGANConfig, *, approaches=None,
+                    rounds: int = 2, batch: int = 4, device=None):
+    """Yield every engine family for every registered approach (or the
+    given subset) with tiny concrete inputs on ``device`` (CUDA unless
+    ``"cpu"``), under the reference's names: ``fused`` and ``per_step``
+    (not under error feedback, which only the cohort families thread), and
+    for an approach with a user axis ``cohort``, ``fused_store``,
+    ``rows`` / ``rows_ef`` and ``superbatch`` / ``superbatch_ef``.  Each
+    specimen owns its state.  Donation restates each factory's contract:
+    ``make_engine`` and ``make_fused_store_engine`` bind the carry they are
+    given, the streamed engines the shared state they are given and the
+    rows in their positions, ``make_cohort_engine`` works on a copy."""
+    from repro_torch.core.approaches import _finalize_step
+    from repro_torch.core.spec import APPROACH_REGISTRY, _load_builtins
+    _load_builtins()
+    dev = resolve_device(device)
+    names = (tuple(approaches) if approaches
+             else tuple(sorted(APPROACH_REGISTRY.entries)))
+    K, B, C = rounds, batch, fcfg.num_users
+    shape = sample_shape(pair)
+    ef = _wants_residual(fcfg)
+    nd, no = d_flat_layout(pair).n, d_opt_flat_layout(pair, fcfg).n
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    for name in names:
+        appr = resolve_approach(name)
+        per_round = round_launches(fcfg, name)
+        fresh = lambda: init_state(pair, fcfg, 0, dev, sync_ds=appr.sync_ds)
+        reals = zeros(K, *((C,) if appr.user_axis else ()), B, *shape)
+        if not ef:
+            yield TraceSpecimen(
+                f"{name}/fused", make_engine(pair, fcfg, name),
+                (fresh(), reals), donate=(0,), rounds=K, launches=per_round)
+            noise = appr.noise_factory(pair, fcfg)(
+                torch.Generator().manual_seed(1), tuple(reals.shape[1:]))
+            yield TraceSpecimen(
+                f"{name}/per_step",
+                _finalize_step(appr.body_factory(pair, fcfg)),
+                (fresh(), reals[0]), donate=(0,), expect_graph=False,
+                launches=per_round,
+                kwargs={k: _as_tensor(v).to(dev) for k, v in noise.items()})
+        if not appr.user_axis:
+            continue
+
+        cohort = lambda: init_cohort_state(pair, fcfg, 0, dev,
+                                           sync_ds=appr.sync_ds)
+        idx = torch.arange(C, device=dev).repeat(K, 1)
+        yield TraceSpecimen(
+            f"{name}/cohort", make_cohort_engine(pair, fcfg, name),
+            (cohort(), reals, idx), donate=(), rounds=K, launches=per_round)
+        yield TraceSpecimen(
+            f"{name}/fused_store", make_fused_store_engine(pair, fcfg, name),
+            (cohort(), reals, idx), donate=(0,), rounds=K,
+            launches=per_round)
+
+        ages = zeros(C, dtype=torch.int32)
+        rows = (zeros(C, nd), zeros(C, no)) + ((zeros(C, nd),) if ef else ())
+        suffix = "_ef" if ef else ""
+        yield TraceSpecimen(
+            f"{name}/rows{suffix}", make_cohort_rows_engine(pair, fcfg, name),
+            (shared_of(fresh()), *rows, ages, None, reals[0]),
+            donate=tuple(range(len(rows) + 1)), launches=per_round)
+        blocks = (zeros(K, C, nd), zeros(K, C, no)) + (
+            (zeros(K, C, nd),) if ef else ())
+        fwd = torch.full((K, C), -1, dtype=torch.int32, device=dev)
+        yield TraceSpecimen(
+            f"{name}/superbatch{suffix}",
+            make_superbatch_engine(pair, fcfg, name),
+            (shared_of(fresh()), *blocks, fwd, zeros(K, C, dtype=torch.int32),
+             reals), donate=tuple(range(len(blocks) + 1)), rounds=K,
+            launches=per_round)

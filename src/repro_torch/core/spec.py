@@ -146,6 +146,20 @@ def register_backend(name: str, driver_cls, *, streams: bool = False):
         name, _BackendDef(name, driver_cls, streams))
 
 
+def registry_snapshot() -> dict[str, tuple[str, ...]]:
+    """Every registered key per registry, builtins loaded: what
+    ``repro_torch.analysis`` enumerates, so the contract checker covers an
+    implementation the moment it registers (the reference's
+    ``core/spec.py:185``)."""
+    _load_builtins()
+    return {
+        "approach": tuple(sorted(APPROACH_REGISTRY.entries)),
+        "scheduler": tuple(sorted(SCHEDULER_REGISTRY.entries)),
+        "combiner": tuple(sorted(COMBINER_REGISTRY.entries)),
+        "backend": tuple(sorted(BACKEND_REGISTRY.entries)),
+    }
+
+
 def resolve_approach(name: str) -> ApproachDef:
     return APPROACH_REGISTRY.get(name)
 

@@ -39,6 +39,7 @@ moves rows as int32 bit patterns, so values land bit-exactly;
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -731,3 +732,73 @@ class SpmdStreamDriver(HostStreamDriver):
 
 
 register_backend("spmd", SpmdStreamDriver, streams=True)
+
+
+# ---------------------------------------------------------------------------
+# Contract-checker introspection (read by repro_torch.analysis.tracecheck)
+# ---------------------------------------------------------------------------
+
+def spmd_trace_specimens(pair, fcfg: DistGANConfig, mesh: UsersMesh, *,
+                         approaches=None, rounds: int = 2, batch: int = 4):
+    """Every SPMD engine family as a ``TraceSpecimen`` (``core/engine.py``)
+    for the approaches the mesh bodies cover, on this rank's device, under
+    the reference's names (``core/spmd.py:666``).  The engines run eagerly
+    (``expect_graph`` False).  Donation restates each factory's contract:
+    the step, the engine and the rows engine update the rank's state in
+    place, the two cohort store engines work on a copy of the carry (the
+    reference's bitwise-pin copies).  The schedule is a host array, as
+    the sessions pass it."""
+    from repro_torch.core.engine import (TraceSpecimen, round_launches,
+                                         sample_shape, shared_of)
+    names = tuple(approaches) if approaches else _SPMD_APPROACHES
+    K, B = rounds, batch
+    U = C = mesh.shape[AXIS]
+    fcfg = dataclasses.replace(fcfg, num_users=U)
+    shape = sample_shape(pair)
+    nd, no = d_flat_layout(pair).n, d_opt_flat_layout(pair, fcfg).n
+    ef = _wants_residual(fcfg)
+    dev = mesh.device
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    for name in names:
+        if name not in _SPMD_APPROACHES:
+            continue
+        sync = resolve_approach(name).sync_ds
+        per_round = round_launches(fcfg, name)
+        reals = zeros(K, U, B, *shape)
+        if not ef:
+            yield TraceSpecimen(
+                f"{name}/spmd", make_spmd_engine(pair, fcfg, mesh, name),
+                (init_spmd_state(pair, fcfg, 0, mesh, sync_ds=sync), reals),
+                donate=(0,), expect_graph=False, rounds=K,
+                launches=per_round)
+            yield TraceSpecimen(
+                f"{name}/spmd_step", make_spmd_step(pair, fcfg, mesh, name),
+                (init_spmd_state(pair, fcfg, 0, mesh, sync_ds=sync),
+                 reals[0]), donate=(0,), expect_graph=False,
+                launches=per_round)
+
+        idx = np.tile(np.arange(C, dtype=np.int64), (K, 1))
+        cohort = lambda sharded: init_spmd_cohort_state(
+            pair, fcfg, 0, mesh, sync_ds=sync, sharded=sharded)
+        yield TraceSpecimen(
+            f"{name}/spmd_cohort",
+            make_spmd_cohort_engine(pair, fcfg, mesh, name, C),
+            (cohort(False), reals, idx), donate=(), expect_graph=False,
+            rounds=K, launches=per_round)
+        yield TraceSpecimen(
+            f"{name}/spmd_fused_store",
+            make_spmd_fused_store_engine(pair, fcfg, mesh, name, C),
+            (cohort(True), reals, idx), donate=(), expect_graph=False,
+            rounds=K, launches=per_round)
+
+        rows = (zeros(C, nd), zeros(C, no)) + ((zeros(C, nd),) if ef else ())
+        shared = shared_of(init_state(pair, fcfg, 0, dev, sync_ds=sync))
+        yield TraceSpecimen(
+            f"{name}/spmd_rows{'_ef' if ef else ''}",
+            make_spmd_cohort_rows_engine(pair, fcfg, mesh, name, C),
+            (shared, *rows, zeros(C, dtype=torch.int32), None, reals[0]),
+            donate=tuple(range(len(rows) + 1)), expect_graph=False,
+            launches=per_round)

@@ -38,6 +38,9 @@ ROUTES = {torch.bfloat16: ("wgmma", "flash_attention_wgmma",
 launches = 0
 route_launches = {name: 0 for name, _, _ in ROUTES.values()}
 
+# the wrapper's plain version in kernels/ref.py (lint rule RPR006)
+PLAIN_VERSIONS = {"flash_attention": "flash_attention_ref"}
+
 
 def route(dtype: torch.dtype) -> tuple[str, str]:
     """(route name, kernel source) that a CUDA tensor of ``dtype`` takes."""

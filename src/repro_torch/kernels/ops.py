@@ -3,7 +3,10 @@
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a
 tensor on a CUDA device goes to the Hopper kernel, which builds on first
 use and raises if it cannot build or launch.  There is no fallback from a
-CUDA tensor to the plain version.
+CUDA tensor to the plain version.  ``plain_counts()`` counts the calls that
+went to a plain version, by the keys of ``launch_counts()``: the contract
+checker (``repro_torch.analysis.tracecheck``) holds a CPU round's kernel
+calls to them, and a CUDA round's to zero.
 """
 
 from __future__ import annotations
@@ -17,11 +20,17 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk_select as _topk
 
 
-def _route(t: torch.Tensor) -> bool:
-    """True for the kernel (CUDA), False for the plain version (CPU)."""
+_plain = {"topk_mask_rows": 0, "topk_mask_block": 0, "quantize_rows": 0,
+          "dequantize_rows": 0, "flash_attention": 0, "ssd_scan": 0}
+
+
+def _route(t: torch.Tensor, key: str) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU), whose
+    call is counted under ``key``."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
+        _plain[key] += 1
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
@@ -37,17 +46,17 @@ def topk_mask(rows: torch.Tensor, frac: float,
     if rows.ndim == 1:
         return topk_mask(rows[None], frac, mode)[0]
     if mode == "block":
-        if _route(rows):
+        if _route(rows, "topk_mask_block"):
             return _topk.topk_mask_block_rows(rows.contiguous(), frac)
         return ref.topk_mask_block_ref(rows, frac)
-    if _route(rows):
+    if _route(rows, "topk_mask_rows"):
         return _topk.topk_mask_rows(rows.contiguous(), frac)
     return ref.topk_mask_global_ref(rows, frac)
 
 
 def quantize_rows(x: torch.Tensor, *, stochastic: bool = False, seed=None):
     """(R, N) f32 -> (q int8 (R, N), scale f32 (R,))."""
-    if _route(x):
+    if _route(x, "quantize_rows"):
         return _quantize.quantize_rows(x.contiguous(), stochastic=stochastic,
                                        seed=seed)
     return ref.quantize_rows_ref(x, stochastic=stochastic, seed=seed)
@@ -55,7 +64,7 @@ def quantize_rows(x: torch.Tensor, *, stochastic: bool = False, seed=None):
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """(q int8 (R, N), scale f32 (R,)) -> f32 (R, N)."""
-    if _route(q):
+    if _route(q, "dequantize_rows"):
         return _quantize.dequantize_rows(q.contiguous(), scale.contiguous())
     return ref.dequantize_rows_ref(q, scale)
 
@@ -64,7 +73,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, bq=128,
                     bkv=128):
     """q (B,S,H,hd), k/v (B,T,K,hd) -> (B,S,H,hd) online-softmax attention;
     ``bq``/``bkv`` are the reference's tiling hints (see the wrapper)."""
-    if _route(q):
+    if _route(q, "flash_attention"):
         return _flash.flash_attention(q, k, v, causal=causal, window=window,
                                       scale=scale, bq=bq, bkv=bkv)
     if q.shape[1] % bq or k.shape[1] % bkv:
@@ -78,7 +87,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, bq=128,
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256):
     """Mamba-2 SSD scan: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N)
     -> y (B,S,H,P); ``S % chunk == 0``."""
-    if _route(x):
+    if _route(x, "ssd_scan"):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     if x.shape[1] % chunk:
         raise ValueError(f"ssd_scan: S={x.shape[1]} must be a multiple of "
@@ -92,6 +101,12 @@ def launch_counts() -> dict[str, int]:
     return {"topk_mask_rows": _topk.launches,
             "topk_mask_block": _topk.block_launches, **_quantize.launches,
             "flash_attention": _flash.launches, "ssd_scan": _ssd.launches}
+
+
+def plain_counts() -> dict[str, int]:
+    """Calls that went to a plain version (a CPU tensor) so far, by the
+    keys of ``launch_counts()``."""
+    return dict(_plain)
 
 
 def flash_route_counts() -> dict[str, int]:
@@ -135,3 +150,5 @@ def reset_launch_counts() -> None:
             mod.route_launches[k] = 0
     for k in _quantize.launches:
         _quantize.launches[k] = 0
+    for k in _plain:
+        _plain[k] = 0

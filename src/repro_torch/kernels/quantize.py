@@ -22,6 +22,10 @@ _THREADS = 256      # per block of dequantize
 
 launches = {"quantize_rows": 0, "dequantize_rows": 0}
 
+# each wrapper's plain version in kernels/ref.py (lint rule RPR006)
+PLAIN_VERSIONS = {"quantize_rows": "quantize_rows_ref",
+                  "dequantize_rows": "dequantize_rows_ref"}
+
 
 def bind(lib: ctypes.CDLL):
     """``lib``'s ``(quantize_rows, dequantize_rows)`` (a build of

@@ -53,6 +53,9 @@ TF32_ALL_PHASES = 15
 launches = 0
 route_launches = {name: 0 for name, _, _ in ROUTES.values()}
 
+# the wrapper's plain version in kernels/ref.py (lint rule RPR006)
+PLAIN_VERSIONS = {"ssd_scan": "ssd_scan_ref"}
+
 
 def route(dtype: torch.dtype) -> tuple[str, str]:
     """(route name, kernel source) that a CUDA tensor of ``dtype`` takes."""

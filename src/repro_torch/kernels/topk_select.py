@@ -25,6 +25,10 @@ from repro_torch.kernels.ref import BLOCK, topk_k
 launches = 0
 block_launches = 0
 
+# each wrapper's plain version in kernels/ref.py (lint rule RPR006)
+PLAIN_VERSIONS = {"topk_mask_rows": "topk_mask_global_ref",
+                  "topk_mask_block_rows": "topk_mask_block_ref"}
+
 
 def bind(lib: ctypes.CDLL):
     """``lib``'s ``topk_mask_rows`` (a build of ``csrc/topk_select.cu``)

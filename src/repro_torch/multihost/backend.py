@@ -334,3 +334,55 @@ class MultihostStreamDriver(HostStreamDriver):
 
 
 register_backend("multihost", MultihostStreamDriver, streams=True)
+
+
+# ---------------------------------------------------------------------------
+# Contract-checker introspection (read by repro_torch.analysis.tracecheck)
+# ---------------------------------------------------------------------------
+
+def multihost_trace_specimens(pair, fcfg, *, cohort: int = 2, device=None):
+    """Specimens of the multihost backend's device programs (the
+    reference's ``multihost/backend.py:310``):
+
+    * ``approach1/multihost_rows[_ef]`` — the round engine the registered
+      backend builds (``make_cohort_rows_engine``) over the RPC-staged row
+      buffers: the shared state and the rows are updated in place;
+    * ``multihost/stage_pack`` / ``multihost/stage_unpack`` — B2's
+      quantize and dequantize, the ``stage_rows`` legs of the int8 wire.
+      They change the rows' dtype, so nothing can be updated in place: the
+      contract is that their inputs come back unchanged."""
+    from repro_torch.core.engine import (TraceSpecimen,
+                                         make_cohort_rows_engine,
+                                         round_launches, sample_shape,
+                                         shared_of)
+    from repro_torch.core.approaches import init_state
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops as kops
+
+    dev = resolve_device(device)
+    C = cohort
+    nd, no = d_flat_layout(pair).n, d_opt_flat_layout(pair, fcfg).n
+    ef = _wants_residual(fcfg)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    shared = shared_of(init_state(pair, fcfg, 0, dev))
+    rows = (zeros(C, nd), zeros(C, no)) + ((zeros(C, nd),) if ef else ())
+    reals = zeros(C, 4, *sample_shape(pair))
+    yield TraceSpecimen(
+        f"approach1/multihost_rows{'_ef' if ef else ''}",
+        make_cohort_rows_engine(pair, fcfg, "approach1"),
+        (shared, *rows, zeros(C, dtype=torch.int32), None, reals),
+        donate=tuple(range(len(rows) + 1)),
+        launches=round_launches(fcfg, "approach1"))
+    if not ef:
+        yield TraceSpecimen(
+            "multihost/stage_pack", lambda x: kops.quantize_rows(x),
+            (zeros(C, nd),), donate=(), expect_graph=False,
+            launches={"quantize_rows": 1})
+        yield TraceSpecimen(
+            "multihost/stage_unpack",
+            lambda q, s: kops.dequantize_rows(q, s),
+            (zeros(C, nd, dtype=torch.int8), zeros(C)), donate=(),
+            expect_graph=False, launches={"dequantize_rows": 1})

@@ -63,6 +63,7 @@ class SampleRequest:
     user_id: int
     n: int
     seed: int = 0
+    # repro: allow(RPR005): cond is an opaque reserved slot — no invariant
     cond: Any = None
 
     def __post_init__(self):

@@ -39,7 +39,10 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.models.moe, repro_torch.models.rglru, "
             "repro_torch.data.synthetic, repro_torch.launch.serve, "
             "repro_torch.profile_serve, repro_torch.launch.steps, "
-            "repro_torch.launch.train, repro_torch.core.distgan_lm; "
+            "repro_torch.launch.train, repro_torch.core.distgan_lm, "
+            "repro_torch.analysis, repro_torch.analysis.lint, "
+            "repro_torch.analysis.tracecheck, repro_torch.analysis.__main__, "
+            "repro_torch.roofline, repro_torch.roofline.analysis; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
