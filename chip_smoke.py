@@ -269,7 +269,24 @@ it goes wrong:
    ``repro_torch.timing``: a copy over CEIL_COPY_BYTES (HBM bytes/s) and
    a bf16 CEIL_MM^3 ``torch.matmul`` (FLOP/s), best of CEIL_REPS; a
    ceiling above CEIL_MARGIN x its rate fails the run (a timing fault);
-22. the result: a ``kernels`` JSON line, the card line, and as the last
+22. sharding and the dry run, in subprocesses of their own (a fake
+   process group cannot share a process with a real one), (a)+(b) beside
+   (c)+(d): (a) the 1 x 1 dry run (``launch.dryrun.run_one`` on a fake
+   1 x 1 mesh, meta tensors) of phase 21's step, tinyllama-1.1b B 1 x
+   2048 bf16 remat none: its FLOPs equal to phase 21's count exactly, its
+   bytes within DRY_BYTES_RTOL of it, its ``bytes_per_device`` printed
+   beside phase 21's peak; (b) the three pairs the reference recorded
+   (``experiments/dryrun/``) on the fake pod16x16 mesh at full width,
+   each ``ok``, each term printed beside the reference's and their ratio
+   (not asserted: the reference costs a scanned layer body once, and XLA
+   fuses); (c) ``launch.train`` with ``--data 2 --model 2`` on 4 gloo
+   ranks sharing the card, tinyllama-1.1b reduced, MESH_STEPS steps:
+   losses within MESH_RTOL of the 1 x 1 run on the card (the reference's
+   own tolerance, tests/test_multidevice_train.py); (d) the launcher at
+   full width on ``--data 1 --model 2`` (2 gloo ranks), B 1 x 2048 bf16,
+   2 steps: step 0's loss within MESH_FULL_RTOL of the 1 x 1 launcher's
+   on the same weights and batch, the gap printed;
+23. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
@@ -409,6 +426,21 @@ CRITIC_CPU_TOL = 1e-4
 # of its data-sheet rate
 ROOF_SHAPE, ROOF_STEPS = (1, 2048, "none"), 3
 CEIL_COPY_BYTES, CEIL_MM, CEIL_REPS, CEIL_MARGIN = 2 << 30, 8192, 10, 1.05
+# sharding and the dry run (phase 22): the reference's recorded pairs; the
+# 1 x 1 count's bytes against phase 21's (the lookup is F.embedding on a
+# mesh, indexing on one card); the mesh launcher runs and their tolerances
+DRY_PAIRS = (("tinyllama-1.1b", "train_4k"), ("mamba2-780m", "train_4k"),
+             ("tinyllama-1.1b", "decode_32k"))
+DRY_BYTES_RTOL = 1e-2
+DRY_TERMS = ("hlo_flops", "hlo_bytes", "collective_bytes",
+             "bytes_per_device", "compute_s", "memory_s", "collective_s")
+MESH_STEPS, MESH_RTOL, MESH_FULL_RTOL = 5, 2e-3, 1e-2
+MESH_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "8",
+             "--seq", "32", "--lr", "1e-3", "--warmup", "0",
+             "--log-every", "1"]
+MESH_FULL_ARGS = ["--arch", "tinyllama-1.1b", "--batch", "1", "--seq",
+                  "2048", "--log-every", "1"]
+PHASE22_TIMEOUT = 900
 
 
 def _fail(msg: str) -> int:
@@ -4392,6 +4424,187 @@ def _ceilings_phase(torch, dev) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# Sharding and the dry run (phase 22)
+# ---------------------------------------------------------------------------
+
+def _phase22_dryrun(out: str) -> int:
+    """Phase 22 (a) and (b), in a process of its own (the fake group):
+    one JSON line per dry run into ``out``."""
+    import dataclasses as dc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.sharding import MeshShape
+
+    B, S, remat = ROOF_SHAPE
+    recs = [run_one(TRAIN_ARCH, ShapeConfig(f"train_{B}x{S}", S, B, "train"),
+                    mesh=MeshShape(("data", "model"), (1, 1)), remat=remat,
+                    save=False)]
+    for arch, shape in DRY_PAIRS:
+        recs.append(run_one(arch, shape, save=False))
+    with open(out, "w") as f:
+        for rec in recs:
+            f.write(json.dumps(rec, default=str) + "\n")
+    return 0
+
+
+def _losses(text: str) -> dict:
+    import re
+    return {int(i): float(v) for i, v in
+            re.findall(r"step (\d+): loss=([\d.]+)", text)}
+
+
+def _phase22_mesh(out: str) -> int:
+    """Phase 22 (c) and (d): the train launcher on the card at 1 x 1 and
+    on gloo meshes sharing it, (c)'s runs and (d)'s 1 x 1 at once, then
+    (d)'s mesh (the card holds one full-width run at a time); the runs'
+    losses and seconds into ``out``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(args):
+        t0 = time.perf_counter()
+        text = _launch_train(args, timeout=PHASE22_TIMEOUT)
+        return {"losses": _losses(text), "s": time.perf_counter() - t0,
+                "mesh": next((ln for ln in text.splitlines()
+                              if "params, mesh" in ln), "")}
+
+    first = {"c_1x1": MESH_ARGS + ["--steps", str(MESH_STEPS)],
+             "c_2x2": MESH_ARGS + ["--steps", str(MESH_STEPS), "--data", "2",
+                                   "--model", "2", "--backend", "gloo"],
+             "d_1x1": MESH_FULL_ARGS + ["--steps", "1"]}
+    with ThreadPoolExecutor(len(first)) as pool:
+        futures = {k: pool.submit(run, a) for k, a in first.items()}
+        res = {k: f.result() for k, f in futures.items()}
+    res["d_1x2"] = run(MESH_FULL_ARGS + ["--steps", "2", "--data", "1",
+                                         "--model", "2", "--backend",
+                                         "gloo"])
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _reference_record(arch: str, shape: str) -> dict:
+    path = ROOT / "experiments" / "dryrun" / f"{arch}__{shape}__pod16x16.json"
+    with open(path) as f:
+        return json.load(f)
+
+
+def _phase22(roof: dict) -> tuple:
+    """Phase 22: the dry run ((a), (b)) and the mesh launcher ((c), (d))
+    started together, each in its own process.  Returns the lines to
+    print and the checks that failed."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase22_") as tmp:
+        outs = {k: os.path.join(tmp, f"{k}.json") for k in ("dry", "mesh")}
+        procs = {k: subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), f"--phase22-{k}",
+             outs[k]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=ROOT) for k in outs}
+        logs = {}
+        try:
+            for k, proc in procs.items():
+                logs[k], _ = proc.communicate(timeout=PHASE22_TIMEOUT)
+                if proc.returncode != 0:
+                    raise AssertionError(f"phase 22 {k} failed:\n"
+                                         f"{logs[k][-4000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(outs["dry"]) as f:
+            recs = [json.loads(line) for line in f]
+        with open(outs["mesh"]) as f:
+            mesh = json.load(f)
+        for run in mesh.values():   # JSON keeps the steps as strings
+            run["losses"] = {int(i): v for i, v in run["losses"].items()}
+    wall = time.perf_counter() - t0
+    failures = [f"dry run of {r['arch']} x {r['shape']} failed: "
+                f"{r.get('error')}\n{r.get('traceback', '')[-1500:]}"
+                for r in recs if r["status"] != "ok"]
+    if failures:
+        return [{"dry_run_status": {f"{r['arch']} x {r['shape']}":
+                                    r["status"] for r in recs}}], failures
+
+    one, pairs = recs[0], recs[1:]
+    gap = one["hlo_bytes"] / roof["hlo_bytes"] - 1.0
+    lines = [{"part": "a", "flops": one["hlo_flops"],
+              "phase21_flops": roof["hlo_flops"],
+              "bytes": one["hlo_bytes"], "phase21_bytes": roof["hlo_bytes"],
+              "bytes_gap": gap, "bytes_per_device": one["bytes_per_device"],
+              "memory_analysis": one["memory_analysis"],
+              "phase21_peak_bytes": roof["bytes_per_device"],
+              "s": one["compile_s"]}]
+    if one["hlo_flops"] != roof["hlo_flops"] or abs(gap) > DRY_BYTES_RTOL:
+        failures.append(f"1 x 1 dry run against phase 21: {lines[0]}")
+    for rec in pairs:
+        ref = _reference_record(rec["arch"], rec["shape"])
+        lines.append({
+            "part": "b", "arch": rec["arch"], "shape": rec["shape"],
+            "mesh": rec["mesh"], "status": rec["status"],
+            "dominant": rec["dominant"], "reference_dominant": ref["dominant"],
+            "terms": {k: [rec[k], ref[k], rec[k] / ref[k] if ref[k] else None]
+                      for k in DRY_TERMS},
+            "memory_analysis": rec["memory_analysis"],
+            "collectives": rec["collectives"],
+            "reference_collectives": ref["collectives"],
+            "collective_ops": rec["collective_ops"], "s": rec["compile_s"]})
+
+    c1, c4 = mesh["c_1x1"]["losses"], mesh["c_2x2"]["losses"]
+    rel = [abs(c4[i] - c1[i]) / abs(c1[i]) for i in sorted(c1)]
+    lines.append({"part": "c", "losses_1x1": c1, "losses_2x2": c4,
+                  "max_rel": max(rel), "rtol": MESH_RTOL,
+                  "mesh": mesh["c_2x2"]["mesh"],
+                  "s": [mesh["c_1x1"]["s"], mesh["c_2x2"]["s"]]})
+    if sorted(c1) != list(range(MESH_STEPS)) or sorted(c4) != sorted(c1) \
+            or max(rel) > MESH_RTOL:
+        failures.append(f"2 x 2 mesh against 1 x 1: {lines[-1]}")
+    d1, d2 = mesh["d_1x1"]["losses"], mesh["d_1x2"]["losses"]
+    gap0 = abs(d2[0] - d1[0]) / abs(d1[0])
+    lines.append({"part": "d", "loss0_1x1": d1[0], "losses_1x2": d2,
+                  "rel_gap": gap0, "rtol": MESH_FULL_RTOL,
+                  "mesh": mesh["d_1x2"]["mesh"],
+                  "s": [mesh["d_1x1"]["s"], mesh["d_1x2"]["s"]]})
+    if gap0 > MESH_FULL_RTOL or not all(map(math.isfinite, d2.values())):
+        failures.append(f"1 x 2 full width against 1 x 1: {lines[-1]}")
+    lines.append({"phase22_wall_s": wall})
+    return lines, failures
+
+
+def _print_phase22(card: str, roof: dict, t0: float) -> None:
+    """Run phase 22, print every line, then fail on any check."""
+    lines, failures = _phase22(roof)
+    for line in lines:
+        print(f"[dryrun] {card} | " + json.dumps(line), flush=True)
+    print(f"[dryrun] {time.perf_counter() - t0:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("phase 22:\n" + "\n".join(failures))
+
+
+def _phase22_only() -> int:
+    """``--phase22``: phase 21 (b), whose counts phase 22 (a) is held to,
+    and phase 22 alone (no result line): a quick check of the sharded
+    paths on the card."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device (torch.cuda.is_available() is False)")
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device()
+    card = _card_line()
+    roof = _roofline_phase(torch, dev)
+    print(f"[roofline] {card} | " + json.dumps(roof), flush=True)
+    t0 = time.perf_counter()
+    _print_phase22(card, roof, t0)
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -4598,11 +4811,15 @@ def main() -> int:
         print(f"[contracts] {card} | " + json.dumps(line), flush=True)
     for rec in recs:
         rec["launches"] += contract_counts.get(rec["name"], 0)
-    print(f"[roofline] {card} | " + json.dumps(_roofline_phase(torch, dev)),
-          flush=True)
+    roof = _roofline_phase(torch, dev)
+    print(f"[roofline] {card} | " + json.dumps(roof), flush=True)
     print(f"[ceilings] {card} | " + json.dumps(_ceilings_phase(torch, dev)),
           flush=True)
     print(f"[contracts] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    _free(torch)
+    _print_phase22(card, roof, t0)
 
     print(json.dumps({"kernels": recs + [block_rec] + lm_recs + zoo_recs}))
     print(card)
@@ -4615,6 +4832,14 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-main"] and len(sys.argv) == 4:
         sys.exit(_resume_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--phase22-dry"] and len(sys.argv) == 3:
+        sys.path.insert(0, str(SRC))
+        sys.exit(_phase22_dryrun(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase22-mesh"] and len(sys.argv) == 3:
+        sys.path.insert(0, str(SRC))
+        sys.exit(_phase22_mesh(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase22"] and len(sys.argv) == 2:
+        sys.exit(_phase22_only())
     if sys.argv[1:2] == ["--serve-replay"] and len(sys.argv) == 7:
         sys.exit(_serve_replay(sys.argv[2], sys.argv[3],
                                *map(int, sys.argv[4:])))

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (P, apply_norm, apply_rope,
-                                       norm_decl, rms_norm, softcap)
+                                       norm_decl, on_blocks, on_mesh,
+                                       rms_norm, softcap)
 
 NEG_INF = -2.0e38
 
@@ -66,10 +67,20 @@ def attn_decls(cfg):
 def sdpa(q, k, v, mask, scale: float, cap: float = 0.0):
     """q: (B,S,H,dq)  k: (B,T,K,dq)  v: (B,T,K,dv)  mask: broadcastable to
     (B,K,G,S,T) with True = attend.  Scores and softmax in f32, the
-    probabilities cast to v's type for the weighted sum."""
+    probabilities cast to v's type for the weighted sum.  On a mesh it
+    runs on each rank's block of (batch, heads) (``_sdpa_blocks``); where
+    q's heads are sharded, k and v are repeated to H heads first (head h
+    reads kv head h // G, as the grouping does), since a shard boundary
+    need not fall between kv groups (32 heads over 4 kv heads on a 16-way
+    model axis)."""
     B, S, H, dq = q.shape
     K = k.shape[2]
     G = H // K
+    if on_mesh(q):
+        if G > 1 and any(p.is_shard() and p.dim == 2 for p in q.placements):
+            k, v = (t[:, :, :, None].expand(*t.shape[:3], G, t.shape[-1])
+                    .reshape(B, t.shape[1], H, t.shape[-1]) for t in (k, v))
+        return _sdpa_blocks(q, k, v, mask, scale, cap)
     qg = q.reshape(B, S, K, G, dq)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
@@ -78,6 +89,19 @@ def sdpa(q, k, v, mask, scale: float, cap: float = 0.0):
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, K * G, v.shape[-1])
+
+
+_BSHD = ("b", None, "h", None)
+
+
+def _sdpa_blocks(q, k, v, mask, scale: float, cap: float):
+    """``sdpa`` of DTensors (q, k and v with H heads each) on each rank's
+    block of (batch, heads), which attend independently
+    (``common.on_blocks``): DTensor's einsum rules would flatten two
+    sharded dims, which some releases refuse."""
+    return on_blocks(lambda q, k, v, m: sdpa(q, k, v, m, scale, cap),
+                     (q, k, v, mask), (_BSHD,) * 3 + (("b",) + (None,) * 4,),
+                     _BSHD)
 
 
 def causal_mask(S: int, T: int, q_offset=0, window: int = 0, device=None):

@@ -14,8 +14,8 @@ batch dim at **axis 1** — ``(L, B, ...)`` — so a cache of width S is a
 pool of S independent decode slots, in every family.  ``cache_nbytes``
 prices the pool from the spec; ``reset_slots`` zeroes some slots and
 ``merge_slots`` publishes freshly prefilled rows into theirs, every other
-slot keeping its bits.  Not ported: ``cache_logical_axes`` (sharding,
-ROADMAP queue A item 13).
+slot keeping its bits.  ``cache_logical_axes`` names each leaf's logical
+axes for the decode step's shardings (``launch/steps.py::cache_pspecs``).
 """
 
 from __future__ import annotations
@@ -89,6 +89,41 @@ def cache_spec(cfg, batch: int, max_len: int):
     # dense / moe / vlm self-attention: a ring buffer of the window, if any
     T = min(max_len, cfg.window) if cfg.window else max_len
     return _attn_kv(L, B, T, cfg.num_kv_heads, cfg.head_dim, dt)
+
+
+def _leaf_axes(name: str, nd: int) -> tuple:
+    """A cache leaf's logical axes by its name (the reference's rules)."""
+    if name in ("k", "v"):
+        return (("layers", "batch", None, "kv_heads", None)[:nd] if nd == 5
+                else ("batch", None, "kv_heads", None))
+    if name == "ssd":
+        return ("layers", "batch", "ssm_heads", None, None)
+    if name == "conv_x":
+        return ("layers", "batch", None, "heads")
+    if name in ("conv_B", "conv_C"):
+        return ("layers", "batch", None, None)
+    if name == "h":
+        return ("layers", "batch", "lru_dim")
+    if name == "conv":
+        return ("layers", "batch", None, "lru_dim")
+    if name == "c_kv":
+        return ("layers", "batch", None, "kv_lora")
+    if name == "k_rope":
+        return ("layers", "batch", None, None)
+    return ("batch",) + (None,) * (nd - 1)
+
+
+def cache_logical_axes(cfg):
+    """The tree of each cache leaf's logical axes (the decode step's
+    shardings), by leaf name; a leaf the rules do not name shards its
+    first dim as ``batch``."""
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        return _leaf_axes(name, len(tree.shape))
+
+    return walk(cache_spec(cfg, 2, 8), None)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):

@@ -88,6 +88,19 @@ def build(decls, generator: torch.Generator, dtype=torch.float32,
         lambda d: d.materialize(generator, dtype).to(device), decls)
 
 
+def on_mesh(t) -> bool:
+    """True for a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def axes_of(decls):
+    """The parallel tree of logical-axes tuples (what ``sharding.rules``
+    reads), from the same declarations ``build`` draws."""
+    return tree_map(lambda d: d.logical, decls)
+
+
 def stack_decls(decls, n: int, axis_name: str = "layers"):
     """Lift a per-layer declaration tree to an n-layer stacked tree: prepend
     a ``layers`` dim to every leaf."""
@@ -132,6 +145,87 @@ def apply_norm(params, x, cfg):
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 
+def settle_grad(x):
+    """``x`` itself; on a mesh, its gradient arrives in ``x``'s own
+    placements (a pending sum completed, shards gathered) before it flows
+    on.  For a tensor used on several paths whose gradients DTensor would
+    otherwise have to add in placements some releases cannot reconcile (a
+    shard and a pending sum)."""
+    if not on_mesh(x):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(grad_placements=x.placements),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: DTensor's backward
+    of a reshape views a block's gradient, which some releases refuse on
+    a permuted one (an attention block's k and v)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_blocks(fn, args, roles, out_roles):
+    """``fn(*args)`` of tensors whose dims named in ``roles`` (one tuple
+    per argument: a name such as "b" or "h" per independent dim, None
+    elsewhere) are computed independently, and ``out_roles`` the same of
+    its output (a tuple of them for several outputs).  On DTensors it
+    runs on each rank's block, as ``local_map`` runs a function: every
+    mesh dim that shards the first argument along a named dim shards each
+    argument along its dim of that name (a dim of size 1 broadcasts and
+    stays whole), every other dim is replicated and a pending sum
+    completed first; plain tensors join replicated.  Autograd runs
+    through ``to_local`` / ``from_local``.  Off a mesh: ``fn(*args)``."""
+    if not on_mesh(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = args[0].device_mesh
+    axes = [roles[0][p.dim] if p.is_shard() else None
+            for p in args[0].placements]
+
+    def placements(rl, shape=None):
+        return [Shard(rl.index(r)) if r is not None and r in rl and (
+            shape is None or shape[rl.index(r)] > 1) else Replicate()
+            for r in axes]
+
+    local = []
+    for a, rl in zip(args, roles):
+        if isinstance(a, torch.Tensor):
+            if not on_mesh(a):
+                a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+            a = a.redistribute(mesh, placements(rl, a.shape)).to_local()
+            if a.requires_grad:
+                a = _ContiguousGrad.apply(a)
+        local.append(a)
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(y, mesh, placements(rl),
+                                        run_check=False)
+                     for y, rl in zip(out, out_roles))
+    return DTensor.from_local(out, mesh, placements(out_roles),
+                              run_check=False)
+
+
+def _elementwise(fn, *xs):
+    """``fn`` of elementwise, position-free tensors of one shape: on
+    DTensors, of each rank's block (``on_blocks``, every dim
+    independent), since ``prng``'s bit-level formulas have no sharding
+    rules of their own."""
+    dims = tuple(range(xs[0].ndim))
+    return on_blocks(fn, xs, (dims,) * len(xs), dims)
+
+
 def _cpu_unary(name: str, fwd, bwd):
     """An elementwise function for CPU tensors as an autograd Function:
     the forward ``fwd(x)`` on ``x`` in f32 (XLA's formula, bit for bit,
@@ -139,17 +233,18 @@ def _cpu_unary(name: str, fwd, bwd):
     g)`` in f32, jax's derivative rule for the same primitive (``y`` the
     f32 output), so a gradient never differentiates through ``prng``'s
     bit manipulations (``prng.log`` builds its result from integer views,
-    which carry no gradient)."""
+    which carry no gradient).  On a DTensor both run on each rank's block
+    (``_elementwise``)."""
 
     def forward(ctx, x):
         xf = x.to(torch.float32)
-        y = fwd(xf)
+        y = _elementwise(fwd, xf)
         ctx.save_for_backward(xf, y)
         return y.to(x.dtype)
 
     def backward(ctx, g):
         xf, y = ctx.saved_tensors
-        return bwd(xf, y, g.to(torch.float32)).to(g.dtype)
+        return _elementwise(bwd, xf, y, g.to(torch.float32)).to(g.dtype)
 
     return type(name, (torch.autograd.Function,),
                 {"forward": staticmethod(forward),
@@ -180,6 +275,13 @@ _log_sigmoid = _cpu_unary(
     lambda x, y, g: g * prng.exp(_no_inf(-x) - _no_inf(-y)))
 
 
+def _card_form(x) -> bool:
+    """True where torch's own elementwise ops run: on every device but
+    the CPU (CUDA, and ``meta``, where the dry run counts the card's
+    program); the CPU takes the reference's formulas below."""
+    return x.device.type != "cpu"
+
+
 def silu(x):
     """SiLU, ``x * sigmoid(x)`` as jax writes it.  On the CPU in f32 with
     the reference's own exp (``prng.exp``): torch's vectorised CPU loops
@@ -189,7 +291,7 @@ def silu(x):
     forbids (a slot's bytes are the same in any batch).  On CUDA every
     element takes the same path already.  Its gradient is the product
     rule over ``sigmoid``'s, as jax differentiates it."""
-    if x.is_cuda:
+    if _card_form(x):
         return F.silu(x)
     xf = x.to(torch.float32)
     return (xf * _sigmoid(xf)).to(x.dtype)
@@ -199,7 +301,7 @@ def softplus(x):
     """jax's ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``; on the CPU
     with the reference's exp and log1p (``prng``), position-free for the
     reason ``silu`` gives, and jax's gradient ``exp(x - softplus(x))``."""
-    if x.is_cuda:
+    if _card_form(x):
         return F.softplus(x)
     return _softplus(x)
 
@@ -209,7 +311,7 @@ def exp(x):
     exp, bit for bit: ``prng.exp``), which differs from torch's in a tenth
     of all entries by an ULP, with the gradient ``t * e^x``; on CUDA
     torch's."""
-    if x.is_cuda:
+    if _card_form(x):
         return torch.exp(x)
     return _exp(x)
 
@@ -218,7 +320,7 @@ def sigmoid(x):
     """``1 / (exp(-x) + 1)``, XLA's expansion of the logistic; on the CPU
     by ``exp`` (position-free, as ``silu``: torch's CPU ``sigmoid`` takes
     another path at a tensor's tail), with the gradient ``t y (1 - y)``."""
-    if x.is_cuda:
+    if _card_form(x):
         return torch.sigmoid(x)
     return _sigmoid(x)
 
@@ -226,8 +328,12 @@ def sigmoid(x):
 def log_sigmoid(x):
     """jax's ``-softplus(-x) = min(x, 0) - log1p(exp(-|x|))``; on the CPU
     with XLA's exp and log1p (``prng``), position-free, and softplus's
-    gradient at -x."""
-    if x.is_cuda:
+    gradient at -x.  A DTensor off the CPU takes that formula in torch's
+    ops: ``F.logsigmoid``'s backward has no sharding rule."""
+    if _card_form(x):
+        if on_mesh(x):
+            return torch.clamp(x, max=0.0) - torch.log1p(
+                torch.exp(-torch.abs(x)))
         return F.logsigmoid(x)
     return _log_sigmoid(x)
 
@@ -241,7 +347,7 @@ def tanh(x):
     tanh, bit for bit: ``prng.tanh``), which differs from torch's in a
     third of all entries by an ULP, with jax's gradient ``(t + t y)(1 -
     y)``; on CUDA torch's."""
-    if x.is_cuda:
+    if _card_form(x):
         return torch.tanh(x)
     return _tanh(x)
 
@@ -249,7 +355,7 @@ def tanh(x):
 def softmax(x, dim: int = -1):
     """``exp(x - max) / sum`` over ``dim``, as ``jax.nn.softmax`` writes
     it; on the CPU through ``exp`` (position-free), on CUDA torch's."""
-    if x.is_cuda:
+    if _card_form(x):
         return torch.softmax(x, dim=dim)
     e = exp(x - torch.amax(x, dim=dim, keepdim=True).detach())
     return e / torch.sum(e, dim=dim, keepdim=True)
@@ -265,7 +371,7 @@ def _gelu_tanh(x):
     multiply-add, the reference's ``tanh``), by elementwise ops (torch's
     fused CPU ``gelu`` is not position-free, as ``silu``); its gradient is
     the chain rule over them, as jax differentiates the formula."""
-    if x.is_cuda:
+    if _card_form(x):
         return F.gelu(x, approximate="tanh")
     xf = x.to(torch.float32)
     inner = _SQRT_2_OVER_PI * prng.fma(xf * xf * xf, _f32(0.044715), xf)

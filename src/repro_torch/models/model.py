@@ -19,15 +19,18 @@ from the encoder once per request.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cache import cache_spec, init_cache  # re-export
-from repro_torch.models.common import (P, apply_norm, build, dtype_of,
-                                       norm_decl, softcap)
+from repro_torch.models.common import (P, apply_norm, axes_of, build,
+                                       dtype_of, norm_decl, on_mesh,
+                                       settle_grad, softcap, tree_map)
 
-__all__ = ["model_decls", "init_params", "forward", "loss_fn",
-           "decode_step", "prefill_audio_cache", "init_cache", "cache_spec"]
+__all__ = ["model_decls", "init_params", "param_logical_axes",
+           "param_shapes", "forward", "loss_fn", "decode_step",
+           "prefill_audio_cache", "init_cache", "cache_spec"]
 
 
 def model_decls(cfg):
@@ -55,6 +58,20 @@ def init_params(cfg, seed_or_generator, *, device=None):
     return build(model_decls(cfg), gen, dtype_of(cfg.param_dtype), device=dev)
 
 
+def param_logical_axes(cfg):
+    """The tree of each parameter's logical axes (``sharding.rules``)."""
+    return axes_of(model_decls(cfg))
+
+
+def param_shapes(cfg):
+    """The parameters as ``meta`` tensors of their shape and
+    ``cfg.param_dtype``: no generator drawn, nothing allocated (the dry
+    run's stand-ins)."""
+    dt = dtype_of(cfg.param_dtype)
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
+                    model_decls(cfg))
+
+
 def _check_dtypes(cfg):
     # jnp.einsum promotes mixed operands; torch.matmul does not.  Every
     # shipped config (and reduced()) keeps params and compute in one type.
@@ -65,7 +82,29 @@ def _check_dtypes(cfg):
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+    """The token embeddings.  A DTensor table (a mesh) is looked up by
+    ``F.embedding``, which keeps a vocab-sharded table in place: each rank
+    gathers the rows it holds, zeros elsewhere, and one sum over the vocab
+    axis completes every row (indexing would move the whole table to the
+    embed dim first); a table sharded on its embed dim instead (a vocabulary
+    the axis does not divide) gives rows sharded there, gathered whole.  The
+    rows leave placed as the residual stream is kept: batch-sharded, every
+    other dim whole.  The same rows either way."""
+    table = params["embed"]
+    if on_mesh(table):
+        from torch.distributed.tensor import Replicate
+
+        # the rows are settled at once: DTensor's masked partial keeps its
+        # mask for one reduction, and the rows feed the norm and the
+        # residual both; their gradient is summed into these placements
+        # before it reaches the lookup's backward, which takes no other
+        # pending sum (a sequence-sharded stream leaves one)
+        x = F.embedding(tokens, table)
+        x = settle_grad(x.redistribute(x.device_mesh, [
+            p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in x.placements]))
+    else:
+        x = table[tokens]
     return x.to(dtype_of(cfg.compute_dtype))
 
 

@@ -24,7 +24,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import P, activation
+from repro_torch.models.common import (P, activation, on_blocks, on_mesh,
+                                       settle_grad)
 from repro_torch.models.mlp import mlp_decls, mlp_forward
 
 
@@ -63,7 +64,12 @@ def route(router_w, x, cfg):
 def _sorted_dispatch(top_i, E: int):
     """Stable sort of the flat expert ids of ``top_i`` (..., T, k) along the
     last (T * k) axis: (order, sorted ids, each expert's first index in
-    the sorted ids (..., E), and its count (..., E))."""
+    the sorted ids (..., E), and its count (..., E)).  On a mesh, each
+    rank sorts its block of groups (``searchsorted`` has no sharding
+    rules)."""
+    if on_mesh(top_i):
+        return on_blocks(lambda t: _sorted_dispatch(t, E), (top_i,),
+                         (("g", None, None),), (("g", None),) * 4)
     flat_e = top_i.reshape(*top_i.shape[:-2], -1)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = torch.gather(flat_e, -1, order)
@@ -126,6 +132,15 @@ def _dispatch_groups(xt, top_w, top_i, w, cfg, C):
     buf = torch.gather(xt, 1, tok.reshape(G, -1, 1).expand(-1, -1, d))
     buf = buf.reshape(G, E, C, d) * live[..., None].to(xt.dtype)
     out_buf = _expert_ffn(buf, w, cfg)                          # (G, E, C, d)
+    if on_mesh(out_buf):
+        # the combine reads any expert's rows: the experts' dim made whole
+        # (an all-gather over the axes that shard it) before the gather,
+        # whose backward then scatters into a whole gradient (a sharded
+        # one would need a pending sum some releases cannot place)
+        from torch.distributed.tensor import Replicate
+        out_buf = out_buf.redistribute(out_buf.device_mesh, [
+            Replicate() if p.is_shard() and p.dim == 1 else p
+            for p in out_buf.placements])
 
     pos = _positions(order, sorted_e, first)
     flat_e = top_i.reshape(G, -1)
@@ -158,7 +173,9 @@ def moe_forward(params, x, cfg):
     T = B * S
     xt = x.reshape(T, d)
     k = cfg.experts_per_token
-    top_w, top_i, aux = route(params["router"], xt, cfg)
+    # the tokens feed the router, the dispatch and the shared experts: on a
+    # mesh each path's gradient is settled before they are summed
+    top_w, top_i, aux = route(params["router"], settle_grad(xt), cfg)
 
     G = cfg.moe_groups or 1
     if not (G > 1 and T % G == 0):
@@ -166,9 +183,9 @@ def moe_forward(params, x, cfg):
     Tg = T // G
     C = max(int(math.ceil(Tg * k / cfg.num_experts * cfg.capacity_factor)),
             1)
-    y = _dispatch_groups(xt.reshape(G, Tg, d), top_w.reshape(G, Tg, k),
-                         top_i.reshape(G, Tg, k), params["experts"], cfg,
-                         C).reshape(T, d)
+    y = _dispatch_groups(settle_grad(xt).reshape(G, Tg, d),
+                         top_w.reshape(G, Tg, k), top_i.reshape(G, Tg, k),
+                         params["experts"], cfg, C).reshape(T, d)
     if cfg.num_shared_experts:
-        y = y + mlp_forward(params["shared"], xt[None], cfg)[0]
+        y = y + mlp_forward(params["shared"], settle_grad(xt)[None], cfg)[0]
     return y.reshape(B, S, d), aux

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import P, rms_norm, silu, softplus
+from repro_torch.models.common import (P, on_blocks, on_mesh, rms_norm,
+                                       silu, softplus)
 
 
 def _a_log_init(generator, shape, dtype):
@@ -56,6 +57,9 @@ def _pad_seq(a, pad: int):
     """Zero-pad dim 1 (the sequence) at the tail."""
     return torch.cat([a, a.new_zeros((a.shape[0], pad, *a.shape[2:]))],
                      dim=1)
+
+
+_BSHX = ("b", None, "h", None)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
@@ -150,6 +154,16 @@ def ssm_forward(params, x, cfg, use_kernel: bool = False):
 
     if use_kernel:
         y = kops.ssd_scan(xh, dt, A, Bh, Ch, chunk=cfg.chunk_size)
+    elif on_mesh(xh):
+        # each rank scans its block of (batch, heads), B and C repeated to
+        # the heads first (head h reads group h // (H / G))
+        Bh, Ch = (t[:, :, :, None].expand(B, S, G, H // G, N)
+                  .reshape(B, S, H, N) for t in (Bh, Ch))
+        y, _ = on_blocks(
+            lambda *a: ssd_chunked(*a, cfg.chunk_size),
+            (xh, dt, A, Bh, Ch),
+            (_BSHX, ("b", None, "h"), ("h",), _BSHX, _BSHX),
+            (_BSHX, ("b", "h", None, None)))
     else:
         y, _ = ssd_chunked(xh, dt, A, Bh, Ch, cfg.chunk_size)
     y = y + xh * params["D"].to(y.dtype)[None, None, :, None]
@@ -199,7 +213,10 @@ def ssm_decode(params, x, cfg, state):
 
     upd = Bh.to(f32)[..., :, None] * (xh.to(f32) * dt[..., None])[..., None, :]
     ssd = state["ssd"] * dA[..., None, None] + upd
-    y = torch.einsum("bhn,bhnp->bhp", Ch.to(f32), ssd)
+    y = on_blocks(lambda c, st: torch.einsum("bhn,bhnp->bhp", c, st),
+                  (Ch.to(f32), ssd),
+                  (("b", "h", None), ("b", "h", None, None)),
+                  ("b", "h", None))
     y = y.to(x.dtype) + xh * params["D"].to(x.dtype)[None, :, None]
     y = y.reshape(B, cfg.d_inner)
     y = rms_norm(y * silu(z.to(f32)).to(y.dtype),

@@ -31,10 +31,19 @@ layer.
 
 Recomputation repeats the same operations on the same inputs, so the loss
 and every gradient equal ``"none"``'s bitwise.  Without autograd (decode,
-``torch.no_grad``) remat is a no-op.  ``cfg.seq_shard`` pins the residual
-stream's sequence dim to a mesh's model axis in the reference (Megatron
-sequence parallelism); on one device there is no such axis, so it changes
-nothing here.
+``torch.no_grad``) remat is a no-op.
+
+On a mesh the residual stream is a DTensor, and each residual add places
+both its terms as the stream is kept (``_residual``): batch-sharded,
+every other dim whole, so the pending sum of a tensor-parallel output
+projection is all-reduced there, once, and every norm and projection
+reads a settled stream.  ``cfg.seq_shard`` is Megatron sequence
+parallelism, as the reference's ``_seq_shard`` pins it in its dense
+layers: there the stream is sharded over the ``model`` axis along its
+sequence dim (``Shard(1)``) instead, so the pending sum arrives as a
+reduce-scatter and the next norm's input is all-gathered, where plain
+tensor parallelism all-reduces the whole stream.  On plain tensors (one
+device) neither changes anything.
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (apply_norm, norm_decl, stack_decls,
-                                       tree_leaves, tree_map)
+from repro_torch.models.common import (apply_norm, norm_decl, on_mesh,
+                                       stack_decls, tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -103,27 +112,53 @@ def _zero(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _stream(x, cfg, seq: bool):
+    """The placements the residual stream keeps on a mesh: its batch dim
+    sharded as it is, its sequence dim over the ``model`` axis where
+    ``seq`` and ``cfg.seq_shard`` (the reference's ``_seq_shard``), every
+    other dim whole, a pending sum completed."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    pl = [Shard(1) if seq and cfg.seq_shard and name == "model"
+          else p if p.is_shard() and p.dim == 0 else Replicate()
+          for name, p in zip(mesh.mesh_dim_names, x.placements)]
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(mesh,
+                                                                      pl)
+
+
+def _residual(x, h, cfg, seq: bool = False):
+    """``x + h``, a residual add.  On a mesh both terms are placed as the
+    stream keeps them (``_stream``) first, so a layer's pending sum (the
+    tensor-parallel output projection's) arrives as one all-reduce, or as
+    a reduce-scatter of the sequence-sharded stream in a dense layer
+    under ``cfg.seq_shard`` (the module docstring)."""
+    if not on_mesh(x):
+        return x + h
+    return _stream(x, cfg, seq) + _stream(h, cfg, seq)
+
+
 def dense_layer_fwd(p, x, cfg, positions, *, causal=True, window=0,
                     use_flash=False):
     h = attn.attn_forward(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
                           positions=positions, causal=causal, window=window,
                           use_flash=use_flash)
-    x = x + h
+    x = _residual(x, h, cfg, seq=True)
     h = mlp_mod.mlp_forward(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x + h, _zero(x)
+    return _residual(x, h, cfg, seq=True), _zero(x)
 
 
 def mla_layer_fwd(p, x, cfg, positions):
     h = attn.mla_forward(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
                          positions=positions)
-    x = x + h
+    x = _residual(x, h, cfg)
     if "moe" in p:
         h, aux = moe_mod.moe_forward(p["moe"], apply_norm(p["norm2"], x, cfg),
                                      cfg)
     else:
         h = mlp_mod.mlp_forward(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
         aux = _zero(x)
-    return x + h, aux
+    return _residual(x, h, cfg), aux
 
 
 def moe_layer_fwd(p, x, cfg, positions):
@@ -131,35 +166,35 @@ def moe_layer_fwd(p, x, cfg, positions):
         return mla_layer_fwd(p, x, cfg, positions)
     h = attn.attn_forward(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
                           positions=positions)
-    x = x + h
+    x = _residual(x, h, cfg)
     h, aux = moe_mod.moe_forward(p["moe"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x + h, aux
+    return _residual(x, h, cfg), aux
 
 
 def ssm_layer_fwd(p, x, cfg, use_kernel=False):
     h = ssm_mod.ssm_forward(p["ssm"], apply_norm(p["norm"], x, cfg), cfg,
                             use_kernel=use_kernel)
-    return x + h, _zero(x)
+    return _residual(x, h, cfg), _zero(x)
 
 
 def rec_layer_fwd(p, x, cfg):
     h = rglru_mod.rglru_block_forward(p["rec"], apply_norm(p["norm1"], x, cfg),
                                       cfg)
-    x = x + h
+    x = _residual(x, h, cfg)
     h = mlp_mod.mlp_forward(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x + h, _zero(x)
+    return _residual(x, h, cfg), _zero(x)
 
 
 def dec_layer_fwd(p, x, enc_out, cfg, positions):
     h = attn.attn_forward(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
                           positions=positions, causal=True)
-    x = x + h
+    x = _residual(x, h, cfg)
     h = attn.cross_attn_forward(p["cross"],
                                 apply_norm(p["norm_cross"], x, cfg), enc_out,
                                 cfg)
-    x = x + h
+    x = _residual(x, h, cfg)
     h = mlp_mod.mlp_forward(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
-    return x + h, _zero(x)
+    return _residual(x, h, cfg), _zero(x)
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)

@@ -56,13 +56,18 @@ def _lr_scale(lr, step, lead: int):
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 sqrt.  CUDA's is; torch's vectorized CPU sqrt
     (MKL's) is not, so the CPU takes it in f64, whose rounding to f32 is
-    the correctly rounded f32 root."""
-    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+    the correctly rounded f32 root (``meta``, the dry run's device, counts
+    the card's)."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
 
 
 def _f32_zeros(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """f32 zeros in each leaf's layout (a DTensor leaf's placements)."""
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
 
 
 def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:

@@ -19,7 +19,8 @@ _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:\.|\s|$)",
 
 
 def test_import_leaves_jax_out_of_the_process():
-    """A fresh interpreter (this one already holds jax via conftest)."""
+    """A fresh interpreter (this one already holds jax via conftest); the
+    mesh and dry-run modules initialize no process group on import."""
     code = ("import sys, repro_torch, repro_torch.core.session, "
             "repro_torch.core.engine, repro_torch.core.federated, "
             "repro_torch.core.protocol, repro_torch.convert, "
@@ -42,9 +43,13 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.launch.train, repro_torch.core.distgan_lm, "
             "repro_torch.analysis, repro_torch.analysis.lint, "
             "repro_torch.analysis.tracecheck, repro_torch.analysis.__main__, "
-            "repro_torch.roofline, repro_torch.roofline.analysis; "
+            "repro_torch.roofline, repro_torch.roofline.analysis, "
+            "repro_torch.sharding, repro_torch.sharding.rules, "
+            "repro_torch.launch.dryrun; "
+            "import torch.distributed as dist; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "bad += ['a process group'] if dist.is_initialized() else []; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

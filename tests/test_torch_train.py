@@ -326,7 +326,10 @@ def test_train_launcher_end_to_end_and_resume(tmp_path):
 
 
 def test_train_launcher_takes_one_device_only():
+    """One device unless the ranks of a mesh are given a backend: ``--data
+    2`` alone is refused, naming ``--backend`` (the mesh runs are
+    ``tests/test_torch_mesh_train.py``'s)."""
     r = _launch("--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
                 "--data", "2", "--device", "cpu")
     assert r.returncode != 0
-    assert "item 13" in r.stderr
+    assert "--backend" in r.stderr
