@@ -286,8 +286,29 @@ it goes wrong:
    full width on ``--data 1 --model 2`` (2 gloo ranks), B 1 x 2048 bf16,
    2 steps: step 0's loss within MESH_FULL_RTOL of the 1 x 1 launcher's
    on the same weights and batch, the gap printed;
-23. the result: a ``kernels`` JSON line, the card line, and as the last
+23. the example twins (``repro_torch.examples``): (a) B1 and B2 held
+   BITWISE to their plain versions and timed at each (rows, D row width,
+   upload fraction) the twins give them (``EXAMPLE_WIDTHS``: the 2-D MLP
+   pairs' rows of 17,025, 4,417 and 1,185 at hidden 128, 64 and 32), the
+   event and device ms beside the bound as in phase 12; (b) all ten twins
+   in this process through ``main(argv)`` at the reference's default sizes
+   (``EXAMPLES``: ``distgan_compress --quick``, ``distgan_mnist --steps
+   48``, ``distgan_spmd_multiuser --backend gloo --steps 32`` on 5 gloo
+   ranks sharing the card), the launch counts zeroed before each and held
+   to the B1 and B2 launches its spec gives (one B1 a round of every top-k
+   run, one quantize and one dequantize a round of every int8 run and one
+   more on each ``stage_rows`` leg; none for quickstart and serve_batched;
+   each SPMD rank's own counts), no plain version called, and each twin's
+   contract: fused-store staleness equal and the first 8 losses within
+   1e-6 (the twin's own check), multihost ``BITWISE MATCH``, served ==
+   replay and the hot swap serving new bytes, ``bytes_match_greedy=True``,
+   finite losses; each twin's rows and wall seconds on ``[examples]``
+   lines beside the card's name and power limit;
+24. the result: a ``kernels`` JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
+
+``--phase22`` and ``--phase23`` run phase 21 (b) and 22, or phase 23, alone
+(no result line).
 
 Needs one CUDA device and nvcc; imports nothing of JAX.
 """
@@ -441,6 +462,44 @@ MESH_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "8",
 MESH_FULL_ARGS = ["--arch", "tinyllama-1.1b", "--batch", "1", "--seq",
                   "2048", "--log-every", "1"]
 PHASE22_TIMEOUT = 900
+# Phase 23, the example twins: B1 and B2 at each (rows, D row width, upload
+# fraction) the twins give them — the 2-D MLP pairs' D rows at hidden 128
+# (cohort, stream, compress), 64 (fused store) and 32 (multihost; serve
+# with 8 members, 4 under --quick)
+EXAMPLE_WIDTHS = ((8, 17025, 0.5), (8, 17025, 0.1), (8, 4417, 0.5),
+                  (8, 1185, 0.5), (8, 1185, 0.3), (4, 1185, 0.3))
+EXAMPLE_PAIRS = {17025: (128, 16), 4417: (64, 16), 1185: (32, 8)}
+# each twin through main(argv) at the reference's default sizes, with the
+# B1 launches and the B2 launches (quantize = dequantize) its spec gives in
+# this process: cohort 400 rounds; stream 3 U x 2 approaches x 600; fused
+# store 3 modes x 192; compress 2 U x 7 variants x 200, the int8 and
+# topk_int8 runs (+-EF) with B2; multihost 60 fleet + 60 restored + 2 x 60
+# host-backend rounds, B2 in the round and on the stage_rows legs; serve 24
+# + 12 rounds; mnist approach 1's 48; the SPMD twin's ranks count their own
+# (EXAMPLE_SPMD_B1 each in approach 1)
+EXAMPLES = (
+    ("quickstart", [], 0, 0),
+    ("distgan_cohort", [], 400, 0),
+    ("distgan_stream", [], 3 * 2 * 600, 0),
+    ("distgan_fused_store", [], 3 * 192, 0),
+    ("distgan_compress", ["--quick"], 2 * 7 * 200, 2 * 4 * 200),
+    ("distgan_multihost", [], 4 * 60, 2 * 4 * 60),
+    ("distgan_serve", [], 24 + 12, 0),
+    ("serve_batched", [], 0, 0),
+    ("distgan_mnist", ["--steps", "48"], 48, 0),
+    ("distgan_spmd_multiuser", ["--backend", "gloo", "--steps", "32"], 0, 0),
+)
+EXAMPLE_SPMD_B1 = 32
+# B1 and B2's sources and the TPU kernels they replace, by record name
+CODEC_RECS = {
+    "topk_mask_rows": ("src/repro_torch/kernels/csrc/topk_select.cu",
+                       "src/repro/kernels/topk_select.py:110"),
+    "quantize_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
+                      "src/repro/kernels/quantize.py:83"),
+    "quantize_rows_stochastic": ("src/repro_torch/kernels/csrc/quantize.cu",
+                                 "src/repro/kernels/quantize.py:83"),
+    "dequantize_rows": ("src/repro_torch/kernels/csrc/quantize.cu",
+                        "src/repro/kernels/quantize.py:136")}
 
 
 def _fail(msg: str) -> int:
@@ -540,8 +599,7 @@ def _kernel_phase(torch, dev):
     mask_err = float((tt.topk_mask_rows(main, FRAC).float()
                       - ref.topk_mask_global_ref(main, FRAC).float())
                      .abs().max())
-    record("topk_mask_rows", "src/repro_torch/kernels/csrc/topk_select.cu",
-           "src/repro/kernels/topk_select.py:110",
+    record("topk_mask_rows", *CODEC_RECS["topk_mask_rows"],
            lambda: tt.topk_mask_rows(main, FRAC),
            lambda: ref.topk_mask_global_ref(main, FRAC), lib_topk,
            nbytes=elems * 4 + elems * 1, ops=elems, err=mask_err)
@@ -551,9 +609,8 @@ def _kernel_phase(torch, dev):
         qr, sr = ref.quantize_rows_ref(main, stochastic=stochastic, seed=seed)
         err = max(float((q.float() - qr.float()).abs().max()),
                   float((s - sr).abs().max()))
-        record("quantize_rows" + ("_stochastic" if stochastic else ""),
-               "src/repro_torch/kernels/csrc/quantize.cu",
-               "src/repro/kernels/quantize.py:83",
+        name = "quantize_rows" + ("_stochastic" if stochastic else "")
+        record(name, *CODEC_RECS[name],
                lambda: tq.quantize_rows(main, stochastic=stochastic,
                                         seed=seed),
                lambda: ref.quantize_rows_ref(main, stochastic=stochastic,
@@ -562,8 +619,7 @@ def _kernel_phase(torch, dev):
                ops=elems * (6 if stochastic else 3), err=err)
     deq_err = float((tq.dequantize_rows(q_main, s_main)
                      - ref.dequantize_rows_ref(q_main, s_main)).abs().max())
-    record("dequantize_rows", "src/repro_torch/kernels/csrc/quantize.cu",
-           "src/repro/kernels/quantize.py:136",
+    record("dequantize_rows", *CODEC_RECS["dequantize_rows"],
            lambda: tq.dequantize_rows(q_main, s_main),
            lambda: ref.dequantize_rows_ref(q_main, s_main), None,
            nbytes=elems + MAIN_ROWS * 4 + elems * 4, ops=elems, err=deq_err)
@@ -2253,11 +2309,12 @@ def _conv_width_kernels(torch, dev, recs) -> int:
 
 
 def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
-                key: str, x=None) -> int:
+                key: str, x=None, frac: float = FRAC) -> int:
     """B1 and B2 on (rows, n) Adam-sized deltas (one row of heavy ties,
     one half sparse where there are enough rows), or on the given rows
-    ``x``, held BITWISE to their plain versions and timed; the times go
-    into each record under ``key``.  Returns the number of cases."""
+    ``x``, held BITWISE to their plain versions (B1 at ``frac`` too) and
+    timed (B1 at ``frac``); the times go into each record under ``key``.
+    Returns the number of cases."""
     from repro_torch.kernels import quantize as tq
     from repro_torch.kernels import ref
     from repro_torch.kernels import topk_select as tt
@@ -2269,12 +2326,12 @@ def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
             x[1] = torch.round(x[1] * 2e4) / 2e4         # heavy ties
             x[5, : n // 2] = 0.0                         # half-sparse row
     cases = 0
-    for frac in (FRAC, 0.01, 1.0):
+    for f in dict.fromkeys((FRAC, 0.01, 1.0, frac)):
         cases += 1
-        if not torch.equal(tt.topk_mask_rows(x, frac),
-                           ref.topk_mask_global_ref(x, frac)):
+        if not torch.equal(tt.topk_mask_rows(x, f),
+                           ref.topk_mask_global_ref(x, f)):
             raise AssertionError(f"topk_mask_rows != plain at {rows} x {n}"
-                                 f" frac={frac}")
+                                 f" frac={f}")
     for stochastic, seed in ((False, None), (True, 123), (True, 2**31 - 2)):
         cases += 1
         q, s = tq.quantize_rows(x, stochastic=stochastic, seed=seed)
@@ -2282,7 +2339,7 @@ def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
         if not (torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(
                 tq.dequantize_rows(q, s), ref.dequantize_rows_ref(qr, sr))):
             raise AssertionError(f"codec != plain at {rows} x {n}")
-    k = ref.topk_k(n, FRAC)
+    k = ref.topk_k(n, frac)
     elems = rows * n
     q, s = tq.quantize_rows(x)
 
@@ -2291,8 +2348,8 @@ def _kernels_at(torch, dev, recs, rows: int, n: int, seed: int,
         return torch.abs(x) >= kth
 
     timed = {
-        "topk_mask_rows": (lambda: tt.topk_mask_rows(x, FRAC),
-                           lambda: ref.topk_mask_global_ref(x, FRAC),
+        "topk_mask_rows": (lambda: tt.topk_mask_rows(x, frac),
+                           lambda: ref.topk_mask_global_ref(x, frac),
                            lib_topk, elems * 5, elems),
         "quantize_rows": (lambda: tq.quantize_rows(x),
                           lambda: ref.quantize_rows_ref(x), None,
@@ -4605,6 +4662,163 @@ def _phase22_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The example twins (phase 23)
+# ---------------------------------------------------------------------------
+
+def _example_widths(torch, dev, recs) -> list:
+    """Phase 23 (a): B1 and B2 at each of ``EXAMPLE_WIDTHS``, held BITWISE
+    to their plain versions and timed, each into the records under
+    ``at_example_<rows>x<n>_<frac>``; the widths checked against the twins'
+    pairs first.  Returns one line per width."""
+    from repro_torch.core.approaches import d_flat_layout
+    from repro_torch.core.gan import MLPGanConfig, make_mlp_pair
+
+    for n, (hidden, z) in EXAMPLE_PAIRS.items():
+        got = d_flat_layout(make_mlp_pair(MLPGanConfig(
+            data_dim=2, z_dim=z, g_hidden=hidden, d_hidden=hidden))).n
+        if got != n:
+            raise AssertionError(f"the hidden-{hidden} pair's D row is {got}"
+                                 f" wide, not {n}")
+    lines = []
+    for i, (rows, n, frac) in enumerate(EXAMPLE_WIDTHS):
+        key = f"at_example_{rows}x{n}_{frac}"
+        cases = _kernels_at(torch, dev, recs, rows, n, 10 + i, key,
+                            frac=frac)
+        lines.append({"shape": [rows, n], "frac": frac,
+                      "cases_bitwise": cases,
+                      **{r["name"]: r[key] for r in recs if key in r}})
+    return lines
+
+
+def _brief(row: dict) -> dict:
+    """A twin's row for printing: a list or dict of more than 16 entries
+    as its length and its first and last entries."""
+    out = {}
+    for k, v in row.items():
+        if isinstance(v, (list, dict)) and len(v) > 16:
+            vals = list(v.values()) if isinstance(v, dict) else v
+            v = {"n": len(v), "first": vals[0], "last": vals[-1]}
+        out[k] = v
+    return out
+
+
+def _finite(xs) -> bool:
+    return all(math.isfinite(x) for x in xs)
+
+
+def _twin_contract(name: str, rows: list) -> None:
+    """What a twin's rows must show beyond its own asserts and exit code."""
+    runs = [r for r in rows if "g_losses" in r]
+    ok = all(_finite(r["g_losses"]) for r in runs)
+    if name == "quickstart":
+        ok = _finite(r["loss"] for r in rows if "loss" in r) \
+            and len(rows[-1]["greedy"]) == 12
+    elif name == "distgan_cohort":
+        ok = ok and len(runs) == 1
+    elif name == "distgan_stream":
+        ok = ok and len(runs) == 6
+    elif name == "distgan_fused_store":
+        ok = ok and len(runs) == 3 and len(rows) == 5
+    elif name == "distgan_compress":
+        ok = ok and len(runs) == 14 and all(
+            r["vs_dense_f32_row"] > 1 for r in rows if "vs_dense_f32_row" in r)
+    elif name == "distgan_multihost":
+        ok = ok and rows[-1]["bitwise_match"] is True
+    elif name == "distgan_serve":
+        ok = (rows[1]["served_equals_replay"] and rows[1]["hot_swap_new_bytes"]
+              and rows[1]["score_filtered"] >= rows[1]["score_plain"]
+              and rows[0]["request_programs"] <= rows[0]["buckets"])
+    elif name == "serve_batched":
+        ok = len(rows) == 3 and all(r["bytes_match_greedy"] for r in rows)
+    elif name == "distgan_mnist":
+        ok = len(rows) == 5 and _finite(
+            r["g_loss_last"] for r in rows if "approach" in r)
+    elif name == "distgan_spmd_multiuser":
+        def want(approach):
+            b1 = EXAMPLE_SPMD_B1 if approach == "approach1" else 0
+            return {k: b1 if k == "topk_mask_rows" else 0
+                    for k in rows[0]["launches"][0]}
+        ok = all(len(r["launches"]) == 5 and all(
+            c == want(r["approach"]) for c in r["launches"]) for r in rows)
+    if not ok:
+        raise AssertionError(f"{name}: " + json.dumps(
+            [_brief(r) for r in rows], default=str)[:4000])
+
+
+def _examples_phase(torch, card: str) -> dict:
+    """Phase 23 (b): every twin of ``EXAMPLES`` through ``main(argv)``,
+    its launches counted from zero and held to its spec's, no plain
+    version called, its contract checked; its rows and wall seconds
+    printed.  Returns the launch totals."""
+    import importlib
+
+    from repro_torch.kernels import ops
+
+    totals = dict.fromkeys(("topk_mask_rows", "quantize_rows",
+                            "dequantize_rows"), 0)
+    for name, argv, b1, b2 in EXAMPLES:
+        twin = importlib.import_module(f"repro_torch.examples.{name}")
+        plain = ops.plain_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rows = twin.main(list(argv))
+        except SystemExit as e:
+            raise AssertionError(f"{name} exited with {e.code}") from e
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(topk_mask_rows=b1, quantize_rows=b2, dequantize_rows=b2)
+        for row in rows:
+            print(f"[examples] {card} | {name} | "
+                  + json.dumps(_brief(row), default=str), flush=True)
+        print(f"[examples] {card} | {' '.join([name, *argv])}: {wall:.1f} "
+              f"s, launches {json.dumps(counts)}", flush=True)
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} != {want}")
+        if ops.plain_counts() != plain:
+            raise AssertionError(f"{name} called plain versions: "
+                                 f"{ops.plain_counts()} (was {plain})")
+        _twin_contract(name, rows)
+        for k in totals:
+            totals[k] += counts[k]
+        _free(torch)
+    return totals
+
+
+def _phase23(torch, dev, recs, card: str) -> dict:
+    """Phase 23 (a) then (b), printed; returns (b)'s launch totals."""
+    t0 = time.perf_counter()
+    for line in _example_widths(torch, dev, recs):
+        print(f"[examples] {card} | " + json.dumps(line), flush=True)
+    print(f"[examples] B1/B2 at the twins' widths "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    totals = _examples_phase(torch, card)
+    print(f"[examples] {card} | phase 23 {time.perf_counter() - t0:.1f} s, "
+          f"launches {json.dumps(totals)}", flush=True)
+    return totals
+
+
+def _phase23_only() -> int:
+    """``--phase23``: phase 23 alone (no result line)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device (torch.cuda.is_available() is False)")
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+
+    dev = resolve_device()
+    card = _card_line()
+    print(f"[build] {len(build.sources())} sources in "
+          f"{build.build_all():.2f} s", flush=True)
+    recs = [{"name": n, "source": src, "replaces": rep}
+            for n, (src, rep) in CODEC_RECS.items()]
+    _phase23(torch, dev, recs, card)
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         return _fail(f"{SRC / 'repro_torch'} not found: run from a checkout "
@@ -4821,6 +5035,10 @@ def main() -> int:
     _free(torch)
     _print_phase22(card, roof, t0)
 
+    _free(torch)
+    for name, n in _phase23(torch, dev, recs, card).items():
+        next(r for r in recs if r["name"] == name)["launches"] += n
+
     print(json.dumps({"kernels": recs + [block_rec] + lm_recs + zoo_recs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4840,6 +5058,8 @@ if __name__ == "__main__":
         sys.exit(_phase22_mesh(sys.argv[2]))
     if sys.argv[1:2] == ["--phase22"] and len(sys.argv) == 2:
         sys.exit(_phase22_only())
+    if sys.argv[1:2] == ["--phase23"] and len(sys.argv) == 2:
+        sys.exit(_phase23_only())
     if sys.argv[1:2] == ["--serve-replay"] and len(sys.argv) == 7:
         sys.exit(_serve_replay(sys.argv[2], sys.argv[3],
                                *map(int, sys.argv[4:])))

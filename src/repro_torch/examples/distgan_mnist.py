@@ -38,7 +38,7 @@ def build_dataset(n_per_class=400, size=28):
     return ds, templates
 
 
-def main(argv=None):
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=1500)
     ap.add_argument("--batch", type=int, default=64)
@@ -58,7 +58,7 @@ def main(argv=None):
         pair, DistGANConfig(num_users=2), ds, args.batch, iters=15,
         device=args.device)
     N = 10_000
-    results = {}
+    results, rows = {}, []
     for approach, fcfg in [
         ("baseline", DistGANConfig(num_users=2)),
         ("approach1", DistGANConfig(num_users=2, selection="topk",
@@ -79,6 +79,12 @@ def main(argv=None):
         eff = effective_epoch_time(r, 2, approach, t_base=t_base, t_d=t_d,
                                    per_samples=N, batch_size=args.batch)
         results[approach] = (cov, u1, u2, eff)
+        rows.append({"approach": approach, "coverage": float(cov),
+                     "user1_classes": int(u1), "user2_classes": int(u2),
+                     "g_loss_first": float(r.g_losses[0]),
+                     "g_loss_last": float(r.g_losses[-1]),
+                     "step_ms": r.step_time_s * 1e3, "rounds": args.steps,
+                     "modeled_epoch_s": eff, "device": r.extra["device"]})
         print(f"{approach:10s} | coverage {cov:4.2f} "
               f"(user1 classes {u1}/5, user2 classes {u2}/5) | "
               f"g_loss {r.g_losses[0]:.2f}->{r.g_losses[-1]:.2f} | "
@@ -94,6 +100,9 @@ def main(argv=None):
           f"measured t_base={t_base * 1e3:.2f}ms t_d={t_d * 1e3:.2f}ms)")
     print("paper claim C2: approaches cover BOTH users' private classes "
           "without sharing data — see per-user class counts above.")
+    rows.append({"modeled_speedup": base / best_d, "t_base_ms": t_base * 1e3,
+                 "t_d_ms": t_d * 1e3})
+    return rows
 
 
 if __name__ == "__main__":

@@ -45,7 +45,14 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.analysis.tracecheck, repro_torch.analysis.__main__, "
             "repro_torch.roofline, repro_torch.roofline.analysis, "
             "repro_torch.sharding, repro_torch.sharding.rules, "
-            "repro_torch.launch.dryrun; "
+            "repro_torch.launch.dryrun, repro_torch.examples.quickstart, "
+            "repro_torch.examples.distgan_cohort, "
+            "repro_torch.examples.distgan_stream, "
+            "repro_torch.examples.distgan_fused_store, "
+            "repro_torch.examples.distgan_compress, "
+            "repro_torch.examples.distgan_multihost, "
+            "repro_torch.examples.distgan_serve, "
+            "repro_torch.examples.serve_batched; "
             "import torch.distributed as dist; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -134,3 +141,30 @@ def test_train_launcher_refuses_the_cpu_unless_asked(capsys):
         main(args)
     main(args + ["--device", "cpu"])
     assert "[train] step 0: loss=" in capsys.readouterr().out
+
+
+# each example twin at a small size: main raises before it trains or spawns
+# anything when no card is there and --device is not given
+_TWINS = {
+    "quickstart": ["--steps", "1"],
+    "distgan_cohort": ["--users", "4", "--cohort", "2", "--steps", "1"],
+    "distgan_stream": ["--users", "4", "--cohort", "2", "--steps", "1"],
+    "distgan_fused_store": ["--users", "4", "--cohort", "2", "--steps", "1"],
+    "distgan_compress": ["--users", "4", "--cohort", "2", "--steps", "1"],
+    "distgan_multihost": ["--users", "4", "--workers", "2", "--cohort", "2",
+                          "--steps", "1"],
+    "distgan_serve": ["--quick"],
+    "serve_batched": [],
+    "distgan_mnist": ["--steps", "1"],
+    "distgan_spmd_multiuser": ["--steps", "1"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TWINS))
+def test_example_twins_refuse_the_cpu_unless_asked(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import importlib
+    twin = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        twin.main(_TWINS[name])
