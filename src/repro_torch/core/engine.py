@@ -38,7 +38,9 @@ A graph engine (``_ChunkGraphs``):
   chunk bitwise; the caller's cuDNN settings are put back after;
 * keeps ``kernels.ops``'s launch counts as launches run: the warm-up's and the
   capture's counts are taken back out, and each replay adds the launches its
-  graph holds.
+  graph holds;
+* marks its host work as the spans ``engine.noise``, ``engine.load``,
+  ``engine.capture`` and ``engine.replay`` (``repro_torch.spans``).
 
 The carry's tensors are the graph's static carry, updated in place (the
 reference donates its carry).  A graph engine binds to a carry at its first
@@ -94,6 +96,7 @@ from repro_torch.core.spec import DEFAULT_ROUNDS_PER_JIT, resolve_approach
 from repro_torch.device import deterministic_convolutions, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.spans import span
 
 
 def _stack_metrics(metrics: list) -> dict:
@@ -259,25 +262,29 @@ class _ChunkGraphs:
         inputs = {k: v for k, v in inputs.items() if v is not None}
         k = inputs["reals"].shape[0]
         shape = tuple(inputs["reals"].shape[1:])
-        draws = [self.draw(carry.generator, shape, **_round_noise(noise, r))
-                 for r in range(k)]
+        with span("engine.noise"):
+            draws = [self.draw(carry.generator, shape,
+                               **_round_noise(noise, r)) for r in range(k)]
         g = self.graphs.get(k)
-        if g is None:
-            with deterministic_convolutions():
-                g = self.graphs[k] = self._capture(carry, inputs, draws)
-        else:
+        with span("engine.load"):
+            if g is None:
+                dev = carry.step.device
+                g = _Graph({name: torch.empty_like(t, device=dev)
+                            for name, t in inputs.items()},
+                           NoiseBuffers(draws[0], k, dev))
             g.load(inputs, draws)
-        g.graph.replay()
+        if g.graph is None:
+            with span("engine.capture"), deterministic_convolutions():
+                self.graphs[k] = self._capture(carry, g)
+        with span("engine.replay"):
+            g.graph.replay()
         self.replays += 1
         kops.add_launch_counts(g.launches)
         return carry, g.metrics
 
-    def _capture(self, carry, inputs: dict, draws: list) -> _Graph:
+    def _capture(self, carry, g: _Graph) -> _Graph:
+        """Warm up and capture ``g``, whose buffers hold a chunk's inputs."""
         dev = carry.step.device
-        g = _Graph({name: torch.empty_like(t, device=dev)
-                    for name, t in inputs.items()},
-                   NoiseBuffers(draws[0], len(draws), dev))
-        g.load(inputs, draws)
         noise = g.noise.round_views()
         if self.stream is None:
             self.stream = torch.cuda.Stream(dev)

@@ -70,6 +70,7 @@ from repro_torch.core.spec import (FederationSpec, register_backend,
 from repro_torch.device import deterministic_convolutions, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import tree_map
+from repro_torch.spans import span
 
 # pre-stage a whole window's batches on the device when below this (else
 # the fused engine stages chunk by chunk)
@@ -206,19 +207,20 @@ class _Stager:
         return out
 
     def _prefetch(self, start: int, k: int) -> None:
-        if len(self.slots) < 2:
-            slot = self._new_slot(start, k)
-        else:
-            slot = self.slots[len(self.staged) % 2]
-            slot.copied.synchronize()     # its host buffer is free again
-            self._draw(start, k, out=slot.host)
-        with torch.cuda.stream(self.stream):
-            if slot.freed is not None:
-                self.stream.wait_event(slot.freed)
-            slot.dev[:k].copy_(slot.host[:k], non_blocking=True)
-            slot.copied = torch.cuda.Event()
-            slot.copied.record(self.stream)
-        self.staged[start] = slot
+        with span("session.stage"):
+            if len(self.slots) < 2:
+                slot = self._new_slot(start, k)
+            else:
+                slot = self.slots[len(self.staged) % 2]
+                slot.copied.synchronize()     # its host buffer is free again
+                self._draw(start, k, out=slot.host)
+            with torch.cuda.stream(self.stream):
+                if slot.freed is not None:
+                    self.stream.wait_event(slot.freed)
+                slot.dev[:k].copy_(slot.host[:k], non_blocking=True)
+                slot.copied = torch.cuda.Event()
+                slot.copied.record(self.stream)
+            self.staged[start] = slot
 
     def _new_slot(self, start: int, k: int) -> _Slot:
         host = self._draw(start, k, rows=self.rpj)
@@ -231,7 +233,8 @@ class _Stager:
         if self.window is not None:
             return self.window[start:start + k]
         if not self.cuda:
-            return self._draw(start, k)
+            with span("session.stage"):
+                return self._draw(start, k)
         if start not in self.staged:
             self._prefetch(start, k)
         slot = self.staged[start]
@@ -662,7 +665,9 @@ class DeviceBackendDriver:
     (``fuse_store_rounds`` picks the engine that writes the store in
     place).  A backend driver is built as ``driver_cls(session,
     defer_state=False)`` and offers ``run``, ``arrays``, ``load_arrays``,
-    ``generator_params`` and ``user_d_flat``.
+    ``generator_params`` and ``user_d_flat``.  A ``fused`` or ``cohort``
+    call marks its staging and its tail after the chunk loop as the spans
+    ``session.stage`` and ``session.finish`` (``repro_torch.spans``).
 
     ``arrays()`` is the checkpointable state: the reference's
     ``DistGANState`` (or ``CohortState``) fields in order as a list, the
@@ -773,29 +778,35 @@ class DeviceBackendDriver:
 
     def _run_fused(self, rounds: int) -> RunResult:
         sess = self.sess
-        reals = self._stager(lambda r: sess._batch_full(), rounds,
-                             sess._probe_nbytes_full())
+        with span("session.stage"):
+            reals = self._stager(lambda r: sess._batch_full(), rounds,
+                                 sess._probe_nbytes_full())
 
         def run_chunk(start: int, k: int, state):
             state, m = self.eng(state, reals.get(start, k))
             reals.after(start, k)
             return state, _fetch(m)        # one host sync per chunk
 
-        return self._run_chunks(run_chunk, rounds)[0]
+        return self._run_chunks(run_chunk, rounds)
 
-    def _run_chunks(self, run_chunk, rounds: int):
-        """Drive a window chunk by chunk; returns its ``RunResult`` and the
-        concatenation of one metric over the window."""
+    def _run_chunks(self, run_chunk, rounds: int, extra=None) -> RunResult:
+        """Drive a window chunk by chunk and return its ``RunResult``;
+        ``extra(cat)``, given the concatenation of one metric over the
+        window, returns more of its ``extra``."""
         rpj = self.sess.spec.engine.rounds_per_jit
         self.state, chunks, compile_s, steady, rates = _drive_chunks(
             run_chunk, self.state, rounds, rpj, self.sess.device)
-        cat = lambda key: np.concatenate([c[key] for c in chunks])
-        step_denom = max(rounds - rpj, 1)
-        res = self._result(cat("g_loss"), cat("d_loss"), cat("kept_frac"),
-                           compile_s, steady, step_denom,
-                           min(rates) if rates else steady / step_denom,
-                           "fused")
-        return res, cat
+        with span("session.finish"):
+            cat = lambda key: np.concatenate([c[key] for c in chunks])
+            step_denom = max(rounds - rpj, 1)
+            res = self._result(cat("g_loss"), cat("d_loss"),
+                               cat("kept_frac"), compile_s, steady,
+                               step_denom,
+                               min(rates) if rates else steady / step_denom,
+                               "fused")
+            if extra is not None:
+                res.extra.update(extra(cat))
+            return res
 
     def _run_per_step(self, rounds: int) -> RunResult:
         sess = self.sess
@@ -836,14 +847,15 @@ class DeviceBackendDriver:
         order, from ``data_rng``."""
         sess = self.sess
         U, C = sess.fcfg.num_users, sess.cohort_size
-        schedule = sess._next_schedule(rounds)
-        wts = sess._next_weights(schedule)
-        reals = self._stager(lambda r: sess._batch_cohort(schedule[r]),
-                             rounds, sess._probe_nbytes_cohort(schedule))
-        sched_dev = torch.from_numpy(schedule.astype(np.int64)).to(
-            sess.device)
-        wts_dev = None if wts is None else torch.from_numpy(wts).to(
-            sess.device)
+        with span("session.stage"):
+            schedule = sess._next_schedule(rounds)
+            wts = sess._next_weights(schedule)
+            reals = self._stager(lambda r: sess._batch_cohort(schedule[r]),
+                                 rounds, sess._probe_nbytes_cohort(schedule))
+            sched_dev = torch.from_numpy(schedule.astype(np.int64)).to(
+                sess.device)
+            wts_dev = None if wts is None else torch.from_numpy(wts).to(
+                sess.device)
 
         def run_chunk(start: int, k: int, cstate):
             w = None if wts_dev is None else wts_dev[start:start + k]
@@ -852,20 +864,22 @@ class DeviceBackendDriver:
             reals.after(start, k)
             return cstate, _fetch(m)       # one host sync per chunk
 
-        res, cat = self._run_chunks(run_chunk, rounds)
-        staleness = (sess.round + rounds
-                     - self.state.store.last_round.cpu().numpy())
-        res.extra.update({
-            "participation": sess.spec.participation.scheduler,
-            "cohort_size": C, "schedule": schedule,
-            "participation_counts": np.bincount(schedule.ravel(),
-                                                minlength=U),
-            "staleness": staleness, "mean_age": cat("mean_age"),
-            "state_backend": "device", "fused_store": self.fused_store,
-            "adaptive_server_scale":
-                sess.spec.combine.adaptive_server_scale,
-            **({"participation_weights": wts} if wts is not None else {})})
-        return res
+        def extra(cat) -> dict:
+            staleness = (sess.round + rounds
+                         - self.state.store.last_round.cpu().numpy())
+            return {
+                "participation": sess.spec.participation.scheduler,
+                "cohort_size": C, "schedule": schedule,
+                "participation_counts": np.bincount(schedule.ravel(),
+                                                    minlength=U),
+                "staleness": staleness, "mean_age": cat("mean_age"),
+                "state_backend": "device", "fused_store": self.fused_store,
+                "adaptive_server_scale":
+                    sess.spec.combine.adaptive_server_scale,
+                **({"participation_weights": wts} if wts is not None
+                   else {})}
+
+        return self._run_chunks(run_chunk, rounds, extra)
 
 
 register_backend("device", DeviceBackendDriver, streams=False)

@@ -21,12 +21,14 @@ window's steady ms per round (``RunResult.step_time_s``: its last three
 chunks, staging excluded), device-busy ms per round (the union of kernel
 and memcpy intervals on the device), the idle share against the window's
 wall and against the steady round, device operations per round, the time
-in this package's own kernels, the top device kernels by time and the top
-host operations by self CPU time.  For the graph it also takes
-one chunk apart (``breakdown``, per round, best of 5): the host's noise
-draws, loading them and the reals into the graph's buffers, the
-``replay()`` call, and the replay's device time between CUDA events.
-``--trace`` writes the graph run's Chrome trace.
+in this package's own kernels, the top device kernels by time, the top host
+operations by self CPU time, and (``breakdown``) the profiled chunk taken
+apart by the program's spans (``repro_torch.spans``): for each of them its
+calls, and the host ms and the device-idle ms under it per round: the
+window's staging, the chunk's noise draws, loading the graph's buffers, the
+``replay()`` call and the call's tail (the graph run has all of them, the
+eager chunk the session's two).  ``--trace`` writes the graph run's Chrome
+trace, spans included.
 
 ``--host`` profiles the host streaming backend instead (``--users``
 logical users, default 256, a uniform cohort of 8, ``topk_int8`` with
@@ -63,6 +65,7 @@ from repro_torch.core.spec import (BackendSpec, CombineSpec,
                                    CompressionSpec, EngineSpec,
                                    FederationSpec, ParticipationSpec)
 from repro_torch.data import digits_like_mixture, dirichlet_partition
+from repro_torch.spans import PREFIX
 
 # the kernels of csrc/topk_select.cu and csrc/quantize.cu (B1, B2)
 _OWN = ("topk_mask_cluster", "quantize_cluster", "dequantize")
@@ -119,13 +122,15 @@ def _profile(sess, rounds: int, trace: str | None) -> dict:
     if trace:
         prof.export_chrome_trace(trace)
 
-    kernels, intervals = {}, []
+    kernels, intervals, spans = {}, [], {}
     launches = 0
     for ev in prof.events():
-        if ev.device_type.name != "CUDA":
-            continue
         start = ev.time_range.start
         end = ev.time_range.end
+        if ev.device_type.name != "CUDA":
+            if ev.name.startswith(PREFIX):
+                spans.setdefault(ev.name, []).append((start, end))
+            continue
         intervals.append((start, end))
         launches += 1
         kernels.setdefault(ev.name, [0, 0.0])
@@ -138,6 +143,17 @@ def _profile(sess, rounds: int, trace: str | None) -> dict:
     own_ms = sum(v[1] for k, v in kernels.items()
                  if any(k.startswith(o) or f" {o}" in k or f"::{o}" in k
                         for o in _OWN))
+    breakdown = {}
+    for name, found in sorted(spans.items()):
+        # flat spans: those of one name do not overlap
+        span_ms = sum(e - s for s, e in found) / 1e3
+        idle = span_ms - sum(
+            _busy_ms([(max(a, s), min(b, e))
+                      for a, b in intervals if a < e and b > s])
+            for s, e in found)
+        breakdown[name] = {"calls": len(found),
+                           "host_ms_per_round": span_ms / r,
+                           "device_idle_ms_per_round": idle / r}
     return {
         "wall_ms_per_round_unprofiled": plain_wall * 1e3 / r,
         "wall_ms_per_round_profiled": wall * 1e3 / r,
@@ -152,43 +168,8 @@ def _profile(sess, rounds: int, trace: str | None) -> dict:
         "top_host_ops": [{"name": a.key[:60], "calls_per_round": a.count / r,
                           "self_cpu_ms_per_round":
                               a.self_cpu_time_total / 1e3 / r}
-                         for a in host[:12]]}
-
-
-def _replay_breakdown(sess, rounds: int, reps: int = 5) -> dict:
-    """One chunk of the session's graph engine taken apart, best of
-    ``reps``: the host's noise draws for the chunk, loading them and the
-    reals into the graph's buffers, the ``replay()`` call itself, and the
-    replay's device time between CUDA events (on the state as it stands)."""
-    graphs = sess._driver.eng.graphs
-    g, carry = graphs.graphs[rounds], graphs.carry
-    shape = tuple(g.inputs["reals"].shape[1:])
-    best = dict.fromkeys(("draw_ms", "load_ms", "replay_call_ms",
-                          "replay_device_ms"), float("inf"))
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        draws = [graphs.draw(carry.generator, shape) for _ in range(rounds)]
-        t1 = time.perf_counter()
-        g.load(g.inputs, draws)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        start, end = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        start.record()
-        t3 = time.perf_counter()
-        g.graph.replay()
-        t4 = time.perf_counter()
-        end.record()
-        torch.cuda.synchronize()
-        for key, value in (("draw_ms", t1 - t0), ("load_ms", t2 - t1),
-                           ("replay_call_ms", t4 - t3)):
-            best[key] = min(best[key], value * 1e3)
-        best["replay_device_ms"] = min(best["replay_device_ms"],
-                                       start.elapsed_time(end))
-    out = {f"{k}_per_round": v / rounds for k, v in best.items()}
-    out["graph_lengths"] = sorted(graphs.graphs)
-    return out
+                         for a in host[:12]],
+        "breakdown": breakdown}
 
 
 HOST_MODES = ("sync", "no_prefetch", "async", "superbatch", "stage_rows")
@@ -331,8 +312,6 @@ def main() -> None:
                                                  "approach1")
         out[name] = _profile(sess, args.rounds,
                              args.trace if name == "graph" else None)
-        if name == "graph":
-            out[name]["breakdown"] = _replay_breakdown(sess, args.rounds)
         del sess
     print(json.dumps(out))
 

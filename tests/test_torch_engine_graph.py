@@ -269,9 +269,9 @@ class _Rehearsal(teng._ChunkGraphs):
     runs nothing); replay runs it on the graph's static buffers and writes
     the static metrics."""
 
-    def _capture(self, carry, inputs, draws):
+    def _capture(self, carry, g):
         saved = [t.clone() for t in teng.carry_tensors(carry)]
-        g = super()._capture(carry, inputs, draws)
+        g = super()._capture(carry, g)
         for t, s in zip(teng.carry_tensors(carry), saved):
             t.copy_(s)
         noise = g.noise.round_views()
@@ -281,7 +281,7 @@ class _Rehearsal(teng._ChunkGraphs):
                 g.metrics[key].copy_(v)
 
         g.graph.fn = fn
-        self.captured.append(len(draws))
+        self.captured.append(g.noise.rounds)
         return g
 
 
